@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``s2p_tpu_torch``) on one GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+CUDA card, ``nvcc`` (CUDA_HOME, PATH or /usr/local/cuda) and the
+packages torch, numpy and scipy; it imports nothing of JAX and nothing of
+the JAX package.  Phases, each timed on a line of its own:
+
+  1. device: the card's name and power limit (nvidia-smi), torch's version;
+  2. build: the three CUDA kernels of stage 4, one nvcc per source in
+     parallel, into s2p_tpu_torch/_build/;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     on the inputs the main path gives it at bucket A's shapes (the cost
+     pre-pass, the four scan passes of each side, the WTA), compared
+     bitwise and NaN-aware, each timed with CUDA events;
+  4. stage 4: synthetic rectified tiles in two buckets (A: 8 tiles padded
+     to 448 x 512 with 80 candidates; B: 2 tiles at the default tile size,
+     padded to 832 x 896 with 96 candidates) through
+     ``pipeline.stereo_matching_all`` on the card; the files it writes are
+     checked for shape and for the known shift of each tile, and two
+     tiles of each bucket are held bitwise against the same entry run
+     with device="cpu" (the plain versions);
+  5. a JSON line with, per kernel, its launches during phase 4, its error
+     against the plain version, its time, the plain version's time and
+     the least time the card could take (bytes over 3.35 TB/s or f32
+     operations over 67 TFLOP/s, H100 SXM data sheet);
+  6. the last line: {"ok": true, "device": {...}}.
+
+Any failure raises, and the script exits non-zero without the last line.
+Without CUDA, or without the package beside it, it fails before any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from contextlib import contextmanager
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+
+BUCKET_A = dict(n=8, h=448, w=512, D=80)
+BUCKET_B = dict(n=2, h=832, w=896, D=96)
+
+
+@contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    print(f'== {name}', flush=True)
+    yield
+    print(f'== {name}: {time.perf_counter() - t0:.3f} s', flush=True)
+
+
+def tile_specs(bucket, first_index):
+    """True extents, ranges and shifts of a bucket's tiles: a little below
+    the padded shape, with different disparity bases."""
+    specs = []
+    for k in range(bucket['n']):
+        h = bucket['h'] - 6 * k - 2
+        w = bucket['w'] - 7 * k - 3
+        d_true = bucket['D'] - k - 1
+        dmin = -(d_true // 3) - 2 * k
+        specs.append(dict(index=first_index + k, h=h, w1=w, w2=w - 2 * (k % 2),
+                          dmin=dmin, dmax=dmin + d_true - 1,
+                          shift=2.0 + 0.5 * k, seed=first_index + k))
+    return specs
+
+
+def make_pair(spec):
+    """Smooth random texture; the reference is the secondary shifted by
+    the tile's known disparity, NaN over a few border rows and columns."""
+    import numpy as np
+    rng = np.random.RandomState(spec['seed'])
+    h, w = spec['h'], max(spec['w1'], spec['w2'])
+    tex = rng.rand(h, w).astype(np.float32) * 200
+    tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, 1, 1)) / 3
+    xs = np.arange(w, dtype=np.float32)
+    ref = np.stack([np.interp(xs + spec['shift'], xs, row) for row in tex])
+    ref = ref.astype(np.float32)[:, :spec['w1']]
+    sec = tex[:, :spec['w2']].copy()
+    ref[:5] = np.nan
+    sec[:, -7:] = np.nan
+    return ref, sec
+
+
+def write_tile(root, spec, ref, sec):
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff
+    pair_dir = os.path.join(root, f"tile_{spec['index']}", 'pair_1')
+    os.makedirs(pair_dir, exist_ok=True)
+    geotiff.write(os.path.join(pair_dir, 'rectified_ref.tif'), ref,
+                  nodata=float('nan'))
+    geotiff.write(os.path.join(pair_dir, 'rectified_sec.tif'), sec,
+                  nodata=float('nan'))
+    np.savetxt(os.path.join(pair_dir, 'disp_min_max.txt'),
+               [spec['dmin'], spec['dmax']])
+    return {'dir': os.path.dirname(pair_dir)}
+
+
+def equal(a, b):
+    """(bitwise equal NaN-aware, max abs error over finite pairs)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False, float('inf')
+    if a.dtype.is_floating_point:
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        same = (a == b) | both_nan
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+        if (torch.isnan(a) != torch.isnan(b)).any():
+            err = float('inf')
+        return bool(same.all()), err
+    same = a == b
+    err = (a.long() - b.long()).abs().max().item() if a.numel() else 0
+    return bool(same.all()), float(err)
+
+
+def timed(fn, reps):
+    """Median ms of ``reps`` runs between CUDA events, after one warm run."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_OPS_PER_S * 1e3
+    return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
+
+
+def bucket_arrays(specs, bucket, pairs):
+    """The padded batch stereo_matching_all builds for one bucket."""
+    import numpy as np
+    n, H, W = len(specs), bucket['h'], bucket['w']
+    b1 = np.full((n, H, W), np.nan, np.float32)
+    b2 = np.full((n, H, W), np.nan, np.float32)
+    for k, s in enumerate(specs):
+        ref, sec = pairs[s['index']]
+        b1[k, :ref.shape[0], :ref.shape[1]] = ref
+        b2[k, :sec.shape[0], :sec.shape[1]] = sec
+    return b1, b2
+
+
+def check_kernels(specs, pairs, stats):
+    """Phase 3: every kernel of the path against its plain version, on the
+    inputs the main path gives it at bucket A's shapes."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    v = mf.MgmVariant()
+    D = BUCKET_A['D']
+    b1, b2 = bucket_arrays(specs, BUCKET_A, pairs)
+    dev = torch.device('cuda')
+
+    def ints(key):
+        return torch.tensor([s[key] for s in specs], dtype=torch.int32,
+                            device=dev)
+
+    dm = ints('dmin')
+    dt = ints('dmax') - dm + 1
+    h, w1, w2 = ints('h'), ints('w1'), ints('w2')
+    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev), v.census_win)
+    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev), v.census_win)
+    allowed = (torch.arange(D, device=dev)[None, :] < dt[:, None]) \
+        .to(torch.int32)
+    nbits = v.census_win ** 2 - 1
+    sides = {'L': (s1, s2, dm, h, w1, w2, True),
+             'R': (s2, s1, -(dm + dt - 1), h, w2, w1, False)}
+
+    def record(name, side, ok, err, ms, plain_ms, nbytes, ops):
+        t_bound, by = bound(nbytes, ops)
+        print(f'  {name:14s} {side}: bitwise={ok} max_abs_err={err} '
+              f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+              f'bound {t_bound:.4f} ms ({by})', flush=True)
+        if not ok:
+            raise AssertionError(f'{name} ({side}) differs from its plain '
+                                 f'version: max abs error {err}')
+        if side == 'L':                 # the JSON line reports the L side
+            st = stats.setdefault(name.split()[0], dict(
+                err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0))
+            st['err'] = max(st['err'], err)
+            st['ms'] += ms
+            st['plain_ms'] += plain_ms
+            st['nbytes'] += nbytes
+            st['ops'] += ops
+
+    for side, (sref, ssec, base, hr, wr, ws, votes) in sides.items():
+        sr, ss, _ = mf._side_sigs(sref, ssec, base, hr, wr, ws, D)
+        s1t = sr.transpose(1, 2).contiguous()
+        s2t = ss.transpose(1, 2).contiguous()
+        args = (s1t, s2t, D, 0, nbits, 0, s2t.shape[1], allowed)
+        cost_h = sk.cost_prepass(*args)
+        ok, err = equal(cost_h, sk.cost_prepass_plain(*args))
+        record('cost_prepass', side, ok, err,
+               timed(lambda: sk.cost_prepass(*args), 5),
+               timed(lambda: sk.cost_prepass_plain(*args), 2),
+               4 * s1t.numel() + 4 * s2t.numel() + 4 * allowed.numel()
+               + cost_h.numel(), 0)
+
+        S = {'v': None, 'h': None}
+        passes = sk.scan_passes(v)
+        sub = float(sum(len(i) for _, i, _ in passes) - 1)
+        for key, _, lats in passes:
+            o = key[0]
+            cost = (cost_h.permute(0, 3, 2, 1).contiguous() if o == 'v'
+                    else cost_h)
+            B, N, _, lanes = cost.shape
+            p2 = torch.full((B, N, lanes), v.p2, dtype=torch.float32,
+                            device=dev)
+            kw = dict(reverse=key[1] == 'b', sub_cost_mult=sub, accum=S[o],
+                      emit_votes=votes)
+            Sk, vk = sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw)
+            Sp, vp = sk.scan_plain(cost, p2, lats, v.p1, mf.BIG, **kw)
+            ok, err = equal(Sk, Sp)
+            if votes:
+                ok_v, err_v = equal(vk, vp)
+                ok, err = ok and ok_v, max(err, err_v)
+            vol = Sk.numel()
+            nbytes = (cost.numel() + 4 * p2.numel() + 4 * vol
+                      + (4 * vol if S[o] is not None else 0)
+                      + (4 * vk.numel() if votes else 0))
+            ops = vol * (8 * len(lats) + 3)
+            record(f'scan {key}', side, ok, err,
+                   timed(lambda: sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw),
+                         5),
+                   timed(lambda: sk.scan_plain(cost, p2, lats, v.p1, mf.BIG,
+                                               **kw), 1),
+                   nbytes, ops)
+            S[o] = Sk
+            sub = 0.0
+            del Sp, vp
+
+        parts = [S['v'], S['h'].permute(0, 3, 2, 1)]
+        off, d_int = sk.wta(parts, v.subpix, mf.BIG / 2)
+        off_p, d_p = sk.wta_plain(parts, v.subpix, mf.BIG / 2)
+        ok, err = equal(off, off_p)
+        ok_d, err_d = equal(d_int, d_p)
+        vol = parts[0].numel()
+        record('wta', side, ok and ok_d, max(err, err_d),
+               timed(lambda: sk.wta(parts, v.subpix, mf.BIG / 2), 5),
+               timed(lambda: sk.wta_plain(parts, v.subpix, mf.BIG / 2), 2),
+               8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
+        del S, parts, cost_h
+        torch.cuda.empty_cache()
+
+
+def check_outputs(root, specs, cpu_root, cpu_indices):
+    """Phase 4 checks: the written files, the known shifts, and bitwise
+    equality with the CPU run on the tiles it covered."""
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff
+    names = ('rectified_disp.tif', 'rectified_mask.png',
+             'rectified_disp_confidence.tif')
+    for s in specs:
+        d = os.path.join(root, f"tile_{s['index']}", 'pair_1')
+        disp = geotiff.read(os.path.join(d, names[0]))
+        mask = geotiff.read_png(os.path.join(d, names[1]))
+        conf = geotiff.read(os.path.join(d, names[2]))
+        shape = (s['h'], s['w1'])
+        if disp.shape != shape or mask.shape != shape or conf.shape != shape:
+            raise AssertionError(f"tile {s['index']}: shapes {disp.shape} "
+                                 f"{mask.shape} {conf.shape} != {shape}")
+        if disp.dtype != np.float32 or conf.dtype != np.float32:
+            raise AssertionError(f"tile {s['index']}: dtypes {disp.dtype} "
+                                 f'{conf.dtype}')
+        if not np.array_equal(mask > 0, np.isfinite(disp)):
+            raise AssertionError(f"tile {s['index']}: mask != finite disp")
+        if not (np.isin(conf * 8, np.arange(9))).all():
+            raise AssertionError(f"tile {s['index']}: confidence not k/8")
+        inner = disp[8:-8, 8:-8]
+        fin = np.isfinite(inner)
+        good = (np.abs(inner[fin] - s['shift']) < 1.0).mean()
+        print(f"  tile {s['index']}: {shape}, finite inner "
+              f"{fin.mean():.4f}, within 1 px of {s['shift']}: {good:.4f}",
+              flush=True)
+        if fin.mean() < 0.8 or good <= 0.95:
+            raise AssertionError(f"tile {s['index']}: the known shift is "
+                                 'not recovered')
+        if s['index'] in cpu_indices:
+            c = os.path.join(cpu_root, f"tile_{s['index']}", 'pair_1')
+            for name in names:
+                with open(os.path.join(d, name), 'rb') as f1, \
+                        open(os.path.join(c, name), 'rb') as f2:
+                    if f1.read() != f2.read():
+                        raise AssertionError(f"tile {s['index']}: {name} "
+                                             'differs from the CPU run')
+            print(f"  tile {s['index']}: the three files equal the CPU "
+                  'run byte for byte', flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available', file=sys.stderr)
+        return 1
+    import numpy as np
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.config import Config
+    from s2p_tpu_torch.ops import _build
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    with phase('device'):
+        card = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(card)
+        print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+              f'device {torch.cuda.get_device_name(0)} '
+              f'count {torch.cuda.device_count()}', flush=True)
+
+    with phase('build'):
+        libs, secs = _build.build()
+        print(f'  nvcc: {secs:.3f} s for {sorted(libs)}')
+        for name in _build.SOURCES:
+            for line in _build.build_log(name).splitlines():
+                if 'registers' in line or 'spill' in line:
+                    print(f'  {name}: {line.strip()}')
+
+    specs_a = tile_specs(BUCKET_A, 0)
+    specs_b = tile_specs(BUCKET_B, len(specs_a))
+    specs = specs_a + specs_b
+    pairs = {s['index']: make_pair(s) for s in specs}
+
+    stats = {}
+    with phase('kernels against their plain versions (bucket A)'):
+        check_kernels(specs_a, pairs, stats)
+
+    tmp = tempfile.mkdtemp(prefix='s2p_chip_smoke_')
+    try:
+        gpu_root = os.path.join(tmp, 'gpu')
+        cpu_root = os.path.join(tmp, 'cpu')
+        cfg = Config(out_dir=gpu_root)
+        tiles = [(write_tile(gpu_root, s, *pairs[s['index']]), 1)
+                 for s in specs]
+        cpu_specs = specs_a[:2] + specs_b[:2]
+        cpu_tiles = [(write_tile(cpu_root, s, *pairs[s['index']]), 1)
+                     for s in cpu_specs]
+        with phase('stage 4 on the card (buckets A and B)'):
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            pipeline.stereo_matching_all(cfg, tiles)
+            torch.cuda.synchronize()
+            print(f'  stereo_matching_all: {len(tiles)} tiles in '
+                  f'{time.perf_counter() - t0:.3f} s', flush=True)
+            launches = sk.launch_counts()
+            print(f'  launches: {launches}', flush=True)
+        with phase('stage 4 on the CPU (2 tiles of each bucket)'):
+            pipeline.stereo_matching_all(cfg, cpu_tiles, device='cpu')
+        with phase('stage 4 checks'):
+            check_outputs(gpu_root, specs, cpu_root,
+                          {s['index'] for s in cpu_specs})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f'kernels never launched on the main path: '
+                             f'{missing}')
+    source = {'cost_prepass': ('s2p_tpu_torch/csrc/cost_prepass.cu',
+                               's2p_tpu/ops/sgm_pallas.py:474'),
+              'scan': ('s2p_tpu_torch/csrc/scan.cu',
+                       's2p_tpu/ops/sgm_pallas.py:81'),
+              'wta': ('s2p_tpu_torch/csrc/wta.cu',
+                      's2p_tpu/ops/sgm_pallas.py:358')}
+    kernels = []
+    for name, (src, replaces) in source.items():
+        st = stats[name]
+        t_bound, by = bound(st['nbytes'], st['ops'])
+        kernels.append({'name': name, 'route': 'cuda', 'source': src,
+                        'replaces': replaces, 'launches': launches[name],
+                        'max_abs_err': st['err'], 'ms': st['ms'],
+                        'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
+                        'bound_by': by, 'library_ms': None})
+    print(json.dumps({'kernels': kernels}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,108 @@
+// Winner-take-all with subpixel offset over the summed aggregation
+// partials of the mgm flow.
+//
+// Replaces s2p_tpu/ops/sgm_pallas.py _wta_kernel (:358, wrapper
+// _wta_pallas :445) in its emit_offset mode without the right-reference
+// map (with_dr=False).  Per pixel (y, x):
+//
+//   S[k]  = part0[y, k, x] + part1[y, k, x]
+//   mn    = min_k S[k],  d = lowest k with S[k] == mn
+//   c0/c2 = S[d - 1] / S[d + 1] (inf off the ends; non-finite -> mn + 1e6)
+//   off   = vfit:     (c0 - c2) / max(2 (max(c0, c2) - mn), 1e-9)
+//           parabola: 0.5 (c0 - c2) / max((c0 - 2 mn) + c2, 1e-9)
+//   off   = clip(off, -0.5, 0.5) where d is interior and c0, c2 < big_guard,
+//           else 0;  NaN where mn >= big_guard
+//
+// The division is IEEE (no fast math).  Each part is a strided view, so
+// the horizontal partial is read in its own (W, D, H) layout without a
+// transposed copy.
+//
+// Bound: bytes (two f32 volumes read once).  One thread per pixel with x
+// fastest: part0 reads coalesce; the transposed part1 reads one 4-byte
+// word per 32-byte sector.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Part {
+  const float* p;
+  long long sb, sy, sk, sx;
+};
+
+__device__ __forceinline__ float sum_at(const Part& a, const Part& c,
+                                        int n_parts, int b, int y, int k,
+                                        int x) {
+  float v = a.p[b * a.sb + y * a.sy + k * a.sk + x * a.sx];
+  if (n_parts == 2) v = v + c.p[b * c.sb + y * c.sy + k * c.sk + x * c.sx];
+  return v;
+}
+
+__global__ void wta_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
+                           int* __restrict__ dint, int B, int H, int D, int W,
+                           int subpix, float big_guard) {
+  const long long total = (long long)B * H * W;
+  const float inf = __int_as_float(0x7f800000);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int x = (int)(i % W);
+    const int y = (int)((i / W) % H);
+    const int b = (int)(i / ((long long)W * H));
+    float mn = sum_at(a, c, n_parts, b, y, 0, x);
+    int d = 0;
+    for (int k = 1; k < D; ++k) {
+      const float v = sum_at(a, c, n_parts, b, y, k, x);
+      if (v < mn) {
+        mn = v;
+        d = k;
+      }
+    }
+    float c0 = d > 0 ? sum_at(a, c, n_parts, b, y, d - 1, x) : inf;
+    float c2 = d < D - 1 ? sum_at(a, c, n_parts, b, y, d + 1, x) : inf;
+    const float guard = mn + 1e6f;
+    if (!isfinite(c0)) c0 = guard;
+    if (!isfinite(c2)) c2 = guard;
+    const bool interior =
+        d > 0 && d < D - 1 && c0 < big_guard && c2 < big_guard;
+    float o = 0.f;
+    if (subpix == 1) {                 // vfit
+      const float den = 2.0f * (fmaxf(c0, c2) - mn);
+      o = (c0 - c2) / fmaxf(den, 1e-9f);
+      o = fminf(fmaxf(o, -0.5f), 0.5f);
+    } else if (subpix == 2) {          // parabola
+      const float den = (c0 - 2.0f * mn) + c2;
+      o = (0.5f * (c0 - c2)) / fmaxf(den, 1e-9f);
+      o = fminf(fmaxf(o, -0.5f), 0.5f);
+    }
+    if (!interior) o = 0.f;
+    off[i] = mn < big_guard ? o : __int_as_float(0x7fc00000);
+    dint[i] = d;
+  }
+}
+
+}  // namespace
+
+extern "C" int s2p_wta(const void* p0, long long s0b, long long s0y,
+                       long long s0k, long long s0x, const void* p1,
+                       long long s1b, long long s1y, long long s1k,
+                       long long s1x, int n_parts, void* off, void* dint,
+                       int B, int H, int D, int W, int subpix, float big_guard,
+                       void* stream) {
+  const long long total = (long long)B * H * W;
+  if (n_parts < 1 || n_parts > 2) return (int)cudaErrorInvalidValue;
+  if (total > 0 && D > 0) {
+    const int threads = 256;
+    long long blocks = (total + threads - 1) / threads;
+    if (blocks > (1LL << 30)) blocks = 1LL << 30;
+    Part a{(const float*)p0, s0b, s0y, s0k, s0x};
+    Part c{(const float*)(n_parts == 2 ? p1 : p0), s1b, s1y, s1k, s1x};
+    wta_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        a, c, n_parts, (float*)off, (int*)dint, B, H, D, W, subpix,
+        big_guard);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* s2p_wta_error(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,108 @@
+"""The port stands alone: it imports neither JAX nor the JAX package nor
+PIL nor torch.utils.cpp_extension, and its entry points run on CUDA
+unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 's2p_tpu_torch')
+_BANNED = ('jax', 'jaxlib', 's2p_tpu', 'PIL', 'torch.utils.cpp_extension')
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, 'chip_smoke.py'),
+             os.path.join(ROOT, 'tools', 'profile_stage4_torch.py')]
+    for d, _, files in os.walk(PKG):
+        paths += [os.path.join(d, f) for f in files if f.endswith('.py')]
+    return sorted(paths)
+
+
+def _modules():
+    mods = []
+    for p in _port_sources():
+        rel = os.path.relpath(p, ROOT)[:-3].replace(os.sep, '.')
+        mods.append(rel[:-len('.__init__')] if rel.endswith('__init__')
+                    else rel)
+    return mods
+
+
+def _banned(name):
+    return any(name == b or name.startswith(b + '.') for b in _BANNED)
+
+
+@pytest.mark.parametrize('path', _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_banned_import_anywhere_in_source(path):
+    """Every import statement, at module level or inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module] + [f'{node.module}.{a.name}'
+                                     for a in node.names]
+        else:
+            continue
+        assert not any(_banned(n) for n in names), (path, names)
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        'import sys\n'
+        f'for m in {_BANNED!r}: sys.modules[m] = None\n'
+        'import importlib\n'
+        f'for m in {_modules()!r}: importlib.import_module(m)\n'
+        'bad = [m for m in sys.modules if m.split(".")[0] in '
+        '("jax", "jaxlib", "s2p_tpu", "PIL") and sys.modules[m] is not None]\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('ok')
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from s2p_tpu_torch import device, pipeline
+    from s2p_tpu_torch.config import Config
+    from s2p_tpu_torch.ops.mgm_flow import mgm_binary_match_batch
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.stereo_matching_all(Config(), [])
+    a = torch.zeros((1, 8, 8)).numpy()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mgm_binary_match_batch(a, a, [0], 4, [8], [8], [8])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        device.resolve('cuda')
+    assert device.resolve('cpu') == torch.device('cpu')
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the smoke run exits non-zero and prints no result."""
+    code = ('import sys, torch\n'
+            'torch.cuda.is_available = lambda: False\n'
+            'sys.argv = ["chip_smoke.py"]\n'
+            'import runpy\n'
+            'runpy.run_path("chip_smoke.py", run_name="__main__")\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_build_is_lazy_and_keyed_by_sources():
+    from s2p_tpu_torch.ops import _build
+    assert not _build._libs
+    d = _build.build_dir()
+    assert d.startswith(os.path.join(PKG, '_build'))
+    assert d == _build.build_dir()
+    assert sorted(os.path.basename(p) for p in os.listdir(
+        os.path.join(PKG, 'csrc'))) == sorted(
+            n + '.cu' for n in _build.SOURCES)
