@@ -7,24 +7,43 @@ packages torch, numpy and scipy; it imports nothing of JAX and nothing of
 the JAX package.  Phases, each timed on a line of its own:
 
   1. device: the card's name and power limit (nvidia-smi), torch's version;
-  2. build: the three CUDA kernels of stage 4, one nvcc per source in
-     parallel, into s2p_tpu_torch/_build/;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     on the inputs the main path gives it at bucket A's shapes (the cost
-     pre-pass, the four scan passes of each side, the WTA), compared
-     bitwise and NaN-aware, each timed with CUDA events;
-  4. stage 4: synthetic rectified tiles in two buckets (A: 8 tiles padded
+  2. build: the CUDA kernels, one nvcc per source in parallel, into
+     s2p_tpu_torch/_build/;
+  3. kernels of the mgm flow (stage 4) against their plain PyTorch
+     versions on the card, on the inputs the main path gives them at
+     bucket A's shapes (the cost pre-pass, the four scan passes of each
+     side, the WTA), and the scan once more at 528 candidates (one 64 x
+     896 tile), compared bitwise and NaN-aware, each timed with CUDA
+     events;
+  4. kernels of the classic SGM matcher against their plain versions, on
+     the 512 x 512 pair with 64 candidates from -8 (bench.py): the four
+     signature-mode scan passes (K4a), one vertical pass with 3 MGM
+     laterals and one horizontal pass with 2 (K4b), the WTA with the
+     right-reference map (K5);
+  5. stage 4: synthetic rectified tiles in two buckets (A: 8 tiles padded
      to 448 x 512 with 80 candidates; B: 2 tiles at the default tile size,
      padded to 832 x 896 with 96 candidates) through
      ``pipeline.stereo_matching_all`` on the card; the files it writes are
      checked for shape and for the known shift of each tile, and two
      tiles of each bucket are held bitwise against the same entry run
      with device="cpu" (the plain versions);
-  5. a JSON line with, per kernel, its launches during phase 4, its error
-     against the plain version, its time, the plain version's time and
-     the least time the card could take (bytes over 3.35 TB/s or f32
-     operations over 67 TFLOP/s, H100 SXM data sheet);
-  6. the last line: {"ok": true, "device": {...}}.
+  6. the classic matcher on the card: ``ops.sgm.match_pair`` on the
+     512 x 512 pair and on an 800 x 800 tile (padded to 832 x 832, 96
+     candidates), both with a known shift and NaN borders, once more with
+     lr_mode='full', and ``sgm_kernels.aggregate`` with MGM laterals (the
+     route of K4b); the known shift is checked on the finite inner pixels;
+  7. the classic matcher on a 128 x 128 crop, card against device="cpu",
+     byte for byte;
+  8. stage 4 at 528 candidates: one 60 x 890 tile through
+     ``stereo_matching_all``, its known shift, and its files byte for
+     byte against the CPU run;
+  9. a JSON line with, per kernel, its launches during the phase that
+     drives its path (5 for the flow's kernels, 6 for the classic
+     matcher's, 8 for the scan at 528 candidates), its error against the
+     plain version, its time, the plain version's time and the least time
+     the card could take (bytes over 3.35 TB/s or f32 operations over
+     67 TFLOP/s, H100 SXM data sheet);
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 Without CUDA, or without the package beside it, it fails before any result.
@@ -47,6 +66,14 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
 BUCKET_A = dict(n=8, h=448, w=512, D=80)
 BUCKET_B = dict(n=2, h=832, w=896, D=96)
+# stage 4 at more than 512 candidates: one tile, 64 x 896 padded, D 528
+WIDE = dict(index=100, h=60, w1=890, w2=888, dmin=-20, dmax=500, shift=3.0,
+            seed=100)
+BUCKET_WIDE = dict(n=1, h=64, w=896, D=528)
+# the classic matcher: bench.py's pair (512 x 512, 64 candidates from -8)
+# and one tile at the default tile size (800 x 800, 96 candidates)
+SGM_PAIR = dict(h=512, w=512, dmin=-8, dmax=55, shift=5, seed=0)
+SGM_TILE = dict(h=800, w=800, dmin=-30, dmax=65, shift=5, seed=1)
 
 
 @contextmanager
@@ -156,16 +183,38 @@ def bucket_arrays(specs, bucket, pairs):
     return b1, b2
 
 
-def check_kernels(specs, pairs, stats):
-    """Phase 3: every kernel of the path against its plain version, on the
-    inputs the main path gives it at bucket A's shapes."""
+def record(stats, name, side, ok, err, ms, plain_ms, nbytes, ops, tag=''):
+    """Print one kernel comparison and add it to the stats of the kernel
+    (the first word of ``name``, plus ``tag``); the JSON line reports the
+    L side of the flow's kernels."""
+    t_bound, by = bound(nbytes, ops)
+    print(f'  {name:16s} {side}: bitwise={ok} max_abs_err={err} '
+          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+          f'bound {t_bound:.4f} ms ({by})', flush=True)
+    if not ok:
+        raise AssertionError(f'{name} ({side}) differs from its plain '
+                             f'version: max abs error {err}')
+    if side in ('L', ''):
+        st = stats.setdefault(name.split()[0] + tag, dict(
+            err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0))
+        st['err'] = max(st['err'], err)
+        st['ms'] += ms
+        st['plain_ms'] += plain_ms
+        st['nbytes'] += nbytes
+        st['ops'] += ops
+
+
+def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
+    """Phase 3: every kernel of the flow against its plain version, on the
+    inputs the main path gives it at the bucket's shapes; ``tag`` is
+    appended to the kernels' names in ``stats``."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
 
     v = mf.MgmVariant()
-    D = BUCKET_A['D']
-    b1, b2 = bucket_arrays(specs, BUCKET_A, pairs)
+    D = bucket['D']
+    b1, b2 = bucket_arrays(specs, bucket, pairs)
     dev = torch.device('cuda')
 
     def ints(key):
@@ -183,22 +232,8 @@ def check_kernels(specs, pairs, stats):
     sides = {'L': (s1, s2, dm, h, w1, w2, True),
              'R': (s2, s1, -(dm + dt - 1), h, w2, w1, False)}
 
-    def record(name, side, ok, err, ms, plain_ms, nbytes, ops):
-        t_bound, by = bound(nbytes, ops)
-        print(f'  {name:14s} {side}: bitwise={ok} max_abs_err={err} '
-              f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-              f'bound {t_bound:.4f} ms ({by})', flush=True)
-        if not ok:
-            raise AssertionError(f'{name} ({side}) differs from its plain '
-                                 f'version: max abs error {err}')
-        if side == 'L':                 # the JSON line reports the L side
-            st = stats.setdefault(name.split()[0], dict(
-                err=0.0, ms=0.0, plain_ms=0.0, nbytes=0, ops=0))
-            st['err'] = max(st['err'], err)
-            st['ms'] += ms
-            st['plain_ms'] += plain_ms
-            st['nbytes'] += nbytes
-            st['ops'] += ops
+    def rec(name, *a):
+        record(stats, name, *a, tag=tag)
 
     for side, (sref, ssec, base, hr, wr, ws, votes) in sides.items():
         sr, ss, _ = mf._side_sigs(sref, ssec, base, hr, wr, ws, D)
@@ -207,7 +242,7 @@ def check_kernels(specs, pairs, stats):
         args = (s1t, s2t, D, 0, nbits, 0, s2t.shape[1], allowed)
         cost_h = sk.cost_prepass(*args)
         ok, err = equal(cost_h, sk.cost_prepass_plain(*args))
-        record('cost_prepass', side, ok, err,
+        rec('cost_prepass', side, ok, err,
                timed(lambda: sk.cost_prepass(*args), 5),
                timed(lambda: sk.cost_prepass_plain(*args), 2),
                4 * s1t.numel() + 4 * s2t.numel() + 4 * allowed.numel()
@@ -236,7 +271,7 @@ def check_kernels(specs, pairs, stats):
                       + (4 * vol if S[o] is not None else 0)
                       + (4 * vk.numel() if votes else 0))
             ops = vol * (8 * len(lats) + 3)
-            record(f'scan {key}', side, ok, err,
+            rec(f'scan {key}', side, ok, err,
                    timed(lambda: sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw),
                          5),
                    timed(lambda: sk.scan_plain(cost, p2, lats, v.p1, mf.BIG,
@@ -252,7 +287,7 @@ def check_kernels(specs, pairs, stats):
         ok, err = equal(off, off_p)
         ok_d, err_d = equal(d_int, d_p)
         vol = parts[0].numel()
-        record('wta', side, ok and ok_d, max(err, err_d),
+        rec('wta', side, ok and ok_d, max(err, err_d),
                timed(lambda: sk.wta(parts, v.subpix, mf.BIG / 2), 5),
                timed(lambda: sk.wta_plain(parts, v.subpix, mf.BIG / 2), 2),
                8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
@@ -304,12 +339,170 @@ def check_outputs(root, specs, cpu_root, cpu_indices):
                   'run byte for byte', flush=True)
 
 
+def sgm_pair(spec):
+    """bench.py's pair: uniform noise, the secondary the reference moved
+    right by ``shift`` px plus noise (disparity +shift); NaN borders."""
+    import numpy as np
+    rng = np.random.RandomState(spec['seed'])
+    h, w = spec['h'], spec['w']
+    im1 = rng.rand(h, w).astype(np.float32) * 1000
+    im2 = np.roll(im1, spec['shift'], axis=1) + rng.rand(h, w).astype(
+        np.float32)
+    im1[:4] = np.nan
+    im2[:, -6:] = np.nan
+    return im1, im2
+
+
+def check_sgm_kernels(stats):
+    """Phase 4: the classic matcher's kernels against their plain versions
+    on the inputs ``aggregate_partials`` gives them for bench.py's pair."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    from s2p_tpu_torch.ops.census import census_transform
+    from s2p_tpu_torch.ops.sgm import SgmParams
+
+    dev = torch.device('cuda')
+    im1, im2 = sgm_pair(SGM_PAIR)
+    dmin = SGM_PAIR['dmin']
+    D = SGM_PAIR['dmax'] - dmin + 1
+    H, W = im1.shape
+    sig = [sk._pack(*census_transform(torch.as_tensor(im, device=dev), 5))
+           [None] for im in (im1, im2)]
+    p2 = torch.full((1, H, W), 32.0, dtype=torch.float32, device=dev)
+    ins = {'v': (sig[0], sig[1], p2),
+           'h': tuple(t.transpose(1, 2).contiguous()
+                      for t in (sig[0], sig[1], p2))}
+
+    def run_pass(name, key, dirs):
+        o = key[0]
+        args = (*ins[o], dirs, 8.0, 24.0, 24, D, dmin, W, key[1] == 'b',
+                o == 'h')
+        Sk, vk = sk.scan_sig(*args)
+        Sp, vp = sk.scan_sig_plain(*args)
+        ok, err = equal(Sk, Sp)
+        ok_v, err_v = equal(vk, vp)
+        vol = Sk.numel()
+        nbytes = (sum(4 * t.numel() for t in ins[o]) + 4 * vol
+                  + 4 * vk.numel())
+        # per element: the census cost (xor, and, popcount, 3 tests),
+        # 8 f32 operations per lateral, the sums and the vote
+        ops = vol * (6 + sum(8 * len(l) + 3 for l in dirs))
+        record(stats, f'{name} {key}', '', ok and ok_v, max(err, err_v),
+               timed(lambda: sk.scan_sig(*args), 3),
+               timed(lambda: sk.scan_sig_plain(*args), 1), nbytes, ops)
+        return Sk
+
+    S = {}
+    for key, _, dirs in sk.sgm_scan_passes(SgmParams(mgm=False)):
+        Sk = run_pass('scan_sig', key, dirs)
+        S[key[0]] = Sk if key[0] not in S else S[key[0]] + Sk
+    for nb, want in ((3, 'vf'), (2, 'hf')):
+        for key, _, dirs in sk.sgm_scan_passes(
+                SgmParams(mgm=True, mgm_neighbors=nb)):
+            if key == want:
+                run_pass('scan_mgm', key, dirs)
+
+    parts = [S['v'], S['h'].permute(0, 3, 2, 1)]
+    got = sk.wta_dr(parts, dmin, 'vfit')
+    ref = sk.wta_dr_plain(parts, dmin, 'vfit')
+    oks, errs = zip(*(equal(a, b) for a, b in zip(got, ref)))
+    vol = parts[0].numel()
+    record(stats, 'wta_dr', '', all(oks), max(errs),
+           timed(lambda: sk.wta_dr(parts, dmin, 'vfit'), 5),
+           timed(lambda: sk.wta_dr_plain(parts, dmin, 'vfit'), 2),
+           8 * vol + 12 * H * W, 4 * vol)
+    del S, parts
+    torch.cuda.empty_cache()
+
+
+def check_shift(name, disp, valid, conf, spec, nv=8):
+    """The classic matcher's outputs: shapes, types, the NaN pattern, the
+    confidence steps, and the known shift on the finite inner pixels."""
+    import numpy as np
+    shape = (spec['h'], spec['w'])
+    if disp.shape != shape or valid.shape != shape or conf.shape != shape:
+        raise AssertionError(f'{name}: shapes {disp.shape} {valid.shape} '
+                             f'{conf.shape} != {shape}')
+    if disp.dtype != np.float32 or conf.dtype != np.float32:
+        raise AssertionError(f'{name}: dtypes {disp.dtype} {conf.dtype}')
+    if not np.array_equal(valid, np.isfinite(disp)):
+        raise AssertionError(f'{name}: valid != finite disp')
+    if not np.isin(conf * nv, np.arange(nv + 1)).all():
+        raise AssertionError(f'{name}: confidence not k/{nv}')
+    inner = disp[8:-8, 8:-16]
+    fin = np.isfinite(inner)
+    good = (np.abs(inner[fin] - spec['shift']) < 1.0).mean()
+    print(f'  {name}: {shape}, finite inner {fin.mean():.4f}, within 1 px '
+          f"of {spec['shift']}: {good:.4f}", flush=True)
+    if fin.mean() < 0.8 or good <= 0.95:
+        raise AssertionError(f'{name}: the known shift is not recovered')
+
+
+def run_sgm_path():
+    """Phase 6: the classic matcher's entry points on the card."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.ops import sgm as tsgm
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    p = tsgm.SgmParams(mgm=False)
+    pair = sgm_pair(SGM_PAIR)
+    for name, spec, params in (
+            ('match_pair 512', SGM_PAIR, p),
+            ('match_pair 800', SGM_TILE, p),
+            ("match_pair 512 lr_mode='full'", SGM_PAIR,
+             tsgm.SgmParams(mgm=False, lr_mode='full'))):
+        im1, im2 = pair if spec is SGM_PAIR else sgm_pair(spec)
+        t0 = time.perf_counter()
+        out = tsgm.match_pair(im1, im2, spec['dmin'], spec['dmax'], params)
+        print(f'  {name}: {time.perf_counter() - t0:.3f} s', flush=True)
+        check_shift(name, *out, spec)
+    # K4b's route: a direct aggregate call with MGM laterals
+    dev = torch.device('cuda')
+    a, b = (torch.as_tensor(im, device=dev) for im in pair)
+    t0 = time.perf_counter()
+    S, valid1, votes = sk.aggregate(
+        a, b, SGM_PAIR['dmin'], SGM_PAIR['dmax'],
+        tsgm.SgmParams(mgm=True, mgm_neighbors=3))
+    torch.cuda.synchronize()
+    print(f'  aggregate (MGM, 3 laterals): {time.perf_counter() - t0:.3f} s',
+          flush=True)
+    d = (S.argmin(dim=2) + SGM_PAIR['dmin']).cpu().numpy()
+    v = valid1.cpu().numpy()
+    if not torch.isfinite(S).all() or len(votes) != 8:
+        raise AssertionError('aggregate: non-finite costs or missing votes')
+    good = (np.abs(d - SGM_PAIR['shift'])[8:-8, 8:-16][v[8:-8, 8:-16]]
+            <= 1).mean()
+    print(f'  aggregate: WTA within 1 px of the shift on {good:.4f} of the '
+          'valid inner pixels', flush=True)
+    if good <= 0.95:
+        raise AssertionError('aggregate: the known shift is not recovered')
+
+
+def check_sgm_crop():
+    """Phase 7: the classic matcher on a 128 x 128 crop, card against the
+    plain versions on the CPU, byte for byte."""
+    from s2p_tpu_torch.ops import sgm as tsgm
+    im1, im2 = (im[:128, :128].copy() for im in sgm_pair(SGM_PAIR))
+    for params in (tsgm.SgmParams(mgm=False),
+                   tsgm.SgmParams(mgm=False, lr_mode='full')):
+        gpu = tsgm.match_pair(im1, im2, SGM_PAIR['dmin'], SGM_PAIR['dmax'],
+                              params)
+        cpu = tsgm.match_pair(im1, im2, SGM_PAIR['dmin'], SGM_PAIR['dmax'],
+                              params, device='cpu')
+        for name, x, y in zip(('disp', 'valid', 'confidence'), gpu, cpu):
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f'crop ({params.lr_mode}): {name} '
+                                     'differs from the CPU run')
+        print(f'  crop 128 x 128 ({params.lr_mode}): disp, valid and '
+              'confidence equal the CPU run byte for byte', flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
-    import numpy as np
     from s2p_tpu_torch import pipeline
     from s2p_tpu_torch.config import Config
     from s2p_tpu_torch.ops import _build
@@ -330,18 +523,24 @@ def main():
         print(f'  nvcc: {secs:.3f} s for {sorted(libs)}')
         for name in _build.SOURCES:
             for line in _build.build_log(name).splitlines():
-                if 'registers' in line or 'spill' in line:
+                if ('registers' in line or 'spill' in line
+                        or 'Function properties' in line):
                     print(f'  {name}: {line.strip()}')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
     specs = specs_a + specs_b
-    pairs = {s['index']: make_pair(s) for s in specs}
+    pairs = {s['index']: make_pair(s) for s in specs + [WIDE]}
 
     stats = {}
-    with phase('kernels against their plain versions (bucket A)'):
+    with phase('flow kernels against their plain versions (bucket A)'):
         check_kernels(specs_a, pairs, stats)
+    with phase('flow kernels against their plain versions (D 528)'):
+        check_kernels([WIDE], pairs, stats, BUCKET_WIDE, tag='_d528')
+    with phase('classic matcher kernels against their plain versions'):
+        check_sgm_kernels(stats)
 
+    launches = {}
     tmp = tempfile.mkdtemp(prefix='s2p_chip_smoke_')
     try:
         gpu_root = os.path.join(tmp, 'gpu')
@@ -359,32 +558,62 @@ def main():
             torch.cuda.synchronize()
             print(f'  stereo_matching_all: {len(tiles)} tiles in '
                   f'{time.perf_counter() - t0:.3f} s', flush=True)
-            launches = sk.launch_counts()
-            print(f'  launches: {launches}', flush=True)
+            launches['flow'] = sk.launch_counts()
+            print(f"  launches: {launches['flow']}", flush=True)
         with phase('stage 4 on the CPU (2 tiles of each bucket)'):
             pipeline.stereo_matching_all(cfg, cpu_tiles, device='cpu')
         with phase('stage 4 checks'):
             check_outputs(gpu_root, specs, cpu_root,
                           {s['index'] for s in cpu_specs})
+
+        with phase('classic matcher on the card'):
+            sk.reset_launch_counts()
+            run_sgm_path()
+            torch.cuda.synchronize()
+            launches['sgm'] = sk.launch_counts()
+            print(f"  launches: {launches['sgm']}", flush=True)
+        with phase('classic matcher: card against the CPU (128 x 128)'):
+            check_sgm_crop()
+
+        with phase('stage 4 at 528 candidates, card and CPU'):
+            wide_tile = (write_tile(gpu_root, WIDE, *pairs[WIDE['index']]),
+                         1)
+            wide_cpu = (write_tile(cpu_root, WIDE, *pairs[WIDE['index']]), 1)
+            sk.reset_launch_counts()
+            pipeline.stereo_matching_all(cfg, [wide_tile])
+            torch.cuda.synchronize()
+            launches['wide'] = sk.launch_counts()
+            print(f"  launches: {launches['wide']}", flush=True)
+            pipeline.stereo_matching_all(cfg, [wide_cpu], device='cpu')
+            check_outputs(gpu_root, [WIDE], cpu_root, {WIDE['index']})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    missing = [k for k, n in launches.items() if n == 0]
+    pallas = 's2p_tpu/ops/sgm_pallas.py'
+    csrc = 's2p_tpu_torch/csrc'
+    # kernel -> (source, TPU kernel, the path run that counts it, its key)
+    table = {
+        'cost_prepass': (f'{csrc}/cost_prepass.cu', f'{pallas}:474', 'flow',
+                         'cost_prepass'),
+        'scan': (f'{csrc}/scan.cu', f'{pallas}:81', 'flow', 'scan'),
+        'wta': (f'{csrc}/wta.cu', f'{pallas}:358', 'flow', 'wta'),
+        'scan_d528': (f'{csrc}/scan.cu', f'{pallas}:81', 'wide', 'scan'),
+        'scan_sig': (f'{csrc}/scan.cu', f'{pallas}:81', 'sgm', 'scan_sig'),
+        'scan_mgm': (f'{csrc}/scan_mgm.cu', f'{pallas}:81', 'sgm',
+                     'scan_mgm'),
+        'wta_dr': (f'{csrc}/wta.cu', f'{pallas}:358', 'sgm', 'wta_dr'),
+    }
+    missing = [name for name, (_, _, run, key) in table.items()
+               if launches[run][key] == 0]
     if missing:
-        raise AssertionError(f'kernels never launched on the main path: '
+        raise AssertionError(f'kernels never launched on their path: '
                              f'{missing}')
-    source = {'cost_prepass': ('s2p_tpu_torch/csrc/cost_prepass.cu',
-                               's2p_tpu/ops/sgm_pallas.py:474'),
-              'scan': ('s2p_tpu_torch/csrc/scan.cu',
-                       's2p_tpu/ops/sgm_pallas.py:81'),
-              'wta': ('s2p_tpu_torch/csrc/wta.cu',
-                      's2p_tpu/ops/sgm_pallas.py:358')}
     kernels = []
-    for name, (src, replaces) in source.items():
+    for name, (src, replaces, run, key) in table.items():
         st = stats[name]
         t_bound, by = bound(st['nbytes'], st['ops'])
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
-                        'replaces': replaces, 'launches': launches[name],
+                        'replaces': replaces, 'launches': launches[run][key],
                         'max_abs_err': st['err'], 'ms': st['ms'],
                         'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
                         'bound_by': by, 'library_ms': None})

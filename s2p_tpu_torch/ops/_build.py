@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 
-SOURCES = ('cost_prepass', 'scan', 'wta')
+SOURCES = ('cost_prepass', 'scan', 'scan_mgm', 'wta')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

@@ -1,17 +1,28 @@
-"""The mgm flow's three GPU kernels, their plain versions and their glue.
+"""The GPU kernels of the SGM matchers, their plain versions and their glue.
 
-Counterpart of ``s2p_tpu/ops/sgm_pallas.py`` for the batched flow:
+Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
 
   * :func:`cost_prepass` -- K1, the uint8 census cost volume
     (``csrc/cost_prepass.cu``; TPU kernel ``_cost_prepass_kernel``);
   * :func:`scan` -- K2, one SGM scan pass over that volume, all
     same-orientation directions at once (``csrc/scan.cu``; TPU kernel
     ``_scan_kernel`` in cost mode);
+  * :func:`scan_sig` -- one SGM scan pass with the census cost built in
+    the kernel from bit-packed signatures: K4a with one lateral per
+    direction (``csrc/scan.cu``), K4b with averaged MGM laterals
+    (``csrc/scan_mgm.cu``); TPU kernel ``_scan_kernel`` in its signature
+    modes;
   * :func:`wta` -- K3, winner-take-all with subpixel offset
     (``csrc/wta.cu``; TPU kernel ``_wta_kernel``, emit_offset mode
     without the right-reference map);
+  * :func:`wta_dr` -- K5, winner-take-all with the disparity composed in
+    the kernel and the right-reference disparity (``csrc/wta.cu``; TPU
+    kernel ``_wta_kernel`` with ``with_dr``);
   * :func:`flow_partials_from_sigs` -- the pre-pass and the four scans of
-    one side.
+    one side of the mgm flow;
+  * :func:`aggregate` and :func:`match_kernels` -- the classic SGM
+    census matcher's aggregation and its fused WTA (``sgm_pallas.aggregate``
+    and ``match_pallas``).
 
 Every wrapper takes its ``*_plain`` version for CPU tensors and launches
 its CUDA kernel for CUDA tensors; there is no other route.  Each launch
@@ -45,9 +56,9 @@ _PASS_OF_DIR = {
 }
 
 _SUBPIX = {'vfit': 1, 'parabola': 2}
-_SCAN_MAX_D = 512         # 16 groups of 32 candidates per chain (scan.cu)
 
-_launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0}
+_launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0, 'scan_sig': 0,
+             'scan_mgm': 0, 'wta_dr': 0}
 
 
 def launch_counts():
@@ -64,20 +75,28 @@ def reset_launch_counts():
 # launching
 # --------------------------------------------------------------------- #
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_uint
+_IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
-    's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [ctypes.c_uint, _P],
+    's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [_U, _P],
     's2p_scan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
+    's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 4
+                    + [_F, _F, _F, _I, _P],
+    's2p_scan_mgm': [_P] * 9 + [_I] * 9 + [_U, _I, _IP, _IP]
+                    + [_F, _F, _F, _I, _P],
     's2p_wta': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P, _P]
                + [_I] * 5 + [_F, _P],
+    's2p_wta_dr': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P,
+                   _P, _P] + [_I] * 6 + [_P],
 }
 
 
-def _launch(lib_name, fn_name, *args, kernels=1):
+def _launch(lib_name, fn_name, *args, key=None, kernels=1):
     """Call one C launcher on the current stream; ``kernels`` is the
-    number of kernel launches it makes."""
+    number of kernel launches it makes, counted under ``key`` (default
+    the library's name)."""
     lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
     fn.argtypes = _ARGTYPES[fn_name]
@@ -88,7 +107,7 @@ def _launch(lib_name, fn_name, *args, kernels=1):
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f'{fn_name} launch failed: CUDA error {rc} '
                            f'({err(rc).decode()})')
-    _launches[lib_name] += kernels
+    _launches[key or lib_name] += kernels
 
 
 def _route(*tensors):
@@ -198,37 +217,65 @@ def _minconv(L, p1, p2):
                          m + p2) - m
 
 
-def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
-               accum=None, emit_votes=True):
-    """Plain version of :func:`scan`: a Python loop over the scan rows."""
-    B, N, D, lanes = cost.shape
-    dev = cost.device
+def _fma32(a, b, c):
+    """float32 ``a * f32(b) + c`` rounded once, as a fused multiply-add.
+
+    The averaged MGM laterals compute ``cost + c * f32(1 / n)``; the JAX
+    package's CPU run contracts that multiply-add into one fused operation
+    (XLA), and the CUDA kernel uses ``__fmaf_rn``.  torch has no fused
+    multiply-add, so: the product is exact in float64, TwoSum gives the
+    exact error of the float64 sum, and rounding that sum to odd before
+    the float32 rounding makes the result the correctly rounded one."""
+    b64 = torch.tensor(b, dtype=torch.float32).item()
+    p = a.double() * b64                                     # exact
+    c64 = c.double()
+    s = c64 + p
+    bp = s - c64
+    e = (c64 - (s - bp)) + (p - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, float('inf'), float('-inf')).double()
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _scan_loop(cost_row, p2, dirs, p1, reverse, sub_cost_mult, accum,
+               emit_votes, D):
+    """The plain SGM recursion of one pass: a Python loop over the scan
+    rows.  ``cost_row(n)`` gives row n's (B, D, lanes) float32 cost;
+    ``dirs`` holds the lateral offsets of each direction, averaged where a
+    direction has several (MGM)."""
+    B, N, lanes = p2.shape
+    dev = p2.device
     S = torch.empty((B, N, D, lanes), dtype=torch.float32, device=dev)
-    votes = (torch.empty((B, len(lats), N, lanes), dtype=torch.int32,
+    votes = (torch.empty((B, len(dirs), N, lanes), dtype=torch.int32,
                          device=dev) if emit_votes else None)
     x = torch.arange(lanes, device=dev)
     k_ids = torch.arange(D, dtype=torch.int32, device=dev)[None, :, None]
-    inv = torch.tensor(invalid_cost, dtype=torch.float32, device=dev)
     sub = torch.tensor(sub_cost_mult, dtype=torch.float32, device=dev)
-    carries = [None] * len(lats)
+    carries = [None] * len(dirs)
     for s in range(N):
         n = N - 1 - s if reverse else s
-        ci = cost[:, n].to(torch.int32)                      # (B, D, lanes)
-        c = torch.where(ci == 255, inv, ci.to(torch.float32))
+        c = cost_row(n)                                      # (B, D, lanes)
         p2r = p2[:, n].unsqueeze(1)                          # (B, 1, lanes)
         ssum = None
-        for d, lat in enumerate(lats):
-            if s == 0:
-                contrib = torch.zeros_like(c)                # first row
+        for d, lats in enumerate(dirs):
+            contrib = None
+            for lat in lats:
+                if s == 0:
+                    t = torch.zeros_like(c)                  # first row
+                else:
+                    Lp = (torch.roll(carries[d], lat, dims=2) if lat
+                          else carries[d])
+                    t = _minconv(Lp, p1, p2r)
+                    if lat > 0:
+                        t = torch.where(x < lat, 0.0, t)
+                    elif lat < 0:
+                        t = torch.where(x >= lanes + lat, 0.0, t)
+                contrib = t if contrib is None else contrib + t
+            if len(lats) > 1:
+                L = _fma32(contrib, 1.0 / len(lats), c)
             else:
-                Lp = (torch.roll(carries[d], lat, dims=2) if lat
-                      else carries[d])
-                contrib = _minconv(Lp, p1, p2r)
-                if lat > 0:
-                    contrib = torch.where(x < lat, 0.0, contrib)
-                elif lat < 0:
-                    contrib = torch.where(x >= lanes + lat, 0.0, contrib)
-            L = c + contrib
+                L = c + contrib
             carries[d] = L
             ssum = L if ssum is None else ssum + L
             if emit_votes:
@@ -240,6 +287,20 @@ def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
             ssum = ssum + accum[:, n]
         S[:, n] = ssum
     return S, votes
+
+
+def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
+               accum=None, emit_votes=True):
+    """Plain version of :func:`scan`: a Python loop over the scan rows."""
+    inv = torch.tensor(invalid_cost, dtype=torch.float32, device=cost.device)
+
+    def cost_row(n):
+        ci = cost[:, n].to(torch.int32)                      # (B, D, lanes)
+        return torch.where(ci == 255, inv, ci.to(torch.float32))
+
+    return _scan_loop(cost_row, p2, tuple((lat,) for lat in lats), p1,
+                      reverse, sub_cost_mult, accum, emit_votes,
+                      cost.shape[2])
 
 
 def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
@@ -270,9 +331,6 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     if _route(cost, p2, accum) == 'cpu':
         return scan_plain(cost, p2, lats, p1, invalid_cost, reverse,
                           sub_cost_mult, accum, emit_votes)
-    if D > _SCAN_MAX_D:
-        raise ValueError(f'the scan kernel takes at most {_SCAN_MAX_D} '
-                         f'candidates, got {D}')
     dev = cost.device
     S = torch.empty((B, N, D, lanes), dtype=torch.float32, device=dev)
     votes = (torch.empty((B, len(lats), N, lanes), dtype=torch.int32,
@@ -288,19 +346,159 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
 
 
 # --------------------------------------------------------------------- #
+# K4: scan pass with the census cost built from signatures
+# --------------------------------------------------------------------- #
+
+def _sig_cost_row(s1, s2, D, disp_min, nbits, horizontal, pad, sec_len,
+                  invalid_cost, allowed):
+    """``cost_row(n)`` of the signature modes: (B, D, lanes) float32."""
+    dev = s1.device
+    s1l = s1.long() & 0xFFFFFFFF
+    s2l = s2.long() & 0xFFFFFFFF
+    mask = (1 << nbits) - 1
+    k = torch.arange(D, device=dev)
+    inv = torch.tensor(invalid_cost, dtype=torch.float32, device=dev)
+    al = None if allowed is None else (allowed == 1)[:, :, None]
+
+    def cost_row(n):
+        a = s1l[:, n][:, None, :]                            # (B, 1, lanes)
+        if horizontal:
+            ix = n + disp_min + k                            # (D,)
+            row = (ix + pad).clamp(0, s2l.shape[1] - 1)
+            s = s2l[:, row, :]                               # (B, D, lanes)
+            inb = ((ix >= 0) & (ix < sec_len))[None, :, None]
+        else:
+            ix = (torch.arange(s1.shape[2], device=dev)[None, :]
+                  + disp_min + k[:, None])                   # (D, lanes)
+            s = s2l[:, n][:, ix.clamp(0, s2l.shape[2] - 1)]  # (B, D, lanes)
+            inb = ((ix >= 0) & (ix < sec_len))[None]
+        ok = ((((a >> _VALID_BIT) & 1) == 1) & (((s >> _VALID_BIT) & 1) == 1)
+              & inb)
+        if al is not None:
+            ok = ok & al
+        ham = _popcount((a ^ s) & mask).to(torch.float32)
+        c = torch.where(ok, ham, inv)
+        return torch.where(((a >> _PAD_BIT) & 1) == 1, 0.0, c)
+
+    return cost_row
+
+
+def scan_sig_plain(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
+                   sec_len, reverse, horizontal, pad=0, sub_cost_mult=0.0,
+                   allowed=None, accum=None, emit_votes=True):
+    """Plain version of :func:`scan_sig` (both kernels, K4a and K4b)."""
+    cost_row = _sig_cost_row(s1, s2, D, disp_min, nbits, horizontal, pad,
+                             sec_len, invalid_cost, allowed)
+    return _scan_loop(cost_row, p2, dirs, p1, reverse, sub_cost_mult, accum,
+                      emit_votes, D)
+
+
+def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
+             sec_len, reverse, horizontal, pad=0, sub_cost_mult=0.0,
+             allowed=None, accum=None, emit_votes=True):
+    """One SGM scan pass with the census cost built from signatures.
+
+    Args:
+        s1: (B, N, lanes) int32 packed reference signatures, scan axis
+            first (transposed for a horizontal pass); ``_VALID_BIT`` marks
+            valid pixels, ``_PAD_BIT`` reference padding (cost 0).
+        s2: vertical: (B, N, W2) secondary signatures, candidate k of lane
+            x at column ``x + disp_min + k``; horizontal: (B, N2, lanes),
+            candidate k of step n at row ``n + disp_min + pad + k``.
+        p2: (B, N, lanes) float32 per-pixel P2.
+        dirs: per direction (1 to 3 of them) its lateral carry offsets:
+            one each runs K4a (``csrc/scan.cu``), several (averaged, MGM)
+            K4b (``csrc/scan_mgm.cu``).
+        sec_len: candidate positions ``[0, sec_len)`` are in range.
+        allowed: optional (B, D) int32, 1 where candidate k is searched.
+        sub_cost_mult, accum: as in :func:`scan`.
+    Returns:
+        (S (B, N, D, lanes) float32, votes (B, len(dirs), N, lanes) int32
+        or None)."""
+    _check(s1, 's1', torch.int32, 3)
+    _check(s2, 's2', torch.int32, 3)
+    B, N, lanes = s1.shape
+    _check(p2, 'p2', torch.float32, 3)
+    if tuple(p2.shape) != (B, N, lanes):
+        raise ValueError(f'p2 must be {(B, N, lanes)}, got {tuple(p2.shape)}')
+    if horizontal:
+        len2 = s2.shape[1]
+        if s2.shape[0] != B or s2.shape[2] != lanes:
+            raise ValueError(f's2 {tuple(s2.shape)} vs s1 {tuple(s1.shape)}')
+        if pad < 0 or sec_len + pad > len2:
+            raise ValueError(f'rows [pad, sec_len + pad) = [{pad}, '
+                             f'{sec_len + pad}) must lie in s2 ({len2} rows)')
+    else:
+        len2 = s2.shape[2]
+        if tuple(s2.shape[:2]) != (B, N):
+            raise ValueError(f's2 {tuple(s2.shape)} vs s1 {tuple(s1.shape)}')
+        if sec_len > len2:
+            raise ValueError(f'sec_len {sec_len} exceeds the secondary '
+                             f'width {len2}')
+    if allowed is not None:
+        _check(allowed, 'allowed', torch.int32, 2)
+        if tuple(allowed.shape) != (B, D):
+            raise ValueError(f'allowed must be ({B}, {D})')
+    if accum is not None:
+        _check(accum, 'accum', torch.float32, 4)
+        if tuple(accum.shape) != (B, N, D, lanes):
+            raise ValueError(f'accum must be {(B, N, D, lanes)}')
+    if not 0 < nbits <= _VALID_BIT:
+        raise ValueError(f'nbits {nbits} outside (0, {_VALID_BIT}]')
+    dirs = tuple(tuple(int(v) for v in lats) for lats in dirs)
+    if not 1 <= len(dirs) <= 3 or not all(1 <= len(l) <= 3 for l in dirs):
+        raise ValueError(f'1 to 3 directions of 1 to 3 laterals, got {dirs}')
+    if _route(s1, s2, p2, allowed, accum) == 'cpu':
+        return scan_sig_plain(s1, s2, p2, dirs, p1, invalid_cost, nbits, D,
+                              disp_min, sec_len, reverse, horizontal, pad,
+                              sub_cost_mult, allowed, accum, emit_votes)
+    dev = s1.device
+    S = torch.empty((B, N, D, lanes), dtype=torch.float32, device=dev)
+    votes = (torch.empty((B, len(dirs), N, lanes), dtype=torch.int32,
+                         device=dev) if emit_votes else None)
+    ptrs = (s1.data_ptr(), s2.data_ptr(),
+            None if allowed is None else allowed.data_ptr(), p2.data_ptr(),
+            None if accum is None else accum.data_ptr(), S.data_ptr(),
+            None if votes is None else votes.data_ptr())
+    geom = (B, N, D, lanes, len2, int(bool(horizontal)), int(disp_min),
+            int(pad), int(sec_len), (1 << nbits) - 1, len(dirs))
+    tail = (float(p1), float(invalid_cost), float(sub_cost_mult),
+            int(bool(reverse)))
+    if all(len(lats) == 1 for lats in dirs):
+        lat3 = tuple(l[0] for l in dirs) + (0,) * (3 - len(dirs))
+        _launch('scan', 's2p_scan_sig', *ptrs, *geom, *lat3, *tail,
+                key='scan_sig', kernels=len(dirs))
+    else:
+        carry = torch.empty((B, 2, D, lanes), dtype=torch.float32,
+                            device=dev)
+        mins = torch.empty((B, 2, lanes), dtype=torch.float32, device=dev)
+        n_lats = (ctypes.c_int * 3)(*[len(l) for l in dirs])
+        lats = (ctypes.c_int * 9)(*[v for l in dirs
+                                    for v in l + (0,) * (3 - len(l))])
+        _launch('scan_mgm', 's2p_scan_mgm', *ptrs, carry.data_ptr(),
+                mins.data_ptr(), *geom, n_lats, lats, *tail,
+                kernels=len(dirs))
+    return S, votes
+
+
+# --------------------------------------------------------------------- #
 # K3: winner-take-all
 # --------------------------------------------------------------------- #
 
-def wta_plain(parts, subpix, big_guard):
-    """Plain version of :func:`wta`."""
-    S = parts[0]
-    for p in parts[1:]:
-        S = S + p
-    B, H, D, W = S.shape
-    dev = S.device
+def _argmin(S):
+    """(min over dim 2, its lowest index) of a (B, H, D, W) volume."""
+    D = S.shape[2]
     mn = S.amin(dim=2)
-    k_ids = torch.arange(D, device=dev)[None, None, :, None]
-    d = torch.where(S == mn.unsqueeze(2), k_ids, D).amin(dim=2)
+    k_ids = torch.arange(D, device=S.device)[None, None, :, None]
+    return mn, torch.where(S == mn.unsqueeze(2), k_ids, D).amin(dim=2)
+
+
+def _refine(S, d, c1, subpix, big_guard=None):
+    """Subpixel offset of the (B, H, W) WTA index ``d`` along dim 2 of
+    ``S``; ``c1`` is the minimum.  With ``big_guard``, no refinement
+    against out-of-range (BIG-cost) neighbours."""
+    D = S.shape[2]
+    dev = S.device
     inf = torch.tensor(float('inf'), dtype=torch.float32, device=dev)
 
     def at(idx):
@@ -308,20 +506,36 @@ def wta_plain(parts, subpix, big_guard):
 
     c0 = torch.where(d > 0, at(d - 1), inf)
     c2 = torch.where(d < D - 1, at(d + 1), inf)
-    guard = mn + 1e6
+    guard = c1 + 1e6
     c0 = torch.where(torch.isfinite(c0), c0, guard)
     c2 = torch.where(torch.isfinite(c2), c2, guard)
-    interior = (d > 0) & (d < D - 1) & (c0 < big_guard) & (c2 < big_guard)
+    interior = (d > 0) & (d < D - 1)
+    if big_guard is not None:
+        interior = interior & (c0 < big_guard) & (c2 < big_guard)
     eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
     if subpix == 'vfit':
-        den = 2.0 * (torch.maximum(c0, c2) - mn)
+        den = 2.0 * (torch.maximum(c0, c2) - c1)
         off = ((c0 - c2) / torch.maximum(den, eps)).clamp(-0.5, 0.5)
     elif subpix == 'parabola':
-        den = c0 - 2.0 * mn + c2
+        den = c0 - 2.0 * c1 + c2
         off = (0.5 * (c0 - c2) / torch.maximum(den, eps)).clamp(-0.5, 0.5)
     else:
-        off = torch.zeros_like(mn)
-    off = torch.where(interior, off, 0.0)
+        off = torch.zeros_like(c1)
+    return torch.where(interior, off, 0.0)
+
+
+def _sum_parts(parts):
+    S = parts[0]
+    for p in parts[1:]:
+        S = S + p
+    return S
+
+
+def wta_plain(parts, subpix, big_guard):
+    """Plain version of :func:`wta`."""
+    S = _sum_parts(parts)
+    mn, d = _argmin(S)
+    off = _refine(S, d, mn, subpix, big_guard)
     off = torch.where(mn < big_guard, off, float('nan'))
     return off, d.to(torch.int32)
 
@@ -355,6 +569,62 @@ def wta(parts, subpix, big_guard):
             d_int.data_ptr(), B, H, D, W, _SUBPIX.get(subpix, 0),
             float(big_guard))
     return off, d_int
+
+
+# --------------------------------------------------------------------- #
+# K5: winner-take-all with the right-reference disparity
+# --------------------------------------------------------------------- #
+
+def wta_dr_plain(parts, disp_min, subpix):
+    """Plain version of :func:`wta_dr`."""
+    S = _sum_parts(parts)
+    B, H, D, W = S.shape
+    dev = S.device
+    dmf = torch.tensor(float(disp_min), dtype=torch.float32, device=dev)
+    mn, d = _argmin(S)
+    disp = (dmf + d.to(torch.float32)) + _refine(S, d, mn, subpix)
+    # S_R[k, x] = S[k, x - disp_min - k], inf outside [0, W)
+    xs = (torch.arange(W, device=dev)[None, :] - disp_min
+          - torch.arange(D, device=dev)[:, None])            # (D, W)
+    S_R = torch.gather(S, 3, xs.clamp(0, W - 1).expand(B, H, D, W))
+    S_R = torch.where(((xs >= 0) & (xs < W))[None, None], S_R, float('inf'))
+    mnr, kR = _argmin(S_R)
+    dR = -((dmf + kR.to(torch.float32)) + _refine(S_R, kR, mnr, subpix))
+    return disp, d.to(torch.int32), dR
+
+
+def wta_dr(parts, disp_min, subpix):
+    """Winner-take-all over the summed partials, with the disparity
+    composed in the kernel and the right-reference disparity.
+
+    Args:
+        parts: one or two (B, H, D, W) float32 volumes, any strides,
+            summed in order.
+        disp_min: the disparity of candidate 0.
+        subpix: 'vfit', 'parabola' or anything else for no refinement.
+    Returns:
+        (disp (B, H, W) float32 = (disp_min + d) + offset, d (B, H, W)
+        int32, dR (B, H, W) float32 = -((disp_min + kR) + offset_R), the
+        WTA of S_R[k, x] = S[k, x - disp_min - k])."""
+    if not 1 <= len(parts) <= 2:
+        raise ValueError('wta_dr sums one or two partial volumes')
+    for i, p in enumerate(parts):
+        _check(p, f'parts[{i}]', torch.float32, 4, contiguous=False)
+        if p.shape != parts[0].shape:
+            raise ValueError('partials must share one shape')
+    if _route(*parts) == 'cpu':
+        return wta_dr_plain(parts, disp_min, subpix)
+    B, H, D, W = parts[0].shape
+    dev = parts[0].device
+    disp = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    d_int = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    dR = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    p1 = parts[-1]
+    _launch('wta', 's2p_wta_dr', parts[0].data_ptr(), *parts[0].stride(),
+            p1.data_ptr(), *p1.stride(), len(parts), disp.data_ptr(),
+            d_int.data_ptr(), dR.data_ptr(), B, H, D, W, int(disp_min),
+            _SUBPIX.get(subpix, 0), key='wta_dr')
+    return disp, d_int, dR
 
 
 # --------------------------------------------------------------------- #
@@ -429,3 +699,139 @@ def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
     if S['h'] is not None:
         parts.append(S['h'].permute(0, 3, 2, 1))
     return parts, votes
+
+
+# --------------------------------------------------------------------- #
+# the classic SGM census matcher (sgm_pallas.aggregate / match_pallas)
+# --------------------------------------------------------------------- #
+
+def _pack(sig, valid):
+    """Census signatures with the validity at ``_VALID_BIT``."""
+    return sig | (valid.to(torch.int32) << _VALID_BIT)
+
+
+def _any_valid_candidate(val2, disp_min, D):
+    """any_k val2[y, x + disp_min + k] via a windowed sum of the 0/1 mask."""
+    H, W2 = val2.shape
+    dev = val2.device
+    cs = torch.cat([torch.zeros((H, 1), dtype=torch.int64, device=dev),
+                    torch.cumsum(val2.to(torch.int64), dim=1)], dim=1)
+    x = torch.arange(W2, device=dev)
+    lo = (x + disp_min).clamp(0, W2)
+    hi = (x + disp_min + D).clamp(0, W2)
+    return (cs[:, hi] - cs[:, lo]) > 0
+
+
+def sgm_scan_passes(params):
+    """The classic matcher's scan passes in launch order: [(key,
+    direction indices, laterals of each direction)], key 'hf', 'hb', 'vf'
+    or 'vb' in the order the directions first name them.  Each direction
+    has one lateral, or with ``params.mgm`` its MGM partners."""
+    from .sgm import _DIRS_8
+
+    dirs = _DIRS_8[:max(2, min(params.nb_dir, 8))]
+    passes = {}
+    for i, d in enumerate(dirs):
+        key, (main, partner) = _PASS_OF_DIR[d]
+        if not params.mgm:
+            lats = (main,)
+        elif params.mgm_neighbors >= 3:
+            lats = (main, partner, -(main + partner))
+        else:
+            lats = (main, partner)
+        passes.setdefault(key, ([], []))
+        passes[key][0].append(i)
+        passes[key][1].append(lats)
+    return [(key, tuple(idx), tuple(lats))
+            for key, (idx, lats) in passes.items()]
+
+
+def aggregate_partials(im1, im2, disp_min, disp_max, params, p2map=None):
+    """The scan passes of the classic matcher on one (H, W) pair of equal
+    shape: returns (parts, valid1 (H, W) bool, votes list of (H, W) int32
+    in direction order).  ``parts`` are (1, H, D, W) float32 volumes:
+    ``S_v = vf + vb`` and ``S_h = hf + hb`` viewed in that layout, the
+    sums taken outside the kernels; ``nb_dir = 2`` gives only ``S_h``.
+
+    With ``params.mgm`` each direction averages its MGM lateral
+    predecessors (K4b), otherwise it has one (K4a)."""
+    from .census import census_transform
+
+    if im1.shape != im2.shape:
+        raise ValueError('the kernels need a pair of equal shape')
+    H, W = im1.shape
+    D = disp_max - disp_min + 1
+    win = params.census_win
+    nbits = win * win - 1
+    if nbits > _VALID_BIT:
+        raise NotImplementedError(f'census_win {win}: the kernels take '
+                                  'windows up to 5x5 (ROADMAP M12)')
+    invalid_cost = float(nbits)
+
+    sig1, val1 = census_transform(im1, win)
+    sig2, val2 = census_transform(im2, win)
+    s1 = _pack(sig1, val1)[None]
+    s2 = _pack(sig2, val2)[None]
+    if p2map is None:
+        p2map = torch.full((H, W), params.p2, dtype=torch.float32,
+                           device=im1.device)
+    p2map = p2map.to(torch.float32)
+
+    passes = sgm_scan_passes(params)
+    # the horizontal passes scan the transposed pair along x; the TPU
+    # kernel's sublane-aligned padding of the secondary is not needed
+    t = {}
+    if any(key[0] == 'h' for key, _, _ in passes):
+        t = {'s1': s1.transpose(1, 2).contiguous(),
+             's2': s2.transpose(1, 2).contiguous(),
+             'p2': p2map.t().contiguous()[None]}
+    S_v = S_h = None
+    votes = [None] * sum(len(idx) for _, idx, _ in passes)
+    for key, dir_idx, lats in passes:
+        horizontal = key[0] == 'h'
+        a, b, p2 = ((t['s1'], t['s2'], t['p2']) if horizontal
+                    else (s1, s2, p2map[None].contiguous()))
+        Sp, v = scan_sig(a, b, p2, lats, params.p1, invalid_cost, nbits, D,
+                         disp_min, W, reverse=key[1] == 'b',
+                         horizontal=horizontal)
+        if horizontal:
+            S_h = Sp if S_h is None else S_h + Sp
+        else:
+            S_v = Sp if S_v is None else S_v + Sp
+        for j, i in enumerate(dir_idx):
+            votes[i] = v[0, j].t() if horizontal else v[0, j]
+
+    valid1 = val1 & _any_valid_candidate(val2, disp_min, D)
+    parts = []
+    if S_v is not None:
+        parts.append(S_v)
+    if S_h is not None:
+        parts.append(S_h.permute(0, 3, 2, 1))        # (W,D,H) -> (H,D,W)
+    return parts, valid1, votes
+
+
+def aggregate(im1, im2, disp_min, disp_max, params, p2map=None):
+    """Census cost + multi-direction SGM/MGM aggregation on the kernels.
+
+    Counterpart of ``sgm_pallas.aggregate``: returns (S (H, W, D)
+    float32, valid1 (H, W) bool, votes list of (H, W) int32 in direction
+    order)."""
+    parts, valid1, votes = aggregate_partials(im1, im2, disp_min, disp_max,
+                                              params, p2map)
+    S = _sum_parts(parts)[0].permute(0, 2, 1)
+    return S, valid1, votes
+
+
+def match_kernels(im1, im2, disp_min, disp_max, params, p2map=None):
+    """Aggregation + fused WTA/subpixel/right-disparity on the kernels.
+
+    Counterpart of ``sgm_pallas.match_pallas``: returns a dict with
+    'disp_raw' (float32, disp_min + WTA + subpixel, no validity applied),
+    'd_int' (int32 WTA index), 'dR' (float32 right-reference disparity
+    for the LR test), 'valid1' (bool) and 'votes' (list of int32
+    per-direction WTA maps)."""
+    parts, valid1, votes = aggregate_partials(im1, im2, disp_min, disp_max,
+                                              params, p2map)
+    disp_raw, d_int, dR = wta_dr(parts, disp_min, params.subpix)
+    return {'disp_raw': disp_raw[0], 'd_int': d_int[0], 'dR': dR[0],
+            'valid1': valid1, 'votes': votes}

@@ -3,7 +3,7 @@
 s2p has no learned weights: the state that decides what stage 4 computes
 is the matcher's configuration.  These functions take the plain dicts the
 JAX package produces (``dataclasses.asdict`` of its ``MgmVariant`` and
-``Config.to_dict()``) and build the port's own classes, so that both
+``SgmParams``, and ``Config.to_dict()``) and build the port's own classes, so that both
 packages run on exactly the same settings.  Nothing of the JAX package is
 imported here.
 """
@@ -16,8 +16,9 @@ import numpy as np
 
 from .config import Config
 from .ops.mgm_flow import MgmVariant
+from .ops.sgm import SgmParams
 
-# The JAX variant's ``backend`` picks between its Pallas, lax and interpret
+# The JAX variant's and parameters' ``backend`` picks between its Pallas, lax and interpret
 # routes; in the port the device of the tensors makes that choice.
 _VARIANT_DROPPED = ('backend',)
 
@@ -38,6 +39,15 @@ def variant_from_state(d: dict) -> MgmVariant:
     if unknown:
         raise ValueError(f'unknown MgmVariant fields: {sorted(unknown)}')
     return MgmVariant(**{k: _plain(v) for k, v in d.items() if k in known})
+
+
+def sgm_params_from_state(d: dict) -> SgmParams:
+    """The port's SgmParams from ``dataclasses.asdict`` of the JAX one."""
+    known = {f.name for f in dataclasses.fields(SgmParams)}
+    unknown = set(d) - known - set(_VARIANT_DROPPED)
+    if unknown:
+        raise ValueError(f'unknown SgmParams fields: {sorted(unknown)}')
+    return SgmParams(**{k: _plain(v) for k, v in d.items() if k in known})
 
 
 def config_from_state(d: dict) -> Config:

@@ -16,8 +16,10 @@ _BANNED = ('jax', 'jaxlib', 's2p_tpu', 'PIL', 'torch.utils.cpp_extension')
 
 
 def _port_sources():
-    paths = [os.path.join(ROOT, 'chip_smoke.py'),
-             os.path.join(ROOT, 'tools', 'profile_stage4_torch.py')]
+    tools = os.path.join(ROOT, 'tools')
+    paths = [os.path.join(ROOT, 'chip_smoke.py')] + [
+        os.path.join(tools, f) for f in os.listdir(tools)
+        if f.endswith('_torch.py')]
     for d, _, files in os.walk(PKG):
         paths += [os.path.join(d, f) for f in files if f.endswith('.py')]
     return sorted(paths)

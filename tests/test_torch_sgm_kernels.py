@@ -166,3 +166,179 @@ def test_scan_passes_follow_the_pallas_flow():
                       ('vb', (3, 5, 6), (0, -1, 1))]
     assert [p[0] for p in sk.scan_passes(MgmVariant(nb_dir=2))] == ['hf',
                                                                     'hb']
+
+
+# ------------------------------------------------------------------ #
+# K4: the scan pass in signature mode, K5: the WTA with dR
+# ------------------------------------------------------------------ #
+
+def _h_pad(dmin, D, G=8):
+    """The horizontal secondary's padding of ``sgm_pallas``."""
+    pad = max(0, -dmin, dmin + D)
+    return pad + (-(dmin + pad)) % G
+
+
+# (horizontal, reverse, disp_min, allowed, sub, accum, wide, laterals)
+_SIG_CASES = {
+    'v_fwd_neg': (False, False, -8, False, 0.0, False, False,
+                  ((0,), (1,), (-1,))),
+    'v_rev_pos_allowed_sub': (False, True, 3, True, 7.0, False, False,
+                              ((0,), (-1,), (1,))),
+    'v_wide_accum_pad': (False, False, 0, False, 0.0, True, True,
+                         ((0,), (1,), (-1,))),
+    'h_fwd_neg': (True, False, -8, False, 0.0, False, False, ((0,),)),
+    'h_rev_pos_allowed_sub_accum': (True, True, 3, True, 7.0, True, False,
+                                    ((0,),)),
+    'h_wide_pad': (True, False, 0, False, 0.0, False, True, ((0,),)),
+}
+
+
+def _sig_inputs(case, N, W, D, wide, horizontal, dmin, rng):
+    """Reference signatures (N, W), the secondary in the layout each
+    implementation reads, and its padding and range: (s1, s2_jax,
+    s2_port, pad, sec_len, sec_len_jax)."""
+    s1 = _sigs(rng, (N, W), p_pad=0.1 if 'pad' in case else 0.0)
+    if not horizontal:
+        s2 = _sigs(rng, (N, W + D if wide else W))
+        return s1, s2, s2, 0, s2.shape[1], None
+    if wide:
+        s2 = _sigs(rng, (N + D, W))
+        return s1, s2, s2, 0, N + D, N + D
+    pad = _h_pad(dmin, D)
+    s2 = np.pad(_sigs(rng, (N, W)), ((pad, pad), (0, 0)))
+    return s1, s2, s2, pad, N, None
+
+
+@pytest.mark.parametrize('case', sorted(_SIG_CASES))
+def test_scan_sig_matches_pallas(case):
+    horizontal, reverse, dmin, with_allowed, sub, with_accum, wide, dirs = \
+        _SIG_CASES[case]
+    rng = np.random.RandomState(len(case) * 13 + int(reverse))
+    N, W, D = 32, 24, 16
+    s1, s2j, s2p, pad, sec_len, sec_len_j = _sig_inputs(
+        case, N, W, D, wide, horizontal, dmin, rng)
+    p2 = rng.choice([16.0, 32.0, 48.0], size=(N, W)).astype(np.float32)
+    allowed = (np.arange(D) < 11).astype(np.int32) if with_allowed else None
+    accum = (rng.randint(0, 3000, size=(N, D, W)).astype(np.float32)
+             if with_accum else None)
+    inv = 24.0 if dmin else BIG
+    S_ref, v_ref = sp._scan_pass_pallas(
+        jnp.asarray(s1), jnp.asarray(s2j), jnp.asarray(p2), D, dmin,
+        list(dirs), 8.0, inv, 24, reverse, horizontal, interpret=True,
+        sub_cost_mult=sub, sec_len=sec_len_j,
+        allowed=None if allowed is None else jnp.asarray(allowed)[:, None],
+        accum=None if accum is None else jnp.asarray(accum))
+    S, v = sk.scan_sig(
+        _t(s1), _t(s2p), torch.from_numpy(p2)[None], dirs, 8.0, inv, 24, D,
+        dmin, sec_len, reverse, horizontal, pad=pad, sub_cost_mult=sub,
+        allowed=None if allowed is None else torch.from_numpy(allowed)[None],
+        accum=None if accum is None else torch.from_numpy(accum)[None])
+    _same(S[0].numpy(), S_ref)
+    _same(v[0].numpy(), v_ref)
+    assert (np.asarray(S_ref) >= inv).any()
+
+
+# (horizontal, reverse, laterals of each direction): the MGM passes of
+# sgm_pallas.aggregate with mgm_neighbors 2 and 3
+_MGM_CASES = {
+    'v_2lat': (False, False, ((0, 1), (1, 0), (-1, 0))),
+    'v_3lat_rev': (False, True, ((0, -1, 1), (-1, 0, 1), (1, 0, -1))),
+    'h_2lat_rev': (True, True, ((0, -1),)),
+    'h_3lat': (True, False, ((0, 1, -1),)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(_MGM_CASES))
+def test_scan_mgm_matches_pallas(case):
+    """K4b's plain version.  Two laterals are held bitwise.  With three,
+    ``cost + c * f32(1/3)`` is one fused multiply-add in the JAX
+    package's CPU run except at a few lanes of the first row of each
+    8-row grid block, where XLA rounds twice; the port fuses everywhere,
+    so three laterals are held to rtol 1e-6 (a few ulp) and equal
+    votes."""
+    horizontal, reverse, dirs = _MGM_CASES[case]
+    rng = np.random.RandomState(len(case) * 5 + int(reverse))
+    N, W, D, dmin = 24, 32, 16, -8
+    s1, s2j, s2p, pad, sec_len, sec_len_j = _sig_inputs(
+        case, N, W, D, False, horizontal, dmin, rng)
+    p2 = np.full((N, W), 32.0, np.float32)
+    S_ref, v_ref = sp._scan_pass_pallas(
+        jnp.asarray(s1), jnp.asarray(s2j), jnp.asarray(p2), D, dmin,
+        list(dirs), 8.0, 24.0, 24, reverse, horizontal, interpret=True)
+    S, v = sk.scan_sig(_t(s1), _t(s2p), torch.from_numpy(p2)[None], dirs,
+                       8.0, 24.0, 24, D, dmin, sec_len, reverse, horizontal,
+                       pad=pad)
+    _same(v[0].numpy(), v_ref)
+    if len(dirs[0]) == 2:
+        _same(S[0].numpy(), S_ref)
+    else:
+        np.testing.assert_allclose(S[0].numpy(), np.asarray(S_ref),
+                                   rtol=1e-6, atol=0)
+    assert not np.array_equal(np.asarray(S_ref), np.round(S_ref))
+
+
+def test_fma32_is_one_rounding():
+    """The plain versions' fused multiply-add rounds once: it equals the
+    float64 evaluation (exact here: the inputs make the float64 sum
+    exact) and differs from two roundings somewhere."""
+    rng = np.random.RandomState(4)
+    a = (rng.rand(20000) * 300).astype(np.float32)
+    c = (rng.rand(20000) * 100).astype(np.float32)
+    third = np.float32(1 / 3)
+    got = sk._fma32(torch.from_numpy(a), 1 / 3, torch.from_numpy(c)).numpy()
+    exact = (c.astype(np.float64) + a.astype(np.float64) * float(third))
+    _same(got, exact.astype(np.float32))
+    assert (got != c + a * third).any()
+
+
+@pytest.mark.parametrize('subpix,n_parts,dmin', [
+    ('vfit', 2, -8), ('vfit', 1, 3), ('parabola', 2, 3), ('parabola', 1, -8),
+    ('none', 2, -8)])
+def test_wta_dr_matches_pallas(subpix, n_parts, dmin):
+    rng = np.random.RandomState(17 + n_parts + dmin)
+    H, D, W = 16, 16, 40
+    S = (rng.randint(0, 60, size=(H, D, W)) * 10).astype(np.float32)  # ties
+    S[2, :, 9] = S[2, 0, 9]                           # a flat column
+    S += rng.randint(0, 3, size=(H, D, W)).astype(np.float32) * 0.25
+    parts = [S] if n_parts == 1 else [S - 200.0, np.full_like(S, 200.0)]
+    disp_ref, d_ref, dR_ref = sp._wta_pallas(
+        [jnp.asarray(p) for p in parts], dmin, subpix, interpret=True)
+    disp, d, dR = sk.wta_dr([torch.from_numpy(p)[None] for p in parts],
+                            dmin, subpix)
+    _same(disp[0].numpy(), disp_ref)
+    _same(d[0].numpy(), d_ref)
+    _same(dR[0].numpy(), dR_ref)
+    if dmin > 0:
+        # columns x < dmin see no S_R candidate: kR = 0, dR = -dmin
+        assert (np.asarray(dR_ref)[:, :dmin] == -dmin).all()
+    if subpix != 'none':
+        assert (np.asarray(disp_ref) % 1 != 0).any()
+
+
+def test_wta_dr_reads_strided_parts():
+    """The horizontal partial is read in its (W, D, H) layout."""
+    rng = np.random.RandomState(8)
+    a = torch.from_numpy(rng.rand(2, 8, 16, 24).astype(np.float32))
+    h = torch.from_numpy(rng.rand(2, 24, 16, 8).astype(np.float32))
+    view = h.permute(0, 3, 2, 1)
+    for x, y in zip(sk.wta_dr([a, view], -3, 'vfit'),
+                    sk.wta_dr([a, view.contiguous()], -3, 'vfit')):
+        _same(x.numpy(), y.numpy())
+
+
+def test_scan_sig_rejects_bad_inputs():
+    s = torch.zeros((1, 8, 6), dtype=torch.int32)
+    p2 = torch.zeros((1, 8, 6))
+    with pytest.raises(ValueError):        # sec_len beyond the secondary
+        sk.scan_sig(s, s, p2, ((0,),), 8.0, 24.0, 24, 4, 0, 7, False, False)
+    with pytest.raises(ValueError):        # rows past the padded secondary
+        sk.scan_sig(s, s, p2, ((0,),), 8.0, 24.0, 24, 4, 0, 8, False, True,
+                    pad=2)
+    with pytest.raises(ValueError):        # four laterals
+        sk.scan_sig(s, s, p2, ((0, 1, -1, 2),), 8.0, 24.0, 24, 4, 0, 6,
+                    False, False)
+    with pytest.raises(TypeError):
+        sk.scan_sig(s.float(), s, p2, ((0,),), 8.0, 24.0, 24, 4, 0, 6,
+                    False, False)
+    with pytest.raises(ValueError):
+        sk.wta_dr([torch.zeros((1, 2, 3, 4))] * 3, 0, 'vfit')
