@@ -37,13 +37,33 @@ the JAX package.  Phases, each timed on a line of its own:
   8. stage 4 at 528 candidates: one 60 x 890 tile through
      ``stereo_matching_all``, its known shift, and its files byte for
      byte against the CPU run;
-  9. a JSON line with, per kernel, its launches during the phase that
-     drives its path (5 for the flow's kernels, 6 for the classic
-     matcher's, 8 for the scan at 528 candidates), its error against the
-     plain version, its time, the plain version's time and the least time
-     the card could take (bytes over 3.35 TB/s or f32 operations over
-     67 TFLOP/s, H100 SXM data sheet);
- 10. the last line: {"ok": true, "device": {...}}.
+  9. (run right after phase 4) the single-tile and lane-fold modes of
+     the kernels against their plain versions: the pre-pass at a signed base (-40, padded
+     secondary) on an 800 x 800 tile with 96 candidates, the WTA's
+     edge_subpix and plateau_zero modes on bucket A's summed partials
+     (phase 3), and the four signature-mode scans of bucket A folded by 2
+     (4 groups of 2 tiles, 448 x 1184 lanes vertical, 592 x 896
+     horizontal, segment width 592), timed against the same scans over
+     the 8 tiles unfolded and held bitwise against them;
+ 10. the single-tile entry on the card: ``ops.mgm_flow.mgm_binary_match``
+     on a 797 x 803 tile (range -40..55, the padded route) and an
+     800 x 800 tile (the aligned route), each bitwise against
+     ``mgm_binary_match_batch`` on the same tile in a 1-tile bucket, with
+     its known shift; ``core.matching.compute_disparity_map`` on the
+     797 x 803 tile; a 128 x 160 crop with edge_subpix against
+     device="cpu" byte for byte; the 800 x 800 call's wall time;
+ 11. the lane-folded batch: bucket A's 8 tiles with S2P_TPU_LANE_FOLD=3
+     (two groups of 3 and a 2-tile tail) bitwise per tile against the
+     unfolded batch on the card;
+ 12. a JSON line with, per kernel and mode, its launches during the
+     phase that drives its path (5 for the flow's kernels, 6 for the
+     classic matcher's, 8 for the scan at 528 candidates, 10 for the
+     pre-pass at a signed base and the WTA's edge modes, 11 for the
+     folded scan), its error against the plain version, its time, the
+     plain version's time and the least time the card could take (bytes
+     over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100 SXM data
+     sheet);
+ 13. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
 Without CUDA, or without the package beside it, it fails before any result.
@@ -74,6 +94,17 @@ BUCKET_WIDE = dict(n=1, h=64, w=896, D=528)
 # and one tile at the default tile size (800 x 800, 96 candidates)
 SGM_PAIR = dict(h=512, w=512, dmin=-8, dmax=55, shift=5, seed=0)
 SGM_TILE = dict(h=800, w=800, dmin=-30, dmax=65, shift=5, seed=1)
+# the single-tile entry: a tile below the alignment of 8 (the padded
+# route) and one at the default tile size (the aligned route), 96
+# candidates from -40
+SINGLE = dict(index=300, h=797, w1=803, w2=803, dmin=-40, dmax=55,
+              shift=4.5, seed=300)
+SINGLE_800 = dict(index=301, h=800, w1=800, w2=800, dmin=-40, dmax=55,
+                  shift=3.0, seed=301)
+# lane folds: the kernel check's, and the batch entry's (8 tiles: two
+# groups and a 2-tile tail)
+KERNEL_FOLD = 2
+BATCH_FOLD = 3
 
 
 @contextmanager
@@ -291,6 +322,30 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                timed(lambda: sk.wta(parts, v.subpix, mf.BIG / 2), 5),
                timed(lambda: sk.wta_plain(parts, v.subpix, mf.BIG / 2), 2),
                8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
+        if not tag:
+            # the single-tile flow's modes on the same partials: each
+            # alone, then both (timed)
+            for one in ({'edge_subpix': True}, {'plateau_zero': True}):
+                got = sk.wta(parts, v.subpix, mf.BIG / 2, **one)
+                ref = sk.wta_plain(parts, v.subpix, mf.BIG / 2, **one)
+                if not all(equal(a, b)[0] for a, b in zip(got, ref)):
+                    raise AssertionError(f'wta {one} ({side}) differs from '
+                                         'its plain version')
+            edge = dict(edge_subpix=True, plateau_zero=True)
+            off_e, d_e = sk.wta(parts, v.subpix, mf.BIG / 2, **edge)
+            off_ep, d_ep = sk.wta_plain(parts, v.subpix, mf.BIG / 2, **edge)
+            ok, err = equal(off_e, off_ep)
+            ok_d, err_d = equal(d_e, d_ep)
+            moved = int((~((off_e == off) | (torch.isnan(off_e)
+                                             & torch.isnan(off)))).sum())
+            print(f'  wta_edge {side}: {moved} offsets differ from the '
+                  'default mode', flush=True)
+            rec('wta_edge', side, ok and ok_d, max(err, err_d),
+                timed(lambda: sk.wta(parts, v.subpix, mf.BIG / 2, **edge),
+                      5),
+                timed(lambda: sk.wta_plain(parts, v.subpix, mf.BIG / 2,
+                                           **edge), 2),
+                8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
         del S, parts, cost_h
         torch.cuda.empty_cache()
 
@@ -498,6 +553,258 @@ def check_sgm_crop():
               'confidence equal the CPU run byte for byte', flush=True)
 
 
+def check_signed_prepass(pairs, stats):
+    """Phase 9: the pre-pass at a signed base with the padded secondary,
+    as the single-tile route gives it, on the 800 x 800 tile."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = torch.device('cuda')
+    a, b = (torch.as_tensor(im, device=dev)[None]
+            for im in pairs[SINGLE_800['index']])
+    dmin = SINGLE_800['dmin']
+    D = SINGLE_800['dmax'] - dmin + 1
+    s1, s2 = sk.flow_sigs(a, b, 5)
+    W = s1.shape[2]
+    s1t = s1.transpose(1, 2).contiguous()
+    s2tp, pad, sec_len = sk.prepass_secondary(s2, W, dmin, D)
+    args = (s1t, s2tp, D, dmin, 24, pad, sec_len)
+    got = sk.cost_prepass(*args)
+    ok, err = equal(got, sk.cost_prepass_plain(*args))
+    print(f'  cost_prepass at base {dmin}: pad {pad}, secondary rows '
+          f'{s2tp.shape[1]}, {int((got == 255).sum())} of {got.numel()} '
+          'candidates out of range', flush=True)
+    record(stats, 'cost_prepass_signed', '', ok, err,
+           timed(lambda: sk.cost_prepass(*args), 5),
+           timed(lambda: sk.cost_prepass_plain(*args), 2),
+           4 * s1t.numel() + 4 * s2tp.numel() + got.numel(), 0)
+
+
+def check_fold_kernels(specs, pairs, stats):
+    """Phase 9: the four signature-mode scans of bucket A's L side folded
+    by KERNEL_FOLD against their plain versions, and against the same
+    scans over the tiles unfolded (bitwise per tile, timed)."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = torch.device('cuda')
+    v = mf.MgmVariant()
+    D = BUCKET_A['D']
+    b1, b2 = bucket_arrays(specs, BUCKET_A, pairs)
+    n, H, W = b1.shape
+    _, seg_w = mf.lane_fold_plan(W, D, n)
+    G, B = n // KERNEL_FOLD, KERNEL_FOLD
+
+    def ints(key):
+        return torch.tensor([s[key] for s in specs], dtype=torch.int32,
+                            device=dev)
+
+    dm = ints('dmin')
+    dt = ints('dmax') - dm + 1
+    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev), v.census_win)
+    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev), v.census_win)
+    sr, ss, _ = mf._side_sigs(s1, s2, dm, ints('h'), ints('w1'),
+                              ints('w2'), extra=seg_w - W, ref_pad=seg_w - W)
+    allowed = (torch.arange(D, device=dev)[None, :] < dt[:, None]) \
+        .to(torch.int32)
+    folded = sk.fold_inputs(sr.reshape(G, B, H, seg_w),
+                            ss.reshape(G, B, H, seg_w), D, v.p2)
+    # the same tiles one by one: horizontal inputs transposed, the
+    # secondary padded by D rows as in the folded layout
+    one = {'v': (sr, ss, torch.full((n, H, seg_w), v.p2,
+                                    dtype=torch.float32, device=dev), seg_w),
+           'h': (sr.transpose(1, 2).contiguous(),
+                 torch.nn.functional.pad(ss.transpose(1, 2), (0, 0, 0, D)),
+                 torch.full((n, seg_w, H), v.p2, dtype=torch.float32,
+                            device=dev), seg_w + D)}
+    passes = sk.scan_passes(v)
+    sub = float(sum(len(i) for _, i, _ in passes) - 1)
+    t_fold = t_one = 0.0
+    for key, _, lats in passes:
+        o = key[0]
+        dirs = tuple((lat,) for lat in lats)
+        a, b, p2, sec_len, seg = folded[o]
+        args = (a, b, p2, dirs, v.p1, mf.BIG, 24, D, 0, sec_len,
+                key[1] == 'b', o == 'h')
+        kw = dict(sub_cost_mult=sub, allowed=allowed.reshape(G, B, D),
+                  seg_w=seg)
+        Sk, vk = sk.scan_sig(*args, **kw)
+        Sp, vp = sk.scan_sig_plain(*args, **kw)
+        ok, err = equal(Sk, Sp)
+        ok_v, err_v = equal(vk, vp)
+        vol = Sk.numel()
+        nbytes = (sum(4 * t.numel() for t in (a, b, p2)) + 4 * vol
+                  + 4 * vk.numel() + 4 * allowed.numel())
+        ops = vol * (6 + 11 * len(lats))
+        ms = timed(lambda: sk.scan_sig(*args, **kw), 3)
+        record(stats, f'scan_sig_seg {key}', '', ok and ok_v,
+               max(err, err_v), ms,
+               timed(lambda: sk.scan_sig_plain(*args, **kw), 1), nbytes,
+               ops)
+        del Sp, vp
+        # unfolded: the 8 tiles on the batch axis, one segment each
+        args1 = (*one[o][:3], dirs, v.p1, mf.BIG, 24, D, 0, one[o][3],
+                 key[1] == 'b', o == 'h')
+        kw1 = dict(sub_cost_mult=sub, allowed=allowed)
+        S1, v1 = sk.scan_sig(*args1, **kw1)
+        if o == 'v':      # (G, H, D, B * seg_w) -> (n, H, D, seg_w)
+            Sf = Sk.reshape(G, H, D, B, seg_w).permute(0, 3, 1, 2, 4)
+            vf = vk.reshape(G, -1, H, B, seg_w).permute(0, 3, 1, 2, 4)
+        else:             # (G, seg_w, D, B * H) -> (n, seg_w, D, H)
+            Sf = Sk.reshape(G, seg_w, D, B, H).permute(0, 3, 1, 2, 4)
+            vf = vk.reshape(G, -1, seg_w, B, H).permute(0, 3, 1, 2, 4)
+        same = (equal(Sf.reshape(S1.shape), S1)[0]
+                and equal(vf.reshape(v1.shape), v1)[0])
+        ms1 = timed(lambda: sk.scan_sig(*args1, **kw1), 3)
+        print(f'    {key}: folded {ms:.3f} ms, unfolded {ms1:.3f} ms, '
+              f'folded / unfolded {ms / ms1:.4f}, equal per tile: {same}',
+              flush=True)
+        if not same:
+            raise AssertionError(f'scan_sig_seg {key}: the folded scan '
+                                 'differs from the unfolded one')
+        t_fold += ms
+        t_one += ms1
+        sub = 0.0
+        del Sk, vk, S1, v1
+    print(f'  four passes: folded {t_fold:.3f} ms, unfolded {t_one:.3f} ms, '
+          f'folded / unfolded {t_fold / t_one:.4f}', flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_known_shift(name, disp, spec):
+    """A single-tile map: its shape, and the known shift on the finite
+    inner pixels."""
+    import numpy as np
+    shape = (spec['h'], spec['w1'])
+    if disp.shape != shape or disp.dtype != np.float32:
+        raise AssertionError(f'{name}: {disp.shape} {disp.dtype}, want '
+                             f'{shape} float32')
+    inner = disp[8:-8, 8:-8]
+    fin = np.isfinite(inner)
+    good = (np.abs(inner[fin] - spec['shift']) < 1.0).mean()
+    print(f'  {name}: {shape}, finite inner {fin.mean():.4f}, within 1 px '
+          f"of {spec['shift']}: {good:.4f}", flush=True)
+    if fin.mean() < 0.8 or good <= 0.95:
+        raise AssertionError(f'{name}: the known shift is not recovered')
+
+
+def run_single_path(pairs):
+    """Phase 10, the path itself: ``mgm_binary_match`` on the card on
+    both tiles.  Returns their (disp, conf) tensors."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    out = {}
+    for spec in (SINGLE, SINGLE_800):
+        im1, im2 = pairs[spec['index']]
+        t0 = time.perf_counter()
+        out[spec['index']] = mf.mgm_binary_match(im1, im2, spec['dmin'],
+                                                 spec['dmax'])
+        torch.cuda.synchronize()
+        print(f"  mgm_binary_match {spec['h']} x {spec['w1']}: "
+              f'{time.perf_counter() - t0:.3f} s', flush=True)
+    return out
+
+
+def check_single_path(pairs, out):
+    """Phase 10 checks: each tile against the batch entry on the card,
+    its known shift; compute_disparity_map; the wall time at 800 x 800."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.config import Config
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.ops import mgm_flow as mf
+
+    for spec in (SINGLE, SINGLE_800):
+        im1, im2 = pairs[spec['index']]
+        disp, conf = out[spec['index']]
+        h, w = spec['h'], spec['w1']
+        D = spec['dmax'] - spec['dmin'] + 1
+        Hp, Wp = -(-h // 8) * 8, -(-w // 8) * 8
+        b1 = np.full((1, Hp, Wp), np.nan, np.float32)
+        b2 = np.full((1, Hp, Wp), np.nan, np.float32)
+        b1[0, :h, :w] = im1
+        b2[0, :h, :spec['w2']] = im2
+        ref = mf.mgm_binary_match_batch(b1, b2, [spec['dmin']], D, [h],
+                                        [w], [spec['w2']], [D])
+        for name, x, y in (('disp', disp, ref['disp'][0, :h, :w]),
+                           ('confidence', conf, ref['confidence'][0, :h, :w])):
+            ok, err = equal(x, y)
+            if not ok:
+                raise AssertionError(f'single tile {h} x {w}: {name} '
+                                     'differs from the batch entry '
+                                     f'(max abs error {err})')
+        print(f'  single tile {h} x {w}: disp and confidence equal the '
+              'batch entry bitwise', flush=True)
+        check_known_shift(f'mgm_binary_match {h} x {w}', disp.cpu().numpy(),
+                          spec)
+    im1, im2 = pairs[SINGLE['index']]
+    t0 = time.perf_counter()
+    disp, mask, conf = matching.compute_disparity_map(
+        Config(), im1, im2, SINGLE['dmin'], SINGLE['dmax'])
+    print(f'  compute_disparity_map: {time.perf_counter() - t0:.3f} s',
+          flush=True)
+    if mask.dtype != np.uint8 or not np.array_equal(mask > 0,
+                                                    np.isfinite(disp)):
+        raise AssertionError('compute_disparity_map: mask != finite disp')
+    if conf.shape != disp.shape or not np.isin(conf * 8,
+                                               np.arange(9)).all():
+        raise AssertionError('compute_disparity_map: confidence not k/8')
+    check_known_shift('compute_disparity_map', disp, SINGLE)
+    im1, im2 = pairs[SINGLE_800['index']]
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        mf.mgm_binary_match(im1, im2, SINGLE_800['dmin'], SINGLE_800['dmax'])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"  mgm_binary_match {SINGLE_800['h']} x {SINGLE_800['w1']} wall, "
+          f'warm: median {statistics.median(walls[1:]) * 1e3:.3f} ms of '
+          f'{[round(t * 1e3, 3) for t in walls[1:]]}', flush=True)
+
+
+def check_single_crop(pairs):
+    """Phase 10: a 128 x 160 crop with edge_subpix, card against the CPU
+    byte for byte."""
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    im1, im2 = (im[:128, :160].copy() for im in pairs[SINGLE['index']])
+    v = mf.MgmVariant(edge_subpix=True, subpix_plateau='zero')
+    gpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v)
+    cpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v,
+                              device='cpu')
+    for name, x, y in zip(('disp', 'confidence'), gpu, cpu):
+        x, y = x.cpu().numpy(), y.numpy()
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            raise AssertionError(f'single-tile crop: {name} differs from '
+                                 'the CPU run')
+    print('  crop 128 x 160 (edge_subpix, plateau zero): disp and '
+          'confidence equal the CPU run byte for byte', flush=True)
+
+
+def check_folded_batch(specs, pairs, folded):
+    """Phase 11: the folded batch's outputs against the unfolded batch."""
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    b1, b2 = bucket_arrays(specs, BUCKET_A, pairs)
+    plain = mf.mgm_binary_match_batch(*fold_args(specs, b1, b2))
+    for key in ('disp', 'confidence', 'confidence_u8'):
+        for k in range(len(specs)):
+            ok, err = equal(folded[key][k], plain[key][k])
+            if not ok:
+                raise AssertionError(f'folded batch: tile {k} {key} differs '
+                                     f'from the unfolded batch ({err})')
+    print(f'  folded batch: {len(specs)} tiles equal the unfolded batch '
+          'bitwise (disp, confidence, confidence_u8)', flush=True)
+
+
+def fold_args(specs, b1, b2):
+    """mgm_binary_match_batch's arguments for bucket A."""
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    return (b1, b2, [s['dmin'] for s in specs], BUCKET_A['D'],
+            [s['h'] for s in specs], [s['w1'] for s in specs],
+            [s['w2'] for s in specs],
+            [s['dmax'] - s['dmin'] + 1 for s in specs], mf.MgmVariant())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -530,7 +837,8 @@ def main():
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
     specs = specs_a + specs_b
-    pairs = {s['index']: make_pair(s) for s in specs + [WIDE]}
+    pairs = {s['index']: make_pair(s)
+             for s in specs + [WIDE, SINGLE, SINGLE_800]}
 
     stats = {}
     with phase('flow kernels against their plain versions (bucket A)'):
@@ -539,6 +847,10 @@ def main():
         check_kernels([WIDE], pairs, stats, BUCKET_WIDE, tag='_d528')
     with phase('classic matcher kernels against their plain versions'):
         check_sgm_kernels(stats)
+    with phase('single-tile and lane-fold kernel modes against their '
+               'plain versions'):
+        check_signed_prepass(pairs, stats)
+        check_fold_kernels(specs_a, pairs, stats)
 
     launches = {}
     tmp = tempfile.mkdtemp(prefix='s2p_chip_smoke_')
@@ -589,6 +901,38 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    with phase('the single-tile entry on the card'):
+        sk.reset_launch_counts()
+        single = run_single_path(pairs)
+        launches['single'] = sk.launch_counts()
+        print(f"  launches: {launches['single']}", flush=True)
+        check_single_path(pairs, single)
+        del single
+        sk.reset_launch_counts()
+        check_single_crop(pairs)
+        launches['single_edge'] = sk.launch_counts()
+        print(f"  launches (crop): {launches['single_edge']}", flush=True)
+    with phase('the lane-folded batch on the card'):
+        from s2p_tpu_torch.ops import mgm_flow as mf
+        b1, b2 = bucket_arrays(specs_a, BUCKET_A, pairs)
+        os.environ['S2P_TPU_LANE_FOLD'] = str(BATCH_FOLD)
+        try:
+            sk.reset_launch_counts()
+            folded = mf.mgm_binary_match_batch(*fold_args(specs_a, b1, b2))
+            torch.cuda.synchronize()
+            launches['fold'] = sk.launch_counts()
+        finally:
+            del os.environ['S2P_TPU_LANE_FOLD']
+        print(f"  launches: {launches['fold']}", flush=True)
+        check_folded_batch(specs_a, pairs, folded)
+        del folded
+    for run, keys in (('single', ('cost_prepass', 'scan', 'wta')),
+                      ('fold', ('scan_sig_seg', 'cost_prepass', 'scan',
+                                'wta'))):
+        idle = [k for k in keys if launches[run][k] == 0]
+        if idle:
+            raise AssertionError(f'the {run} path launched no {idle}')
+
     pallas = 's2p_tpu/ops/sgm_pallas.py'
     csrc = 's2p_tpu_torch/csrc'
     # kernel -> (source, TPU kernel, the path run that counts it, its key)
@@ -602,6 +946,12 @@ def main():
         'scan_mgm': (f'{csrc}/scan_mgm.cu', f'{pallas}:81', 'sgm',
                      'scan_mgm'),
         'wta_dr': (f'{csrc}/wta.cu', f'{pallas}:358', 'sgm', 'wta_dr'),
+        'cost_prepass_signed': (f'{csrc}/cost_prepass.cu', f'{pallas}:474',
+                                'single', 'cost_prepass'),
+        'wta_edge': (f'{csrc}/wta.cu', f'{pallas}:358', 'single_edge',
+                     'wta_edge'),
+        'scan_sig_seg': (f'{csrc}/scan.cu', f'{pallas}:81', 'fold',
+                         'scan_sig_seg'),
     }
     missing = [name for name, (_, _, run, key) in table.items()
                if launches[run][key] == 0]

@@ -1,10 +1,10 @@
-"""Stage-4 matching helpers: the mgm variant of a config, the disparity
-range policy and the rejection mask.
+"""Stage-4 matching: the mgm variant of a config, the disparity range
+policy, the rejection mask and the single-pair matcher dispatch.
 
-Counterpart of ``mgm_variant_from_cfg``, ``finalize_disparity``,
-``clamp_disparity_range`` and ``MaxDisparityRangeError`` in
-``s2p_tpu/core/matching.py``.  The other matchers are not ported yet
-(ROADMAP M12).
+Counterpart of ``mgm_variant_from_cfg``, ``compute_disparity_map`` (for
+``mgm``), ``finalize_disparity``, ``clamp_disparity_range`` and
+``MaxDisparityRangeError`` in ``s2p_tpu/core/matching.py``.  The other
+matchers are not ported yet (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import Config
-from ..ops.mgm_flow import MgmVariant
+from ..ops.mgm_flow import MgmVariant, mgm_binary_match
 
 
 class MaxDisparityRangeError(Exception):
@@ -32,6 +32,36 @@ def mgm_variant_from_cfg(cfg: Config) -> MgmVariant:
         lr_enabled=cfg.mgm_leftright_control != 0,
         lr_tau=cfg.mgm_leftright_threshold,
     )
+
+
+def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
+                          disp_max=None, algo=None, max_disp_range=None,
+                          device=None):
+    """Run the configured matcher on one rectified pair.
+
+    Args:
+        im1, im2: rectified pair (2D float arrays, NaN outside the domain).
+        disp_min, disp_max: disparity search bounds, clamped and rounded
+            by :func:`clamp_disparity_range`.
+        device: None for CUDA (raises without it), or "cpu".
+    Returns:
+        (disp, mask, confidence) numpy arrays: float32 disparity (NaN
+        invalid), the uint8 validity mask and the float32 consensus
+        confidence.  Only ``mgm`` is ported; any other matcher raises."""
+    algo = algo or cfg.matching_algorithm
+    im1 = np.asarray(im1, dtype=np.float32)
+    im2 = np.asarray(im2, dtype=np.float32)
+    disp_min, disp_max = clamp_disparity_range(cfg, im1.shape[1], disp_min,
+                                               disp_max, max_disp_range)
+    if algo != 'mgm':
+        raise NotImplementedError(
+            f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
+            'runs mgm')
+    disp, conf = mgm_binary_match(im1, im2, disp_min, disp_max,
+                                  mgm_variant_from_cfg(cfg), device=device)
+    disp = disp.cpu().numpy()
+    return finalize_disparity(disp, np.isfinite(disp), im1, im2) + (
+        conf.cpu().numpy(),)
 
 
 def finalize_disparity(disp, valid, im1, im2):

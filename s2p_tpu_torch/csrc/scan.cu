@@ -22,6 +22,10 @@
 //     the [0, sec_len) mask, so the kernel indexes directly and reads s2
 //     only where the candidate is in range.
 //
+//     Its lane-fold mode (seg_w, the TPU kernel's sgm_pallas.py:116-123)
+//     scans several tiles side by side on the lane axis, each a segment
+//     of seg_w lanes with its own row of allowed[].
+//
 // Per scan step s (row n = s, or N - 1 - s in reverse), lane x and
 // direction d with lateral offset lat[d]:
 //
@@ -33,7 +37,9 @@
 //   votes = lowest k of min_k L_d
 //
 // "dead" is step 0 and every lane whose predecessor x - lat[d] lies
-// outside the image.  The f32 operations run in exactly this order, and
+// outside the image, or, in the lane-fold mode, in another segment (a dead
+// carry restarts fresh: a fresh carry is zero and minconv(0) == 0, which is
+// how the TPU kernel masks the segment edges).  The f32 operations run in exactly this order, and
 // the build disables FMA contraction, so the sums round as the
 // reference's do around BIG = 1e9.
 //
@@ -98,8 +104,8 @@ struct CostU8 {
 struct CostSig {
   const uint32_t* s1;       // (B, N, lanes)
   const uint32_t* s2;       // vertical (B, N, W2); horizontal (B, N2, lanes)
-  const int32_t* allowed;   // (B, D) or null
-  int N, lanes, len2, D, dmin, pad, sec_len, horizontal;
+  const int32_t* allowed;   // (B, lanes / seg_w, D) or null
+  int N, lanes, len2, D, dmin, pad, sec_len, horizontal, seg_w;
   uint32_t mask;
   float invalid;
   struct Row {
@@ -129,7 +135,11 @@ struct CostSig {
     const uint32_t* p =
         horizontal ? s2 + ((long long)b * len2 + pad) * lanes + x
                    : s2 + ((long long)b * N + n) * len2;
-    return Row{p, allowed == nullptr ? nullptr : allowed + b * D + k0,
+    const int32_t* al =
+        allowed == nullptr
+            ? nullptr
+            : allowed + ((long long)b * (lanes / seg_w) + x / seg_w) * D + k0;
+    return Row{p, al,
                horizontal ? (long long)lanes : 1LL, a, mask,
                (horizontal ? n : x) + dmin + k0, sec_len, state, invalid};
   }
@@ -141,8 +151,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 scan_dir_kernel(Cost src, const float* __restrict__ p2,
                 const float* __restrict__ accum, float* S,
                 int* __restrict__ votes, int N, int D, int lanes,
-                int n_chains, int lat, int dir, int n_dirs, int first,
-                int last, float p1, float sub, int reverse) {
+                int seg_w, int n_chains, int lat, int dir, int n_dirs,
+                int first, int last, float p1, float sub, int reverse) {
   // per buffer (2) and thread (T x C <= kMaxThreads): the partial minimum,
   // its argmin, the first and the last carry of the thread's group
   __shared__ float s_best[2 * kMaxThreads];
@@ -166,7 +176,11 @@ scan_dir_kernel(Cost src, const float* __restrict__ p2,
     const bool valid = q < n_chains && x >= 0 && x < lanes;
     const int cur = (s & 1) * kMaxThreads, prv = ((s & 1) ^ 1) * kMaxThreads;
     if (valid) {
-      const bool dead = !started;
+      bool dead = !started;
+      if (seg_w < lanes && lat != 0) {
+        const int xl = x % seg_w;
+        dead = dead || (lat > 0 ? xl < lat : xl >= seg_w + lat);
+      }
       const int n = reverse ? N - 1 - s : s;
       float m = 0.f, lo = inf, hi = inf;
       if (!dead) {
@@ -249,10 +263,12 @@ scan_dir_kernel(Cost src, const float* __restrict__ p2,
 // One launch per direction, in order, on one stream.
 template <class Cost>
 int launch_dirs(const Cost& src, const void* p2, const void* accum, void* S,
-                void* votes, int B, int N, int D, int lanes, int n_dirs,
-                const int* lats, float p1, float sub, int reverse,
+                void* votes, int B, int N, int D, int lanes, int seg_w,
+                int n_dirs, const int* lats, float p1, float sub, int reverse,
                 cudaStream_t stream) {
   if (n_dirs < 1 || n_dirs > 3) return (int)cudaErrorInvalidValue;
+  if (seg_w <= 0 || (lanes > 0 && lanes % seg_w != 0))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || N <= 0 || D <= 0 || lanes <= 0) return (int)cudaGetLastError();
   const int kk = D <= 16 * 16 ? 16 : 32;
   const int T = (D + kk - 1) / kk;
@@ -266,8 +282,8 @@ int launch_dirs(const Cost& src, const void* p2, const void* accum, void* S,
     const dim3 block(C, T);
 #define S2P_SCAN_ARGS                                                       \
   src, (const float*)p2, (const float*)accum, (float*)S, (int*)votes, N, D, \
-      lanes, n_chains, lat, d, n_dirs, d == 0, d == n_dirs - 1, p1, sub,    \
-      reverse
+      lanes, seg_w, n_chains, lat, d, n_dirs, d == 0, d == n_dirs - 1, p1,  \
+      sub, reverse
     if (C != kMaxChains)
       scan_dir_kernel<32, 0, Cost><<<grid, block, 0, stream>>>(S2P_SCAN_ARGS);
     else if (kk == 16)
@@ -295,26 +311,27 @@ extern "C" int s2p_scan(const void* cost, long long cs_b, long long cs_n,
   const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
                    invalid_cost};
   const int lats[3] = {lat0, lat1, lat2};
-  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, n_dirs, lats,
-                     p1, sub, reverse, (cudaStream_t)stream);
+  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, lanes, n_dirs,
+                     lats, p1, sub, reverse, (cudaStream_t)stream);
 }
 
 // Signature mode (K4a): the census cost built in the kernel.  ``len2`` is
-// the secondary's row length (vertical, W2) or row count (horizontal, N2).
+// the secondary's row length (vertical, W2) or row count (horizontal, N2);
+// ``seg_w`` the lane-fold mode's segment width (``lanes`` for one tile).
 extern "C" int s2p_scan_sig(const void* s1, const void* s2,
                             const void* allowed, const void* p2,
                             const void* accum, void* S, void* votes, int B,
                             int N, int D, int lanes, int len2, int horizontal,
                             int disp_min, int pad, int sec_len,
                             unsigned int mask, int n_dirs, int lat0, int lat1,
-                            int lat2, float p1, float invalid_cost, float sub,
-                            int reverse, void* stream) {
+                            int lat2, int seg_w, float p1, float invalid_cost,
+                            float sub, int reverse, void* stream) {
   const CostSig src{(const uint32_t*)s1, (const uint32_t*)s2,
                     (const int32_t*)allowed, N, lanes, len2, D, disp_min,
-                    pad, sec_len, horizontal, mask, invalid_cost};
+                    pad, sec_len, horizontal, seg_w, mask, invalid_cost};
   const int lats[3] = {lat0, lat1, lat2};
-  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, n_dirs, lats,
-                     p1, sub, reverse, (cudaStream_t)stream);
+  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, seg_w, n_dirs,
+                     lats, p1, sub, reverse, (cudaStream_t)stream);
 }
 
 extern "C" const char* s2p_scan_error(int code) {

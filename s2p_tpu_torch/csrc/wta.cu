@@ -5,7 +5,11 @@
 // _wta_pallas :445) in two of its modes:
 //
 //   * s2p_wta (K3, the mgm flow): emit_offset, without the right-reference
-//     map (with_dr=False), with big_guard;
+//     map (with_dr=False), with big_guard, and the two knobs of the
+//     single-tile flow's refinement (s2p_tpu/ops/mgm_flow.py _wta_refine,
+//     :191), which the TPU kernel does not have: edge_subpix (refine next
+//     to out-of-range neighbours too) and plateau_zero (no refinement
+//     where the fit's denominator is not above 1e-9);
 //   * s2p_wta_dr (K5, the classic SGM matcher): the disparity composed in
 //     the kernel (emit_offset=False), no big_guard, and the right-reference
 //     disparity dR (with_dr=True).
@@ -17,8 +21,10 @@
 //   c0/c2 = S[d - 1] / S[d + 1] (inf off the ends; non-finite -> mn + 1e6)
 //   off   = vfit:     (c0 - c2) / max(2 (max(c0, c2) - mn), 1e-9)
 //           parabola: 0.5 (c0 - c2) / max((c0 - 2 mn) + c2, 1e-9)
-//   off   = clip(off, -0.5, 0.5) where d is interior (and, with big_guard,
-//           c0, c2 < big_guard), else 0
+//   off   = clip(off, -0.5, 0.5), and 0 with plateau_zero where the
+//           denominator is not above 1e-9
+//   off   = off where d is interior (and, with big_guard and without
+//           edge_subpix, c0, c2 < big_guard), else 0
 //   K3:  off, NaN where mn >= big_guard;   K5:  disp = (dmin + d) + off
 //
 // K5 also reduces the right-reference volume S_R[k, x] = S[k, x - dmin - k]
@@ -54,23 +60,25 @@ __device__ __forceinline__ float sum_at(const Part& a, const Part& c,
 }
 
 __device__ __forceinline__ float subpix_offset(float c0, float c1, float c2,
-                                              int subpix) {
-  float o = 0.f;
+                                              int subpix, int plateau_zero) {
+  float o = 0.f, den = 1.f;
   if (subpix == 1) {                 // vfit
-    const float den = 2.0f * (fmaxf(c0, c2) - c1);
+    den = 2.0f * (fmaxf(c0, c2) - c1);
     o = (c0 - c2) / fmaxf(den, 1e-9f);
     o = fminf(fmaxf(o, -0.5f), 0.5f);
   } else if (subpix == 2) {          // parabola
-    const float den = (c0 - 2.0f * c1) + c2;
+    den = (c0 - 2.0f * c1) + c2;
     o = (0.5f * (c0 - c2)) / fmaxf(den, 1e-9f);
     o = fminf(fmaxf(o, -0.5f), 0.5f);
   }
+  if (plateau_zero && !(den > 1e-9f)) o = 0.f;
   return o;
 }
 
 __global__ void wta_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
                            int* __restrict__ dint, int B, int H, int D, int W,
-                           int subpix, float big_guard) {
+                           int subpix, int edge_subpix, int plateau_zero,
+                           float big_guard) {
   const long long total = (long long)B * H * W;
   const float inf = __int_as_float(0x7f800000);
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -92,9 +100,9 @@ __global__ void wta_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
     const float guard = mn + 1e6f;
     if (!isfinite(c0)) c0 = guard;
     if (!isfinite(c2)) c2 = guard;
-    const bool interior =
-        d > 0 && d < D - 1 && c0 < big_guard && c2 < big_guard;
-    float o = subpix_offset(c0, mn, c2, subpix);
+    const bool interior = d > 0 && d < D - 1 &&
+                          (edge_subpix || (c0 < big_guard && c2 < big_guard));
+    float o = subpix_offset(c0, mn, c2, subpix, plateau_zero);
     if (!interior) o = 0.f;
     off[i] = mn < big_guard ? o : __int_as_float(0x7fc00000);
     dint[i] = d;
@@ -128,7 +136,7 @@ __global__ void wta_dr_kernel(Part a, Part c, int n_parts,
     float guard = mn + 1e6f;
     if (!isfinite(c0)) c0 = guard;
     if (!isfinite(c2)) c2 = guard;
-    float o = subpix_offset(c0, mn, c2, subpix);
+    float o = subpix_offset(c0, mn, c2, subpix, 0);
     if (!(d > 0 && d < D - 1)) o = 0.f;
     disp[i] = ((float)disp_min + (float)d) + o;
     dint[i] = d;
@@ -153,7 +161,7 @@ __global__ void wta_dr_kernel(Part a, Part c, int n_parts,
     guard = mnr + 1e6f;
     if (!isfinite(c0)) c0 = guard;
     if (!isfinite(c2)) c2 = guard;
-    o = subpix_offset(c0, mnr, c2, subpix);
+    o = subpix_offset(c0, mnr, c2, subpix, 0);
     if (!(kr > 0 && kr < D - 1)) o = 0.f;
     dr[i] = -(((float)disp_min + (float)kr) + o);
   }
@@ -165,8 +173,8 @@ extern "C" int s2p_wta(const void* p0, long long s0b, long long s0y,
                        long long s0k, long long s0x, const void* p1,
                        long long s1b, long long s1y, long long s1k,
                        long long s1x, int n_parts, void* off, void* dint,
-                       int B, int H, int D, int W, int subpix, float big_guard,
-                       void* stream) {
+                       int B, int H, int D, int W, int subpix, int edge_subpix,
+                       int plateau_zero, float big_guard, void* stream) {
   const long long total = (long long)B * H * W;
   if (n_parts < 1 || n_parts > 2) return (int)cudaErrorInvalidValue;
   if (total > 0 && D > 0) {
@@ -177,7 +185,7 @@ extern "C" int s2p_wta(const void* p0, long long s0b, long long s0y,
     Part c{(const float*)(n_parts == 2 ? p1 : p0), s1b, s1y, s1k, s1x};
     wta_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         a, c, n_parts, (float*)off, (int*)dint, B, H, D, W, subpix,
-        big_guard);
+        edge_subpix, plateau_zero, big_guard);
   }
   return (int)cudaGetLastError();
 }

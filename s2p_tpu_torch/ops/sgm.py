@@ -178,7 +178,8 @@ def _match_core(im1, im2, disp_min: int, D: int, params: SgmParams,
     nv = len(_DIRS_8[:max(2, min(params.nb_dir, 8))])
     consensus = sum((torch.abs(v - d_int) <= 1).to(torch.int32)
                     for v in votes)
-    confidence = consensus.to(torch.float32) / nv
+    # count * f32(1 / n): how the JAX package's jitted division rounds
+    confidence = consensus.to(torch.float32) * float(np.float32(1 / nv))
 
     if params.min_confidence > 0:
         valid = valid & (confidence >= params.min_confidence)

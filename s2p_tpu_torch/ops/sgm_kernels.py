@@ -9,17 +9,22 @@ Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
     ``_scan_kernel`` in cost mode);
   * :func:`scan_sig` -- one SGM scan pass with the census cost built in
     the kernel from bit-packed signatures: K4a with one lateral per
-    direction (``csrc/scan.cu``), K4b with averaged MGM laterals
-    (``csrc/scan_mgm.cu``); TPU kernel ``_scan_kernel`` in its signature
-    modes;
+    direction (``csrc/scan.cu``), also over tiles side by side on the
+    lane axis (``seg_w``, the lane-fold mode), K4b with averaged MGM
+    laterals (``csrc/scan_mgm.cu``); TPU kernel ``_scan_kernel`` in its
+    signature modes;
   * :func:`wta` -- K3, winner-take-all with subpixel offset
     (``csrc/wta.cu``; TPU kernel ``_wta_kernel``, emit_offset mode
-    without the right-reference map);
+    without the right-reference map), with the single-tile flow's
+    ``edge_subpix`` and ``plateau_zero`` modes;
   * :func:`wta_dr` -- K5, winner-take-all with the disparity composed in
     the kernel and the right-reference disparity (``csrc/wta.cu``; TPU
     kernel ``_wta_kernel`` with ``with_dr``);
   * :func:`flow_partials_from_sigs` -- the pre-pass and the four scans of
-    one side of the mgm flow;
+    one side of the mgm flow, at the batch's rebased base 0 or the single
+    tile's signed base; :func:`flow_one_side` -- one side of the single
+    tile (``flow_one_side_pallas``); :func:`flow_partials_folded` -- one
+    side of lane-folded tile groups;
   * :func:`aggregate` and :func:`match_kernels` -- the classic SGM
     census matcher's aggregation and its fused WTA (``sgm_pallas.aggregate``
     and ``match_pallas``).
@@ -57,8 +62,8 @@ _PASS_OF_DIR = {
 
 _SUBPIX = {'vfit': 1, 'parabola': 2}
 
-_launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0, 'scan_sig': 0,
-             'scan_mgm': 0, 'wta_dr': 0}
+_launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0, 'wta_edge': 0,
+             'scan_sig': 0, 'scan_sig_seg': 0, 'scan_mgm': 0, 'wta_dr': 0}
 
 
 def launch_counts():
@@ -82,12 +87,12 @@ _ARGTYPES = {
     's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [_U, _P],
     's2p_scan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
-    's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 4
+    's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 5
                     + [_F, _F, _F, _I, _P],
     's2p_scan_mgm': [_P] * 9 + [_I] * 9 + [_U, _I, _IP, _IP]
                     + [_F, _F, _F, _I, _P],
     's2p_wta': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P, _P]
-               + [_I] * 5 + [_F, _P],
+               + [_I] * 7 + [_F, _P],
     's2p_wta_dr': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P,
                    _P, _P] + [_I] * 6 + [_P],
 }
@@ -239,17 +244,19 @@ def _fma32(a, b, c):
 
 
 def _scan_loop(cost_row, p2, dirs, p1, reverse, sub_cost_mult, accum,
-               emit_votes, D):
+               emit_votes, D, seg_w=None):
     """The plain SGM recursion of one pass: a Python loop over the scan
     rows.  ``cost_row(n)`` gives row n's (B, D, lanes) float32 cost;
     ``dirs`` holds the lateral offsets of each direction, averaged where a
-    direction has several (MGM)."""
+    direction has several (MGM).  With ``seg_w`` the lanes are segments
+    of that width and no lateral carry crosses a segment edge."""
     B, N, lanes = p2.shape
     dev = p2.device
     S = torch.empty((B, N, D, lanes), dtype=torch.float32, device=dev)
     votes = (torch.empty((B, len(dirs), N, lanes), dtype=torch.int32,
                          device=dev) if emit_votes else None)
-    x = torch.arange(lanes, device=dev)
+    seg_w = seg_w or lanes
+    x = torch.arange(lanes, device=dev) % seg_w
     k_ids = torch.arange(D, dtype=torch.int32, device=dev)[None, :, None]
     sub = torch.tensor(sub_cost_mult, dtype=torch.float32, device=dev)
     carries = [None] * len(dirs)
@@ -270,7 +277,7 @@ def _scan_loop(cost_row, p2, dirs, p1, reverse, sub_cost_mult, accum,
                     if lat > 0:
                         t = torch.where(x < lat, 0.0, t)
                     elif lat < 0:
-                        t = torch.where(x >= lanes + lat, 0.0, t)
+                        t = torch.where(x >= seg_w + lat, 0.0, t)
                 contrib = t if contrib is None else contrib + t
             if len(lats) > 1:
                 L = _fma32(contrib, 1.0 / len(lats), c)
@@ -351,14 +358,20 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
 
 def _sig_cost_row(s1, s2, D, disp_min, nbits, horizontal, pad, sec_len,
                   invalid_cost, allowed):
-    """``cost_row(n)`` of the signature modes: (B, D, lanes) float32."""
+    """``cost_row(n)`` of the signature modes: (B, D, lanes) float32.
+    ``allowed`` is (B, D), or (B, segments, D) for lanes in segments."""
     dev = s1.device
     s1l = s1.long() & 0xFFFFFFFF
     s2l = s2.long() & 0xFFFFFFFF
     mask = (1 << nbits) - 1
     k = torch.arange(D, device=dev)
     inv = torch.tensor(invalid_cost, dtype=torch.float32, device=dev)
-    al = None if allowed is None else (allowed == 1)[:, :, None]
+    al = None
+    if allowed is not None and allowed.dim() == 2:
+        al = (allowed == 1)[:, :, None]
+    elif allowed is not None:
+        seg_w = s1.shape[2] // allowed.shape[1]
+        al = (allowed == 1).repeat_interleave(seg_w, dim=1).transpose(1, 2)
 
     def cost_row(n):
         a = s1l[:, n][:, None, :]                            # (B, 1, lanes)
@@ -385,17 +398,17 @@ def _sig_cost_row(s1, s2, D, disp_min, nbits, horizontal, pad, sec_len,
 
 def scan_sig_plain(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
                    sec_len, reverse, horizontal, pad=0, sub_cost_mult=0.0,
-                   allowed=None, accum=None, emit_votes=True):
+                   allowed=None, accum=None, emit_votes=True, seg_w=None):
     """Plain version of :func:`scan_sig` (both kernels, K4a and K4b)."""
     cost_row = _sig_cost_row(s1, s2, D, disp_min, nbits, horizontal, pad,
                              sec_len, invalid_cost, allowed)
     return _scan_loop(cost_row, p2, dirs, p1, reverse, sub_cost_mult, accum,
-                      emit_votes, D)
+                      emit_votes, D, seg_w)
 
 
 def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
              sec_len, reverse, horizontal, pad=0, sub_cost_mult=0.0,
-             allowed=None, accum=None, emit_votes=True):
+             allowed=None, accum=None, emit_votes=True, seg_w=None):
     """One SGM scan pass with the census cost built from signatures.
 
     Args:
@@ -410,8 +423,12 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
             one each runs K4a (``csrc/scan.cu``), several (averaged, MGM)
             K4b (``csrc/scan_mgm.cu``).
         sec_len: candidate positions ``[0, sec_len)`` are in range.
-        allowed: optional (B, D) int32, 1 where candidate k is searched.
+        allowed: optional (B, D) int32, 1 where candidate k is searched;
+            (B, lanes // seg_w, D) with ``seg_w``, one row per segment.
         sub_cost_mult, accum: as in :func:`scan`.
+        seg_w: the lanes are segments of this width (tiles side by side,
+            the lane-fold mode): a lateral carry never crosses a segment
+            edge.  One lateral per direction (K4a) only.
     Returns:
         (S (B, N, D, lanes) float32, votes (B, len(dirs), N, lanes) int32
         or None)."""
@@ -435,23 +452,30 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
         if sec_len > len2:
             raise ValueError(f'sec_len {sec_len} exceeds the secondary '
                              f'width {len2}')
+    dirs = tuple(tuple(int(v) for v in lats) for lats in dirs)
+    if not 1 <= len(dirs) <= 3 or not all(1 <= len(l) <= 3 for l in dirs):
+        raise ValueError(f'1 to 3 directions of 1 to 3 laterals, got {dirs}')
+    if seg_w is not None:
+        if not 0 < seg_w <= lanes or lanes % seg_w:
+            raise ValueError(f'seg_w {seg_w} must divide the {lanes} lanes')
+        if any(len(l) > 1 for l in dirs):
+            raise ValueError('seg_w takes one lateral per direction')
     if allowed is not None:
-        _check(allowed, 'allowed', torch.int32, 2)
-        if tuple(allowed.shape) != (B, D):
-            raise ValueError(f'allowed must be ({B}, {D})')
+        want = (B, D) if seg_w is None else (B, lanes // seg_w, D)
+        _check(allowed, 'allowed', torch.int32, len(want))
+        if tuple(allowed.shape) != want:
+            raise ValueError(f'allowed must be {want}')
     if accum is not None:
         _check(accum, 'accum', torch.float32, 4)
         if tuple(accum.shape) != (B, N, D, lanes):
             raise ValueError(f'accum must be {(B, N, D, lanes)}')
     if not 0 < nbits <= _VALID_BIT:
         raise ValueError(f'nbits {nbits} outside (0, {_VALID_BIT}]')
-    dirs = tuple(tuple(int(v) for v in lats) for lats in dirs)
-    if not 1 <= len(dirs) <= 3 or not all(1 <= len(l) <= 3 for l in dirs):
-        raise ValueError(f'1 to 3 directions of 1 to 3 laterals, got {dirs}')
     if _route(s1, s2, p2, allowed, accum) == 'cpu':
         return scan_sig_plain(s1, s2, p2, dirs, p1, invalid_cost, nbits, D,
                               disp_min, sec_len, reverse, horizontal, pad,
-                              sub_cost_mult, allowed, accum, emit_votes)
+                              sub_cost_mult, allowed, accum, emit_votes,
+                              seg_w)
     dev = s1.device
     S = torch.empty((B, N, D, lanes), dtype=torch.float32, device=dev)
     votes = (torch.empty((B, len(dirs), N, lanes), dtype=torch.int32,
@@ -466,8 +490,10 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
             int(bool(reverse)))
     if all(len(lats) == 1 for lats in dirs):
         lat3 = tuple(l[0] for l in dirs) + (0,) * (3 - len(dirs))
-        _launch('scan', 's2p_scan_sig', *ptrs, *geom, *lat3, *tail,
-                key='scan_sig', kernels=len(dirs))
+        _launch('scan', 's2p_scan_sig', *ptrs, *geom, *lat3,
+                seg_w or lanes, *tail,
+                key='scan_sig' if seg_w is None else 'scan_sig_seg',
+                kernels=len(dirs))
     else:
         carry = torch.empty((B, 2, D, lanes), dtype=torch.float32,
                             device=dev)
@@ -493,10 +519,13 @@ def _argmin(S):
     return mn, torch.where(S == mn.unsqueeze(2), k_ids, D).amin(dim=2)
 
 
-def _refine(S, d, c1, subpix, big_guard=None):
+def _refine(S, d, c1, subpix, big_guard=None, edge_subpix=False,
+            plateau_zero=False):
     """Subpixel offset of the (B, H, W) WTA index ``d`` along dim 2 of
     ``S``; ``c1`` is the minimum.  With ``big_guard``, no refinement
-    against out-of-range (BIG-cost) neighbours."""
+    against out-of-range (BIG-cost) neighbours unless ``edge_subpix``;
+    ``plateau_zero`` gives no refinement where the fit's denominator is
+    not above 1e-9."""
     D = S.shape[2]
     dev = S.device
     inf = torch.tensor(float('inf'), dtype=torch.float32, device=dev)
@@ -510,7 +539,7 @@ def _refine(S, d, c1, subpix, big_guard=None):
     c0 = torch.where(torch.isfinite(c0), c0, guard)
     c2 = torch.where(torch.isfinite(c2), c2, guard)
     interior = (d > 0) & (d < D - 1)
-    if big_guard is not None:
+    if big_guard is not None and not edge_subpix:
         interior = interior & (c0 < big_guard) & (c2 < big_guard)
     eps = torch.tensor(1e-9, dtype=torch.float32, device=dev)
     if subpix == 'vfit':
@@ -520,7 +549,9 @@ def _refine(S, d, c1, subpix, big_guard=None):
         den = c0 - 2.0 * c1 + c2
         off = (0.5 * (c0 - c2) / torch.maximum(den, eps)).clamp(-0.5, 0.5)
     else:
-        off = torch.zeros_like(c1)
+        return torch.zeros_like(c1)
+    if plateau_zero:
+        off = torch.where(den > eps, off, 0.0)
     return torch.where(interior, off, 0.0)
 
 
@@ -531,23 +562,29 @@ def _sum_parts(parts):
     return S
 
 
-def wta_plain(parts, subpix, big_guard):
+def wta_plain(parts, subpix, big_guard, edge_subpix=False,
+              plateau_zero=False):
     """Plain version of :func:`wta`."""
     S = _sum_parts(parts)
     mn, d = _argmin(S)
-    off = _refine(S, d, mn, subpix, big_guard)
+    off = _refine(S, d, mn, subpix, big_guard, edge_subpix, plateau_zero)
     off = torch.where(mn < big_guard, off, float('nan'))
     return off, d.to(torch.int32)
 
 
-def wta(parts, subpix, big_guard):
+def wta(parts, subpix, big_guard, edge_subpix=False, plateau_zero=False):
     """Winner-take-all over the summed partials.
 
     Args:
         parts: one or two (B, H, D, W) float32 volumes, any strides,
             summed in order.
         subpix: 'vfit', 'parabola' or anything else for no refinement.
-        big_guard: costs at or above it count as out of range.
+        big_guard: costs at or above it count as out of range: no
+            refinement against such a neighbour (unless ``edge_subpix``),
+            and NaN where the minimum itself is one.
+        edge_subpix: refine next to out-of-range neighbours too.
+        plateau_zero: no refinement where the fit's denominator is not
+            above 1e-9 (instead of the clipped quotient).
     Returns:
         (off (B, H, W) float32, NaN where no candidate is in range;
         d_int (B, H, W) int32)."""
@@ -558,7 +595,7 @@ def wta(parts, subpix, big_guard):
         if p.shape != parts[0].shape:
             raise ValueError('partials must share one shape')
     if _route(*parts) == 'cpu':
-        return wta_plain(parts, subpix, big_guard)
+        return wta_plain(parts, subpix, big_guard, edge_subpix, plateau_zero)
     B, H, D, W = parts[0].shape
     dev = parts[0].device
     off = torch.empty((B, H, W), dtype=torch.float32, device=dev)
@@ -567,7 +604,9 @@ def wta(parts, subpix, big_guard):
     _launch('wta', 's2p_wta', parts[0].data_ptr(), *parts[0].stride(),
             p1.data_ptr(), *p1.stride(), len(parts), off.data_ptr(),
             d_int.data_ptr(), B, H, D, W, _SUBPIX.get(subpix, 0),
-            float(big_guard))
+            int(bool(edge_subpix)), int(bool(plateau_zero)),
+            float(big_guard),
+            key='wta_edge' if edge_subpix or plateau_zero else 'wta')
     return off, d_int
 
 
@@ -649,30 +688,74 @@ def scan_passes(variant):
             for key, (idx, lats) in passes.items()]
 
 
-def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
-                            emit_votes=True):
-    """Aggregation partials of one side of the batched flow.
+def flow_sigs(im1, im2, win, h1=None, w1=None, w2=None):
+    """Bit-annotated census signatures of the single-tile flow: (s1, s2)
+    int32 (B, H, W) from (B, H, W) images of equal shape.
 
-    ``s1`` (B, H, W) are the bit-annotated reference signatures, ``s2``
-    (B, H, W + margin) the rebased secondary ones (base disparity 0).  The
-    uint8 cost volume is built once in the (W, D, H) layout; the
-    horizontal passes scan it along W, the vertical ones a transposed copy
-    along H.  Classic independent scans (tsgm=1), BIG out-of-range costs,
-    the overcount fix on the first pass, every later pass of an
-    orientation accumulating into the previous one.
+    ``_VALID_BIT`` is set on every reference pixel and on the secondary's
+    columns below ``w2`` (beyond it a candidate costs BIG); ``_PAD_BIT``
+    marks the reference beyond ``(h1, w1)`` (zero cost, the scan carry
+    stays fresh).  The extents are static ints, None for the full shape."""
+    from .mgm_flow import census_bits_raw
+
+    s1 = census_bits_raw(im1, win)
+    s2 = census_bits_raw(im2, win)
+    B, H, W = s1.shape
+    xs = torch.arange(W, device=s1.device)
+    ys = torch.arange(H, device=s1.device)
+    v2 = (xs < (W if w2 is None else w2)).to(torch.int32)
+    s2 = s2 | (v2 << _VALID_BIT)[None, None, :]
+    s1 = s1 | (1 << _VALID_BIT)
+    if h1 is not None or w1 is not None:
+        pad = ((ys[:, None] >= (H if h1 is None else h1))
+               | (xs[None, :] >= (W if w1 is None else w1)))
+        s1 = s1 | (pad.to(torch.int32) << _PAD_BIT)[None]
+    return s1, s2
+
+
+def prepass_secondary(s2, W, disp_min, D):
+    """The pre-pass's secondary: (s2t (B, N2, H), pad, sec_len) from the
+    (B, H, W2) signatures of a reference W wide.  The batch's rebased,
+    wider secondary at base 0 goes as it is; the single tile's, as wide as
+    the reference, is padded by ``pad`` rows on each side of its scan
+    axis, ``pad`` covering the signed range with ``disp_min + pad`` a
+    multiple of 8 (the TPU kernel's aligned layout)."""
+    s2t = s2.transpose(1, 2).contiguous()                    # (B, W2, H)
+    if s2.shape[2] > W:
+        if disp_min != 0:
+            raise ValueError('the rebased secondary is at base 0')
+        return s2t, 0, s2.shape[2]
+    if s2.shape[2] < W:
+        raise ValueError('the secondary is narrower than the reference')
+    pad = max(0, -disp_min, disp_min + D)
+    pad += (-(disp_min + pad)) % 8
+    return torch.nn.functional.pad(s2t, (0, 0, pad, pad)), pad, W
+
+
+def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
+                            emit_votes=True, disp_min=0):
+    """Aggregation partials of one side of the flow.
+
+    ``s1`` (B, H, W) are the bit-annotated reference signatures.  ``s2``
+    is either the rebased secondary of the batch, (B, H, W + margin) at
+    base ``disp_min`` 0, or the single tile's, (B, H, W) at a signed
+    ``disp_min``, read through a transposed copy padded by ``pad`` rows
+    on each side (``disp_min + pad`` a multiple of 8, as the TPU kernel
+    lays it out).  The uint8 cost volume is built once in the (W, D, H)
+    layout; the horizontal passes scan it along W, the vertical ones a
+    transposed copy along H.  Classic independent scans (tsgm=1), BIG
+    out-of-range costs, the overcount fix on the first pass, every later
+    pass of an orientation accumulating into the previous one.
 
     Returns ([S_v (B, H, D, W), S_h viewed as (B, H, D, W)], votes list
     of (B, H, W) int32 in direction order, None where not emitted)."""
     from .mgm_flow import BIG
 
     B, H, W = s1.shape
-    if s2.shape[2] <= W:
-        raise ValueError('the rebased secondary must be wider than the '
-                         'reference')
     nbits = variant.census_win ** 2 - 1
     s1t = s1.transpose(1, 2).contiguous()                    # (B, W, H)
-    s2t = s2.transpose(1, 2).contiguous()                    # (B, W2, H)
-    cost_h = cost_prepass(s1t, s2t, D, 0, nbits, 0, s2.shape[2],
+    s2t, pad, sec_len = prepass_secondary(s2, W, disp_min, D)
+    cost_h = cost_prepass(s1t, s2t, D, disp_min, nbits, pad, sec_len,
                           allowed=allowed)                   # (B, W, D, H)
     # the vertical passes read (B, H, D, W): one transposed copy lets
     # every scan load coalesce along its lanes
@@ -698,6 +781,129 @@ def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
     parts = [S['v']] if S['v'] is not None else []
     if S['h'] is not None:
         parts.append(S['h'].permute(0, 3, 2, 1))
+    return parts, votes
+
+
+def flow_one_side(im1, im2, disp_min, D, variant, ext=None,
+                  emit_votes=True):
+    """One side of the single-tile flow on the kernels: (disp, d_int,
+    votes) from (B, H, W) images of equal shape, ``disp = (disp_min +
+    d_int) + offset``, NaN where no candidate is in range.  ``ext`` is
+    None or the static true extents (h1, w1, w2, d_true) of a padded
+    tile; the caller masks the padding."""
+    from .mgm_flow import BIG
+
+    h1 = w1 = w2 = None
+    allowed = None
+    if ext is not None:
+        h1, w1, w2, d_true = ext
+        if d_true != D:
+            allowed = (torch.arange(D, device=im1.device) < d_true) \
+                .to(torch.int32)[None].expand(im1.shape[0], D).contiguous()
+    s1, s2 = flow_sigs(im1, im2, variant.census_win, h1, w1, w2)
+    parts, votes = flow_partials_from_sigs(s1, s2, D, variant,
+                                           allowed=allowed,
+                                           emit_votes=emit_votes,
+                                           disp_min=disp_min)
+    off, d_int = wta(parts, variant.subpix, BIG / 2,
+                     edge_subpix=variant.edge_subpix,
+                     plateau_zero=variant.subpix_plateau == 'zero')
+    disp = (torch.tensor(float(disp_min), dtype=torch.float32,
+                         device=im1.device) + d_int.to(torch.float32)) + off
+    return disp, d_int, votes
+
+
+# --------------------------------------------------------------------- #
+# the lane-folded batch: B tiles side by side on the lane axis
+# --------------------------------------------------------------------- #
+
+def fold_lanes_v(a):
+    """(G, B, H, Wseg) -> (G, H, B * Wseg): each group's tiles side by
+    side on the lane axis of the vertical passes."""
+    G, B, H, Wseg = a.shape
+    return a.transpose(1, 2).reshape(G, H, B * Wseg)
+
+
+def unfold_lanes_v(a, B):
+    """(G, H, B * Wseg) -> (G, B, H, Wseg)."""
+    G, H, L = a.shape
+    return a.reshape(G, H, B, L // B).transpose(1, 2)
+
+
+def _fold_lanes_h(a):
+    """(G, B, H, Wseg) -> (G, Wseg, B * H): the horizontal passes'
+    transposed layout, the tiles side by side on their lane axis (y)."""
+    G, B, H, Wseg = a.shape
+    return a.permute(0, 3, 1, 2).reshape(G, Wseg, B * H)
+
+
+def fold_inputs(s1_bt, s2_bt, D, p2):
+    """The folded scans' inputs from (G, B, H, Wseg) signatures: per
+    orientation ('v', 'h') the tuple (s1, s2, p2, sec_len, seg_w) that
+    :func:`scan_sig` takes."""
+    G, B, H, Wseg = s1_bt.shape
+    dev = s1_bt.device
+    # the candidates of the horizontal passes' last positions reach D
+    # rows past Wseg
+    s2h = torch.nn.functional.pad(_fold_lanes_h(s2_bt), (0, 0, 0, D))
+    return {
+        'v': (fold_lanes_v(s1_bt).contiguous(),
+              fold_lanes_v(s2_bt).contiguous(),
+              torch.full((G, H, B * Wseg), p2, dtype=torch.float32,
+                         device=dev), B * Wseg, Wseg),
+        'h': (_fold_lanes_h(s1_bt).contiguous(), s2h,
+              torch.full((G, Wseg, B * H), p2, dtype=torch.float32,
+                         device=dev), Wseg + D, H)}
+
+
+def flow_partials_folded(s1_bt, s2_bt, D, variant, allowed_bt=None,
+                         emit_votes=True):
+    """Aggregation partials of one side for groups of lane-folded tiles.
+
+    Args:
+        s1_bt: (G, B, H, Wseg) bit-annotated reference signatures
+            (``_PAD_BIT`` over each tile's padding, the segment margin
+            ``[w1, Wseg)`` included).
+        s2_bt: (G, B, H, Wseg) rebased secondary signatures at base 0.
+        allowed_bt: optional (G, B, D) int32 per-tile candidate masks.
+    Every pass is a signature-mode scan (K4a with ``seg_w``): vertical
+    over (H, B * Wseg) lanes in segments of Wseg, horizontal over
+    (Wseg, B * H) in segments of H with the secondary padded by D
+    invalid rows.  Later passes of an orientation are plain adds.
+
+    Returns ([S_v, S_h] as (G, H, D, B * Wseg) float32, votes list of
+    (G, H, B * Wseg) int32 in direction order, None where not emitted),
+    bitwise equal per segment to the single-tile passes."""
+    from .mgm_flow import BIG
+
+    G, B, H, Wseg = s1_bt.shape
+    nbits = variant.census_win ** 2 - 1
+    passes = scan_passes(variant)
+    ins = fold_inputs(s1_bt, s2_bt, D, variant.p2)
+    S = {'v': None, 'h': None}
+    votes = [None] * sum(len(idx) for _, idx, _ in passes)
+    sub = float(len(votes) - 1) if variant.overcount_fix else 0.0
+    for key, dir_idx, lats in passes:
+        o = key[0]
+        a, b, p2, sec_len, seg_w = ins[o]
+        Sp, v = scan_sig(a, b, p2, tuple((lat,) for lat in lats),
+                         variant.p1, BIG, nbits, D, 0, sec_len,
+                         reverse=key[1] == 'b', horizontal=o == 'h',
+                         sub_cost_mult=sub, allowed=allowed_bt,
+                         emit_votes=emit_votes, seg_w=seg_w)
+        sub = 0.0                # exactly one pass applies the fix
+        S[o] = Sp if S[o] is None else S[o] + Sp
+        if v is None:
+            continue
+        for j, i in enumerate(dir_idx):
+            votes[i] = v[:, j] if o == 'v' else (
+                v[:, j].reshape(G, Wseg, B, H).permute(0, 3, 2, 1)
+                .reshape(G, H, B * Wseg))
+    parts = [S['v']] if S['v'] is not None else []
+    if S['h'] is not None:
+        # (G, Wseg, D, B * H) -> (G, H, D, B * Wseg)
+        parts.append(S['h'].reshape(G, Wseg, D, B, H)
+                     .permute(0, 4, 2, 3, 1).reshape(G, H, D, B * Wseg))
     return parts, votes
 
 

@@ -74,13 +74,19 @@ def test_package_imports_with_jax_blocked():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from s2p_tpu_torch import device, pipeline
     from s2p_tpu_torch.config import Config
-    from s2p_tpu_torch.ops.mgm_flow import mgm_binary_match_batch
+    from s2p_tpu_torch.core.matching import compute_disparity_map
+    from s2p_tpu_torch.ops.mgm_flow import (mgm_binary_match,
+                                            mgm_binary_match_batch)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.stereo_matching_all(Config(), [])
     a = torch.zeros((1, 8, 8)).numpy()
     with pytest.raises(RuntimeError, match='CUDA'):
         mgm_binary_match_batch(a, a, [0], 4, [8], [8], [8])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mgm_binary_match(a[0], a[0], 0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compute_disparity_map(Config(), a[0], a[0], 0, 3)
     with pytest.raises(RuntimeError, match='CUDA'):
         device.resolve('cuda')
     assert device.resolve('cpu') == torch.device('cpu')

@@ -149,7 +149,8 @@ def test_batch_matches_jax(backend):
 
 @pytest.mark.parametrize('kw', [{'nb_dir': 4, 'lr_enabled': False},
                                 {'median_order': 'after_lr', 'p1': 12.0,
-                                 'p2': 48.0, 'subpix': 'parabola'}])
+                                 'p2': 48.0, 'subpix': 'parabola'},
+                                {'nb_dir': 6}, {'nb_dir': 7}])
 def test_batch_variants_match_lax(kw):
     b1, b2, hs, w1s, w2s = _bucket(n=2)
     dmins, dts, Dp = [-3, 0], [12, 16], 16
@@ -159,6 +160,7 @@ def test_batch_variants_match_lax(kw):
     ours = tf.mgm_binary_match_batch(b1, b2, dmins, Dp, hs, w1s, w2s, dts,
                                      tf.MgmVariant(**kw), device='cpu')
     _same(ours['disp'].numpy(), ref['disp'])
+    _same(ours['confidence'].numpy(), ref['confidence'])
     _same(ours['confidence_u8'].numpy(), ref['confidence_u8'])
 
 

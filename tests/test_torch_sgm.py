@@ -47,6 +47,8 @@ _CASES = {
     'nb8_vfit_volume': dict(nb_dir=8, subpix='vfit', lr_mode='volume'),
     'nb4_parabola_full': dict(nb_dir=4, subpix='parabola', lr_mode='full'),
     'nb2_none': dict(nb_dir=2, subpix='none'),
+    'nb6': dict(nb_dir=6),
+    'nb7': dict(nb_dir=7),
     'median_first_fill_lr_int_conf': dict(
         median_first=True, median_fill=True, fill_coh_tau=1.0, lr_int=True,
         min_confidence=0.5),
