@@ -8,13 +8,21 @@ the JAX package.  Phases, each timed on a line of its own:
 
   1. device: the card's name and power limit (nvidia-smi), torch's version;
   2. build: the CUDA kernels, one nvcc per source in parallel, into
-     s2p_tpu_torch/_build/;
+     s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
+     lines, and a check that every instantiation of K2 has a 0-byte stack
+     frame and no spill;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
-     side, the WTA), and the scan once more at 528 candidates (one 64 x
-     896 tile), compared bitwise and NaN-aware, each timed with CUDA
-     events;
+     side, the WTA), and once more at bucket B's and at 528 candidates
+     (one 64 x 896 tile), compared bitwise and NaN-aware, each timed with
+     CUDA events; then the scan per bucket as the flow launches it, both
+     sides' four chains of passes at once on side streams, bitwise
+     against the passes one by one and timed at prefetch depths 1 and 2;
+     then K2 and K3 against their plain versions at small adversarial
+     shapes and values (tied candidates, columns of 255, D 1 to 528,
+     ragged lane counts, N 1 and 2, laterals -1/0/+1 with sub and accum;
+     NaN, inf and all-BIG partials), one line per case;
   4. kernels of the classic SGM matcher against their plain versions, on
      the 512 x 512 pair with 64 candidates from -8 (bench.py): the four
      signature-mode scan passes (K4a), one vertical pass with 3 MGM
@@ -62,7 +70,8 @@ the JAX package.  Phases, each timed on a line of its own:
      folded scan), its error against the plain version, its time, the
      plain version's time and the least time the card could take (bytes
      over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100 SXM data
-     sheet);
+     sheet); the scan's entries also carry ``bucket_ms``, both sides of
+     the bucket as the flow launches them;
  13. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -179,6 +188,17 @@ def equal(a, b):
     return bool(same.all()), float(err)
 
 
+@contextmanager
+def k2_depth(depth):
+    """K2's prefetch depth for the launches made inside."""
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    default, sk.K2_DEPTH = sk.K2_DEPTH, depth
+    try:
+        yield
+    finally:
+        sk.K2_DEPTH = default
+
+
 def timed(fn, reps):
     """Median ms of ``reps`` runs between CUDA events, after one warm run."""
     import torch
@@ -235,6 +255,27 @@ def record(stats, name, side, ok, err, ms, plain_ms, nbytes, ops, tag=''):
         st['ops'] += ops
 
 
+def check_no_spill(log, kernel):
+    """Every instantiation of ``kernel`` in a ptxas -v log has a 0-byte
+    stack frame and no spill."""
+    fn, seen = None, 0
+    for line in log.splitlines():
+        if 'Function properties for' in line:
+            fn = line.split('Function properties for')[1].strip()
+        elif fn and 'stack frame' in line:
+            if kernel in fn:
+                seen += 1
+                nums = [int(w) for w in line.replace(',', ' ').split()
+                        if w.isdigit()]
+                if any(nums):
+                    raise AssertionError(f'{fn}: {line.strip()}')
+            fn = None
+    print(f'  {kernel}: {seen} instantiations, each with a 0-byte stack '
+          'frame and no spill', flush=True)
+    if not seen:
+        raise AssertionError(f'no {kernel} in the ptxas log')
+
+
 def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
     """Phase 3: every kernel of the flow against its plain version, on the
     inputs the main path gives it at the bucket's shapes; ``tag`` is
@@ -266,6 +307,7 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
     def rec(name, *a):
         record(stats, name, *a, tag=tag)
 
+    vols, seq = {}, {}
     for side, (sref, ssec, base, hr, wr, ws, votes) in sides.items():
         sr, ss, _ = mf._side_sigs(sref, ssec, base, hr, wr, ws, D)
         s1t = sr.transpose(1, 2).contiguous()
@@ -282,13 +324,18 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
         S = {'v': None, 'h': None}
         passes = sk.scan_passes(v)
         sub = float(sum(len(i) for _, i, _ in passes) - 1)
-        for key, _, lats in passes:
+        vols[side] = {o: (cost_h if o == 'h' else
+                          cost_h.permute(0, 3, 2, 1).contiguous(), None)
+                      for o in ('h', 'v')}
+        seq[side] = [None] * sum(len(i) for _, i, _ in passes)
+        floor = 0
+        for key, dir_idx, lats in passes:
             o = key[0]
-            cost = (cost_h.permute(0, 3, 2, 1).contiguous() if o == 'v'
-                    else cost_h)
+            cost = vols[side][o][0]
             B, N, _, lanes = cost.shape
             p2 = torch.full((B, N, lanes), v.p2, dtype=torch.float32,
                             device=dev)
+            vols[side][o] = (cost, p2)
             kw = dict(reverse=key[1] == 'b', sub_cost_mult=sub, accum=S[o],
                       emit_votes=votes)
             Sk, vk = sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw)
@@ -302,6 +349,9 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                       + (4 * vol if S[o] is not None else 0)
                       + (4 * vk.numel() if votes else 0))
             ops = vol * (8 * len(lats) + 3)
+            # one launch per direction: each later direction reads back
+            # and rewrites S
+            floor += nbytes + 8 * vol * (len(lats) - 1)
             rec(f'scan {key}', side, ok, err,
                    timed(lambda: sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw),
                          5),
@@ -310,9 +360,18 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                    nbytes, ops)
             S[o] = Sk
             sub = 0.0
+            if votes:
+                for j, i in enumerate(dir_idx):
+                    seq[side][i] = vk[:, j] if o == 'v' else \
+                        vk[:, j].transpose(1, 2)
             del Sp, vp
+        print(f'  scan {side}: byte floor of one launch per direction '
+              f'{bound(floor, 0)[0]:.4f} ms, fused bound '
+              f"{bound(stats['scan' + tag]['nbytes'], 0)[0]:.4f} ms",
+              flush=True)
 
         parts = [S['v'], S['h'].permute(0, 3, 2, 1)]
+        seq[side] = (parts, seq[side])
         off, d_int = sk.wta(parts, v.subpix, mf.BIG / 2)
         off_p, d_p = sk.wta_plain(parts, v.subpix, mf.BIG / 2)
         ok, err = equal(off, off_p)
@@ -348,6 +407,148 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                 8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
         del S, parts, cost_h
         torch.cuda.empty_cache()
+    check_bucket_scans(vols, seq, stats['scan' + tag])
+
+
+def check_bucket_scans(vols, seq, st):
+    """K2 per bucket as the flow launches it: both sides' four chains of
+    passes at once (sgm_kernels.flow_scans), bitwise against the passes
+    run one by one, and timed at each prefetch depth (in the order 1, 2,
+    2, 1) beside the same passes one after another on one stream; the
+    JSON line reports the better of the default depth's two times."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    v = mf.MgmVariant()
+    ins = [(vols['L'], True), (vols['R'], False)]
+    got = sk.flow_scans(ins, v)
+    for (parts, votes), side in zip(got, ('L', 'R')):
+        ref_parts, ref_votes = seq[side]
+        same = all(equal(a, b)[0] for a, b in zip(parts, ref_parts))
+        same = same and all(a is None and b is None or equal(a, b)[0]
+                            for a, b in zip(votes, ref_votes))
+        print(f'  scan bucket {side}: the concurrent chains equal the '
+              f'passes one by one: {same}', flush=True)
+        if not same:
+            raise AssertionError(f'flow_scans ({side}) differs from the '
+                                 'passes run one by one')
+    del got
+
+    def serial():
+        for vol, votes in ins:
+            S = {}
+            for o, chain in sk.flow_chains(v).items():
+                for key, _, lats, sub in chain:
+                    S[o], _ = sk.scan(*vol[o], lats, v.p1, mf.BIG,
+                                      reverse=key[1] == 'b',
+                                      sub_cost_mult=sub, accum=S.get(o),
+                                      emit_votes=votes)
+
+    times = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        with k2_depth(depth):
+            times[depth].append(timed(lambda: sk.flow_scans(ins, v), 5))
+    one_stream = timed(serial, 3)
+    for depth, ts in times.items():
+        print(f'  scan bucket (both sides, four chains at once), depth '
+              f'{depth}: {ts[0]:.3f}, {ts[1]:.3f} ms', flush=True)
+    print(f'  scan bucket, the same passes on one stream: {one_stream:.3f} ms',
+          flush=True)
+    st['bucket_ms'] = min(times[sk.K2_DEPTH])
+    torch.cuda.empty_cache()
+
+
+def check_adversarial():
+    """K2 and K3 against their plain versions at small shapes that stress
+    their designs, each case on a line of its own: tied candidates,
+    columns of 255, D from 1 to 528 (one group, a ragged group, past 256
+    and the wide tile's), lanes that no chain count divides, N 1 and 2,
+    laterals -1/0/+1 in one pass with sub and accum, both depths; K3 on
+    NaN, inf and all-BIG partials, D 1 and 2, either part transposed."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(7)
+    failed = []
+
+    def verdict(name, pairs):
+        ok = all(equal(a, b)[0] for a, b in pairs)
+        print(f'  {name}: bitwise={ok}', flush=True)
+        if not ok:
+            failed.append(name)
+
+    cases = []
+    for D in (1, 17, 257, 528):
+        for N, lanes in ((1, 61), (2, 61), (7, 64)):
+            cases.append((D, N, lanes, 'random'))
+    cases += [(80, 9, 61, 'tied'), (80, 9, 61, '255 columns'),
+              (528, 5, 33, 'tied'), (17, 12, 61, '255 columns')]
+    for D, N, lanes, kind in cases:
+        B = 2
+        cost = torch.randint(0, 25, (B, N, D, lanes), dtype=torch.uint8,
+                             device=dev, generator=g)
+        cost[torch.rand(cost.shape, device=dev, generator=g) < 0.1] = 255
+        if kind == 'tied':
+            cost.fill_(7)
+        elif kind == '255 columns':
+            cost[..., ::5] = 255
+        p2 = torch.rand((B, N, lanes), device=dev, generator=g) * 40
+        accum = torch.rand(cost.shape, device=dev, generator=g) * 100
+        for lats, rev, sub, acc in (((-1, 0, 1), False, 2.0, accum),
+                                    ((1,), True, 0.0, None),
+                                    ((0, -1), True, 1.0, accum)):
+            ref = sk.scan_plain(cost, p2, lats, 8.0, mf.BIG, rev, sub, acc)
+            for depth in (1, 2):
+                with k2_depth(depth):
+                    got = sk.scan(cost, p2, lats, 8.0, mf.BIG, rev, sub, acc)
+                verdict(f'scan D {D} N {N} lanes {lanes} {kind} lats {lats} '
+                        f'reverse {rev} sub {sub} accum {acc is not None} '
+                        f'depth {depth}', zip(got, ref))
+    # a strided view of the cost, as any caller may give
+    cost = torch.randint(0, 25, (2, 7, 40, 30), dtype=torch.uint8,
+                         device=dev, generator=g)[:, :, ::2]
+    p2 = torch.full((2, 7, 30), 32.0, device=dev)
+    verdict('scan strided cost', zip(
+        sk.scan(cost, p2, (0, 1, -1), 8.0, mf.BIG, False),
+        sk.scan_plain(cost, p2, (0, 1, -1), 8.0, mf.BIG, False)))
+
+    for D in (1, 2, 17, 80):
+        B, H, W = 2, 37, 45
+        sv = torch.randint(0, 30, (B, H, D, W), device=dev,
+                           generator=g).float()
+        sh = torch.randint(0, 30, (B, W, D, H), device=dev,
+                           generator=g).float()
+        for kind in ('random', 'nan', 'inf', 'all BIG'):
+            a, c = sv.clone(), sh.clone()
+            if kind == 'nan':
+                a[torch.rand(a.shape, device=dev, generator=g) < 0.03] = \
+                    float('nan')
+            elif kind == 'inf':
+                a[torch.rand(a.shape, device=dev, generator=g) < 0.1] = \
+                    float('inf')
+                c[torch.rand(c.shape, device=dev, generator=g) < 0.05] = \
+                    float('-inf')
+            elif kind == 'all BIG':
+                a[:, :3] = mf.BIG
+                c[:] = mf.BIG
+            ct = c.permute(0, 3, 2, 1)
+            for parts in ([a, ct], [ct, a], [ct, ct], [a], [ct]):
+                for subpix, mode in (('vfit', {}), ('parabola', {}),
+                                     ('vfit', dict(edge_subpix=True,
+                                                   plateau_zero=True))):
+                    got = sk.wta(parts, subpix, mf.BIG / 2, **mode)
+                    ref = sk.wta_plain(parts, subpix, mf.BIG / 2, **mode)
+                    order = ' + '.join('S_v' if t is a else 'S_h'
+                                       for t in parts)
+                    verdict(f'wta D {D} {kind} {order} {subpix} '
+                            f'{sorted(mode)}', zip(got, ref))
+    if failed:
+        raise AssertionError(f'{len(failed)} adversarial cases differ from '
+                             f'the plain versions: {failed[:5]}')
+    torch.cuda.empty_cache()
 
 
 def check_outputs(root, specs, cpu_root, cpu_indices):
@@ -833,6 +1034,7 @@ def main():
                 if ('registers' in line or 'spill' in line
                         or 'Function properties' in line):
                     print(f'  {name}: {line.strip()}')
+        check_no_spill(_build.build_log('scan'), 'k2_scan_kernel')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -843,8 +1045,13 @@ def main():
     stats = {}
     with phase('flow kernels against their plain versions (bucket A)'):
         check_kernels(specs_a, pairs, stats)
+    with phase('flow kernels against their plain versions (bucket B)'):
+        check_kernels(specs_b, pairs, stats, BUCKET_B, tag='_b')
     with phase('flow kernels against their plain versions (D 528)'):
         check_kernels([WIDE], pairs, stats, BUCKET_WIDE, tag='_d528')
+    with phase('K2 and K3 against their plain versions: adversarial '
+               'shapes and values'):
+        check_adversarial()
     with phase('classic matcher kernels against their plain versions'):
         check_sgm_kernels(stats)
     with phase('single-tile and lane-fold kernel modes against their '
@@ -966,7 +1173,9 @@ def main():
                         'replaces': replaces, 'launches': launches[run][key],
                         'max_abs_err': st['err'], 'ms': st['ms'],
                         'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
-                        'bound_by': by, 'library_ms': None})
+                        'bound_by': by, 'library_ms': None,
+                        **({'bucket_ms': st['bucket_ms']}
+                           if 'bucket_ms' in st else {})})
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -46,59 +46,361 @@
 // Design.  The TPU kernel carries L in VMEM across sequential grid steps;
 // CUDA blocks run in no order.  For one direction, lane x at step s
 // depends only on lane x - lat at step s - 1, so the positions
-// x = c + lat * s form independent chains, and a block can own any set of
-// chains for all steps.  A block owns C consecutive chains (threadIdx.x,
+// x = c + lat * s form independent chains (K2 wraps them around the
+// lanes), and a block can own any set of chains for all steps.  A block
+// owns C consecutive chains (threadIdx.x,
 // so loads and stores coalesce along the lanes) and splits the D
-// candidates of each chain over T = ceil(D / kK) groups of kK
-// (threadIdx.y).  Each thread keeps its kK values of the chain's carry in
-// registers; per step it publishes its partial minimum, argmin and edge
-// values in shared memory (double-buffered: one __syncthreads per step),
-// from which the next step reads m and the neighbouring candidates of
-// its edges, and the vote is the lowest-index minimum over the groups
-// (strict <, groups in order).  C is 32 while T <= 16 and halves as T
-// doubles (C * T <= 512), so any D up to 16384 fits one block per chain
-// set.  Directions run as successive launches on the stream in direction
-// order: the first writes S = L_0, the next ones S = S + L_d, the last
-// also subtracts sub * cost and adds accum -- the reference's order of
-// f32 operations.  The uint8 cost may be any strided view.
+// candidates of each chain over T groups (threadIdx.y).  Each thread
+// keeps its candidates' carry in registers; per step it publishes its
+// partial minimum, argmin and edge values in shared memory
+// (double-buffered: one __syncthreads per step), from which the next step
+// reads m and the neighbouring candidates of its edges, and the vote is
+// the lowest-index minimum over the groups (strict <, groups in order).
+// Directions run as successive launches on the stream in direction order:
+// the first writes S = L_0, the next ones S = S + L_d, the last also
+// subtracts sub * cost and adds accum -- the reference's order of f32
+// operations.
 //
-// Bound: bytes (u8 cost or the signatures in, f32 S out, f32 accum in,
-// once each, plus the S round trip between directions); the chains'
-// sequential steps keep it above that.
+// K2 (cost mode, k2_scan_kernel).  Bound: bytes -- the u8 cost, p2 and
+// accum in, S out, once each -- plus, with one launch per direction, the
+// S round trip between a pass's directions (about 9 GB per side at
+// 8 x 448 x 512 x 80, 2.7 ms at 3.35 TB/s).  What bounds it on the card is
+// each step's serial path and its instruction count, and, with a bucket's
+// launches running at once, the bytes: the steps of a chain run in order
+// and every step ends in a barrier.  The first design issued a step's
+// loads only after the previous step's barrier, spent most of a step's
+// instructions on 64-bit address arithmetic and a branch per candidate,
+// and gave a lateral direction lanes + N - 1 chains of which only lanes
+// had work at any step.  This kernel:
+//   * wraps the chains: chain q is at lane (q + lat * s) mod lanes, so a
+//     direction has exactly one chain per lane, every thread works at
+//     every step, and a chain whose predecessor x - lat leaves the image
+//     takes a dead step there and starts afresh (the rule above);
+//   * issues step s + kP's loads (cost row, p2, S, accum) before step s's
+//     exchange, into a ring of kP + 1 register slots (the step loop is
+//     unrolled by kP + 1, so every slot index is a constant).  None of
+//     those loads depends on the carry, and each element of S is read and
+//     written by one thread at one step, so prefetching it is safe.  Depth
+//     1 is the default: depth 2 is faster for one launch alone but costs
+//     registers, hence blocks per SM, and the flow runs a bucket's
+//     launches at once (PERF.md);
+//   * runs a group of 8 candidates without a branch (kFull: every group
+//     full; otherwise a candidate past D costs inf and is not stored),
+//     with 32-bit offsets inside a tile and the uint8 cost turned into f32
+//     exactly by 2^23 + v - 2^23;
+//   * lays a step's partial minima out chain by chain (padded to a multiple
+//     of 4 groups) so that a thread reads its chain's as float4s, and folds
+//     the vote into the next step's reduction, which the step needs for m
+//     anyway;
+//   * holds a slot's S and accum arrays only in the launches that read them
+//     (kMode).  With at most 512 threads a block (C = min(32, 512 / T)) and
+//     one block an SM allowed every instantiation stays within 128
+//     registers: no spill at any D up to 4096.  The one launch that reads
+//     both S and accum (the last direction of a pass with accum) runs at
+//     depth 1.
+// The uint8 cost may be any strided view.  The Python layer runs the
+// flow's four independent chains of launches (two sides, two
+// orientations) on four streams at once.
+//
+// K4a (signature mode, scan_dir_kernel) keeps the first design: its cost
+// is computed from loaded signatures inside the step, groups of 16 or 32
+// candidates, C = 32 while T <= 16, halving as T doubles (C * T <= 512),
+// any D up to 16384.  Bound: bytes (the signatures in, S out, accum in);
+// the chains' sequential steps keep it far above that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------------ //
+// K2: cost mode, loads kP steps ahead of the exchange
+// ------------------------------------------------------------------ //
+
+constexpr int kK2 = 8;                       // candidates per thread
+constexpr int kK2Threads = 512;              // chains x groups per block
+constexpr int kK2MaxD = kK2 * kK2Threads;    // one chain per block
+constexpr int kK2Depth = 1;                  // default prefetch depth
+// shared slots per buffer: C * Tp <= kK2Threads + 3 * 32
+constexpr int kK2Shared = kK2Threads + 96;
+
+// the uint8 pre-pass volume through its strides
+struct CostU8 {
+  const uint8_t* cost;
+  long long sb, sn, sk, sl;
+  float invalid;
+};
+
+// One step's loads.  kMode bit 0: the launch reads S (a later direction);
+// bit 1: it reads accum (the last direction of a pass with accum).
+template <int kMode>
+struct Slot {
+  uint8_t cv[kK2];
+  float sp[(kMode & 1) ? kK2 : 1];
+  float ac[(kMode & 2) ? kK2 : 1];
+  float p2v;
+};
+
+// kFull: D is a multiple of kK2, so every group is full.  Offsets inside
+// one tile are 32-bit (k2_launch_dirs checks that they fit).
+template <int kP, int kMode, bool kFull>
+__global__ void __launch_bounds__(kK2Threads, 1)
+k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
+               const float* __restrict__ accum, float* S,
+               int* __restrict__ votes, int N, int D, int lanes, int lat,
+               int dir, int n_dirs, int last, float p1, float sub,
+               int reverse) {
+  // per buffer (2): a chain's T groups side by side, padded to Tp, a
+  // multiple of 4, so that a thread reads them as float4s
+  __shared__ __align__(16) float s_best[2 * kK2Shared];
+  __shared__ __align__(16) int s_arg[2 * kK2Shared];
+  __shared__ float s_lo[2 * kK2Shared];
+  __shared__ float s_hi[2 * kK2Shared];
+  constexpr int R = kP + 1;                  // ring slots
+  const int C = blockDim.x, T = blockDim.y;
+  const int Tp = (T + 3) & ~3;
+  const float inf = __int_as_float(0x7f800000);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int me = tx * Tp + ty;               // this thread's slot
+  for (int g = T + ty; g < Tp; g += T)       // the padding never wins
+    s_best[tx * Tp + g] = s_best[kK2Shared + tx * Tp + g] = inf;
+  const int b = blockIdx.y;
+  const int q = blockIdx.x * C + tx;
+  const int k0 = ty * kK2;
+  const int cnt = kFull ? kK2 : (D - k0 < kK2 ? D - k0 : kK2);
+  // chain q is at lane (q + lat * s) mod lanes at step s: every lane on
+  // one chain at every step; a step whose predecessor x - lat leaves the
+  // image is dead, so where the chain wraps it starts afresh
+  const bool valid = q < lanes;
+  const int adv = ((lat % lanes) + lanes) % lanes;
+  auto next = [&](int x) {
+    return x + adv >= lanes ? x + adv - lanes : x + adv;
+  };
+  int xf = q;                                // lane of the next fetch
+  const int n0 = reverse ? N - 1 : 0, dn = reverse ? -1 : 1;
+  // the tile's bases; offsets from them are ints
+  const uint8_t* const cb = src.cost + b * src.sb;
+  const int csn = (int)src.sn, csl = (int)src.sl, csk = (int)src.sk;
+  const long long tile = (long long)b * N * D * lanes;
+  float* const Sb = S + tile;
+  const float* const ab = accum + (accum != nullptr ? tile : 0);
+  const float* const pb = p2 + (long long)b * N * lanes;
+  int* const vb = votes + (votes != nullptr
+                           ? ((long long)b * n_dirs + dir) * N * lanes : 0);
+  const float sub_l = last ? sub : 0.f;
+  const float inv = src.invalid;
+  Slot<kMode> ring[R];
+  float Lp[kK2];
+#pragma unroll
+  for (int j = 0; j < kK2; ++j) Lp[j] = j < cnt ? 0.f : inf;
+
+  // issue step s's loads into sl; nothing waits for them until step s
+  auto fetch = [&](Slot<kMode>& sl, int s) {
+    const int x = xf;
+    xf = next(xf);
+    if (!valid) return;
+    const int n = n0 + dn * s;
+    const uint8_t* const cp = cb + (n * csn + x * csl + k0 * csk);
+    const int o = (n * D + k0) * lanes + x;
+    sl.p2v = __ldg(pb + n * lanes + x);
+#pragma unroll
+    for (int j = 0; j < kK2; ++j) {
+      const bool in = kFull || j < cnt;
+      sl.cv[j] = in ? __ldg(cp + j * csk) : 0;
+      if constexpr ((kMode & 1) != 0) sl.sp[j] = in ? Sb[o + j * lanes] : 0.f;
+      if constexpr ((kMode & 2) != 0)
+        sl.ac[j] = in ? __ldg(ab + o + j * lanes) : 0.f;
+    }
+  };
+
+  // the lowest-index minimum over the groups of one step's published
+  // partials (strict <, groups in order)
+  auto reduce = [&](int buf, int& arg) {
+    const float4* vb4 = (const float4*)(s_best + buf + tx * Tp);
+    const int4* ab4 = (const int4*)(s_arg + buf + tx * Tp);
+    float best = inf;
+    arg = 0;
+    for (int g = 0; g < Tp / 4; ++g) {
+      const float4 v = vb4[g];
+      const int4 a = ab4[g];
+      if (v.x < best) best = v.x, arg = a.x;
+      if (v.y < best) best = v.y, arg = a.y;
+      if (v.z < best) best = v.z, arg = a.z;
+      if (v.w < best) best = v.w, arg = a.w;
+    }
+    return best;
+  };
+  auto minimum = [&](int buf) {
+    const float4* vb4 = (const float4*)(s_best + buf + tx * Tp);
+    float m = inf;
+    for (int g = 0; g < Tp / 4; ++g) {
+      const float4 v = vb4[g];
+      m = fminf(m, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
+    }
+    return m;
+  };
+  auto vote = [&](int s, int x, int arg) {
+    vb[(n0 + dn * s) * lanes + x] = arg;
+  };
+  const bool voter = valid && ty == 0 && votes != nullptr;
+  int x = q, xprev = q;                      // lanes of this and the last step
+
+  auto step = [&](const Slot<kMode>& sl, int s) {
+    const int cur = (s & 1) * kK2Shared, prv = cur ^ kK2Shared;
+    // step s - 1's minimum is this step's m and step s - 1's vote: one
+    // reduction, before this step's barrier
+    float m = 0.f;
+    if (s > 0 && voter) {
+      int arg;
+      m = reduce(prv, arg);
+      vote(s - 1, xprev, arg);
+    } else if (s > 0 && valid) {
+      m = minimum(prv);
+    }
+    if (valid) {
+      const bool dead = s == 0 || (lat > 0 ? x < lat : x >= lanes + lat);
+      float lo = inf, hi = inf;
+      if (!dead) {
+        if (ty > 0) lo = s_hi[prv + me - 1];
+        if (ty + 1 < T) hi = s_lo[prv + me + 1];
+      }
+      float* const Sp = Sb + ((n0 + dn * s) * D + k0) * lanes + x;
+      const float mp2 = m + sl.p2v;
+      float best = 0.f, before = lo;        // before: old Lp[k - 1]
+      int arg = k0;
+      // branch-free over the group: a candidate past D (j >= cnt, the
+      // last group only) costs inf, so its carry stays inf, which is the
+      // last real candidate's right neighbour hi = inf; it is not stored
+#pragma unroll
+      for (int j = 0; j < kK2; ++j) {
+        // the uint8 cost as f32: 2^23 + v - 2^23 is exact
+        const float cv = __int_as_float(0x4B000000 | sl.cv[j]) - 8388608.f;
+        const float c = !kFull && j >= cnt ? inf
+                        : sl.cv[j] == 255 ? inv : cv;
+        const float here = Lp[j];
+        const float after = j + 1 < kK2 ? Lp[j + 1] : hi;
+        const float t = fminf(fminf(here, fminf(before, after) + p1), mp2);
+        const float L = c + (dead ? 0.f : t - m);
+        before = here;
+        Lp[j] = L;
+        if (j == 0 || L < best) {
+          best = L;
+          arg = k0 + j;
+        }
+        float ssum = L;
+        if constexpr ((kMode & 1) != 0) ssum = sl.sp[j] + L;
+        if (sub_l != 0.f) ssum = ssum - sub_l * c;
+        if constexpr ((kMode & 2) != 0) ssum = ssum + sl.ac[j];
+        if (kFull || j < cnt) Sp[j * lanes] = ssum;
+      }
+      s_best[cur + me] = best;
+      s_arg[cur + me] = arg;
+      s_lo[cur + me] = Lp[0];
+      float last_l = Lp[0];
+#pragma unroll
+      for (int j = 1; j < kK2; ++j)
+        if (kFull || j < cnt) last_l = Lp[j];
+      s_hi[cur + me] = last_l;
+    }
+    xprev = x;
+    x = next(x);
+    __syncthreads();
+  };
+
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+    if (p < N) fetch(ring[p], p);
+  for (int s0 = 0; s0 < N; s0 += R) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = s0 + r;                  // uniform over the block
+      if (s < N) {
+        if (s + kP < N) fetch(ring[(r + kP) % R], s + kP);
+        step(ring[r], s);
+      }
+    }
+  }
+  if (voter) {                                 // the last step's vote
+    int arg;
+    reduce(((N - 1) & 1) * kK2Shared, arg);
+    vote(N - 1, xprev, arg);
+  }
+}
+
+// chains per block of the default plan (the Python wrapper's scan_plan)
+inline int k2_chains(int D) {
+  const int T = (D + kK2 - 1) / kK2;
+  const int C = kK2Threads / T;
+  return C < 32 ? C : 32;
+}
+
+template <int kP, bool kFull>
+void k2_launch(int mode, dim3 grid, dim3 block, cudaStream_t stream,
+               const CostU8& src, const float* p2, const float* accum,
+               float* S, int* votes, int N, int D, int lanes, int lat,
+               int dir, int n_dirs, int last, float p1, float sub,
+               int reverse) {
+#define S2P_K2_ARGS                                                      \
+  src, p2, accum, S, votes, N, D, lanes, lat, dir, n_dirs, last, p1, sub, \
+      reverse
+  switch (mode) {
+    case 0: k2_scan_kernel<kP, 0, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
+    case 1: k2_scan_kernel<kP, 1, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
+    case 2: k2_scan_kernel<kP, 2, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
+    // S and accum: two more arrays a slot, so depth 1 keeps it in registers
+    default: k2_scan_kernel<1, 3, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
+  }
+#undef S2P_K2_ARGS
+}
+
+// One launch per direction, in order, on one stream.
+int k2_launch_dirs(const CostU8& src, const float* p2, const float* accum,
+                   float* S, int* votes, int B, int N, int D, int lanes,
+                   int n_dirs, const int* lats, float p1, float sub,
+                   int reverse, int chains, int depth, cudaStream_t stream) {
+  if (n_dirs < 1 || n_dirs > 3 || D > kK2MaxD) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0 || D <= 0 || lanes <= 0) return (int)cudaGetLastError();
+  const int T = (D + kK2 - 1) / kK2;
+  if (chains < 1 || chains * T > kK2Threads ||
+      chains * ((T + 3) & ~3) > kK2Shared || depth < 1 || depth > 2)
+    return (int)cudaErrorInvalidValue;
+  // 32-bit offsets inside one tile
+  const long long span = (N - 1) * src.sn + (lanes - 1) * src.sl
+                         + (D - 1) * src.sk;
+  if (src.sn < 0 || src.sl < 0 || src.sk < 0 || span >= (1LL << 31) ||
+      (long long)N * D * lanes >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool full = D % kK2 == 0;
+  for (int d = 0; d < n_dirs; ++d) {
+    const int lat = lats[d];
+    const dim3 grid((lanes + chains - 1) / chains, B);  // one chain a lane
+    const dim3 block(chains, T);
+    const int last = d == n_dirs - 1;
+    const int mode = (d > 0 ? 1 : 0) | (last && accum != nullptr ? 2 : 0);
+#define S2P_K2_LAUNCH(P, F)                                              \
+  k2_launch<P, F>(mode, grid, block, stream, src, p2, accum, S, votes, N, D, \
+                  lanes, lat, d, n_dirs, last, p1, sub, reverse)
+    if (depth == 1 && full) S2P_K2_LAUNCH(1, true);
+    else if (depth == 1) S2P_K2_LAUNCH(1, false);
+    else if (full) S2P_K2_LAUNCH(2, true);
+    else S2P_K2_LAUNCH(2, false);
+#undef S2P_K2_LAUNCH
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// ------------------------------------------------------------------ //
+// K4a: signature mode
+// ------------------------------------------------------------------ //
 
 constexpr int kMaxThreads = 512;  // chains x candidate groups per block
 constexpr int kMaxChains = 32;
 constexpr int kValidBit = 24;
 constexpr int kPadBit = 25;
 
-// Cost sources.  row(b, n, x, k0) does the per-(step, lane) address work
-// once; Row::raw(j) loads candidate k0 + j as the source stores it and
-// Row::value turns that into the f32 cost (the uint8 volume keeps its
-// bytes in registers until they are used, as they take fewer).
-
-// cost mode: the uint8 pre-pass volume through its strides
-struct CostU8 {
-  const uint8_t* cost;
-  long long sb, sn, sk, sl;
-  float invalid;
-  struct Row {
-    using Raw = uint8_t;
-    const uint8_t* p;
-    long long sk;
-    float invalid;
-    __device__ __forceinline__ Raw raw(int j) const { return p[j * sk]; }
-    __device__ __forceinline__ float value(Raw v) const {
-      return v == 255 ? invalid : (float)v;
-    }
-  };
-  __device__ __forceinline__ Row row(int b, int n, int x, int k0) const {
-    return Row{cost + b * sb + n * sn + x * sl + k0 * sk, sk, invalid};
-  }
-};
+// K4a's cost source.  row(b, n, x, k0) does the per-(step, lane) address
+// work once; Row::raw(j) computes candidate k0 + j's cost.
 
 // signature mode: the census cost built from the packed signatures
 struct CostSig {
@@ -301,18 +603,37 @@ int launch_dirs(const Cost& src, const void* p2, const void* accum, void* S,
 
 }  // namespace
 
-// Cost mode (K2): the uint8 pre-pass volume.
+// Cost mode (K2): the uint8 pre-pass volume, with a launch plan: chains
+// per block (chains * ceil(D / 8) <= 512) and the prefetch depth (1 or 2;
+// 1 for a launch that reads both S and accum).
+extern "C" int s2p_scan_plan(const void* cost, long long cs_b, long long cs_n,
+                             long long cs_k, long long cs_l, const void* p2,
+                             const void* accum, void* S, void* votes, int B,
+                             int N, int D, int lanes, int n_dirs, int lat0,
+                             int lat1, int lat2, float p1, float invalid_cost,
+                             float sub, int reverse, int chains, int depth,
+                             void* stream) {
+  const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
+                   invalid_cost};
+  const int lats[3] = {lat0, lat1, lat2};
+  return k2_launch_dirs(src, (const float*)p2, (const float*)accum,
+                        (float*)S, (int*)votes, B, N, D, lanes, n_dirs, lats,
+                        p1, sub, reverse, chains, depth,
+                        (cudaStream_t)stream);
+}
+
+// Cost mode with the default plan (k2_chains, kK2Depth).
 extern "C" int s2p_scan(const void* cost, long long cs_b, long long cs_n,
                         long long cs_k, long long cs_l, const void* p2,
                         const void* accum, void* S, void* votes, int B, int N,
                         int D, int lanes, int n_dirs, int lat0, int lat1,
                         int lat2, float p1, float invalid_cost, float sub,
                         int reverse, void* stream) {
-  const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
-                   invalid_cost};
-  const int lats[3] = {lat0, lat1, lat2};
-  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, lanes, n_dirs,
-                     lats, p1, sub, reverse, (cudaStream_t)stream);
+  return s2p_scan_plan(cost, cs_b, cs_n, cs_k, cs_l, p2, accum, S, votes, B,
+                       N, D, lanes, n_dirs, lat0, lat1, lat2, p1,
+                       invalid_cost, sub, reverse,
+                       D > 0 && D <= kK2MaxD ? k2_chains(D) : 1, kK2Depth,
+                       stream);
 }
 
 // Signature mode (K4a): the census cost built in the kernel.  ``len2`` is

@@ -34,7 +34,7 @@ import torch
 from ..device import resolve
 from .sgm_kernels import (_PAD_BIT, _VALID_BIT, _popcount, _scan_loop,
                           flow_one_side, flow_partials_folded,
-                          flow_partials_from_sigs, unfold_lanes_v, wta)
+                          flow_partials_sides, unfold_lanes_v, wta)
 
 BIG = float(np.float32(1e9))    # out-of-range sentinel (finite: argmin and
 #                                 the overcount fix stay NaN-free)
@@ -412,30 +412,33 @@ def mgm_binary_match(im1, im2, disp_min: int, disp_max: int,
 
 
 def _flow_batched(a, b, dm, D, h1, w1, w2, dt, v: MgmVariant):
-    """The batched flow on one device: L side with votes, R side without,
-    then the post chain.  The per-tile scalars are (B,) int32 tensors on
-    the device."""
+    """The batched flow on one device: L side with votes, R side without
+    (their scans at once on the card, :func:`flow_partials_sides`), then
+    the post chain.  The per-tile scalars are (B,) int32 tensors on the
+    device."""
     dev = a.device
     s1 = census_bits_raw(a, v.census_win)
     s2 = census_bits_raw(b, v.census_win)
     allowed = (torch.arange(D, device=dev)[None, :]
                < dt[:, None]).to(torch.int32)                # (B, D)
-
-    def side(sig_ref, sig_sec, base, h_ref, w_ref, w_sec, need_votes):
-        sr, ss, pad = _side_sigs(sig_ref, sig_sec, base, h_ref, w_ref,
-                                 w_sec, extra=D)
-        parts, votes = flow_partials_from_sigs(sr, ss, D, v, allowed=allowed,
-                                               emit_votes=need_votes)
+    # (reference, secondary, base, reference width, secondary width, votes)
+    sides = [(s1, s2, dm, w1, w2, True)]
+    if v.lr_enabled:
+        sides.append((s2, s1, -(dm + dt - 1), w2, w1, False))
+    sigs = [_side_sigs(sr, ss, base, h1, wr, ws, extra=D)
+            for sr, ss, base, wr, ws, _ in sides]
+    partials = flow_partials_sides(
+        [(sr, ss, 0, side[5]) for (sr, ss, _), side in zip(sigs, sides)],
+        D, v, allowed=allowed)
+    maps = []
+    for (parts, votes), (_, _, pad), side in zip(partials, sigs, sides):
         off, d_int = wta(parts, v.subpix, BIG / 2)
         # (base + d_int) + off: the JAX package's float composition
-        disp = (base.to(torch.float32)[:, None, None]
+        disp = (side[2].to(torch.float32)[:, None, None]
                 + d_int.to(torch.float32)) + off
-        return torch.where(pad, float('nan'), disp), d_int, votes
-
-    dL, d_int, votes = side(s1, s2, dm, h1, w1, w2, True)
-    dR = None
-    if v.lr_enabled:
-        dR, _, _ = side(s2, s1, -(dm + dt - 1), h1, w2, w1, False)
+        maps.append((torch.where(pad, float('nan'), disp), d_int, votes))
+    dL, d_int, votes = maps[0]
+    dR = maps[1][0] if v.lr_enabled else None
     return _flow_post(dL, dR, d_int, votes, v, w2, k_lo=dm - 1, k_cnt=D + 2)
 
 

@@ -6,7 +6,7 @@ Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
     (``csrc/cost_prepass.cu``; TPU kernel ``_cost_prepass_kernel``);
   * :func:`scan` -- K2, one SGM scan pass over that volume, all
     same-orientation directions at once (``csrc/scan.cu``; TPU kernel
-    ``_scan_kernel`` in cost mode);
+    ``_scan_kernel`` in cost mode), launched by :func:`scan_plan`;
   * :func:`scan_sig` -- one SGM scan pass with the census cost built in
     the kernel from bit-packed signatures: K4a with one lateral per
     direction (``csrc/scan.cu``), also over tiles side by side on the
@@ -20,9 +20,11 @@ Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
   * :func:`wta_dr` -- K5, winner-take-all with the disparity composed in
     the kernel and the right-reference disparity (``csrc/wta.cu``; TPU
     kernel ``_wta_kernel`` with ``with_dr``);
-  * :func:`flow_partials_from_sigs` -- the pre-pass and the four scans of
-    one side of the mgm flow, at the batch's rebased base 0 or the single
-    tile's signed base; :func:`flow_one_side` -- one side of the single
+  * :func:`flow_partials_sides` -- the pre-pass and the four scans of
+    each side of the mgm flow, at the batch's rebased base 0 or the single
+    tile's signed base, the independent chains of scan launches on side
+    streams at once (:func:`flow_chains`); :func:`flow_partials_from_sigs`
+    -- one side; :func:`flow_one_side` -- one side of the single
     tile (``flow_one_side_pallas``); :func:`flow_partials_folded` -- one
     side of lane-folded tile groups;
   * :func:`aggregate` and :func:`match_kernels` -- the classic SGM
@@ -39,6 +41,7 @@ popcount, so the plain versions widen to int64 and use a SWAR popcount.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -87,6 +90,8 @@ _ARGTYPES = {
     's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [_U, _P],
     's2p_scan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
+    's2p_scan_plan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
+                     + [_I] * 8 + [_F, _F, _F, _I, _I, _I, _P],
     's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 5
                     + [_F, _F, _F, _I, _P],
     's2p_scan_mgm': [_P] * 9 + [_I] * 9 + [_U, _I, _IP, _IP]
@@ -108,7 +113,7 @@ def _launch(lib_name, fn_name, *args, key=None, kernels=1):
     fn.restype = ctypes.c_int
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        err = getattr(lib, fn_name + '_error')
+        err = getattr(lib, f's2p_{lib_name}_error')
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f'{fn_name} launch failed: CUDA error {rc} '
                            f'({err(rc).decode()})')
@@ -310,6 +315,31 @@ def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
                       cost.shape[2])
 
 
+_K2_GROUP = 8            # candidates per thread (csrc/scan.cu kK2)
+_K2_THREADS = 512        # threads per block at most (kK2Threads)
+K2_MAX_D = _K2_GROUP * _K2_THREADS
+# prefetch depth, 1 or 2, measured on the card (PERF.md); chip_smoke.py
+# sets it to time and check both
+K2_DEPTH = 1
+
+
+def scan_plan(D, N=1, lanes=1, B=1, lats=(0,)):
+    """K2's launch plan for a (B, N, D, lanes) pass: candidates per thread
+    (``group``), candidate groups per chain (``groups``), chains per block
+    (``chains``), threads per block, the prefetch depth (the kernel runs
+    a launch that reads both S and accum at depth 1) and, per direction,
+    the chains (one per lane: chain q is at lane (q + lat * s) mod lanes
+    at step s) and the blocks that cover them."""
+    if not 0 < D <= K2_MAX_D:
+        raise ValueError(f'the scan takes 1 to {K2_MAX_D} candidates, got {D}')
+    groups = -(-D // _K2_GROUP)
+    chains = min(32, _K2_THREADS // groups)
+    n_chains = [lanes for _ in lats]
+    return dict(group=_K2_GROUP, groups=groups, chains=chains,
+                threads=chains * groups, depth=K2_DEPTH, n_chains=n_chains,
+                blocks=[B * -(-n // chains) for n in n_chains])
+
+
 def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
          accum=None, emit_votes=True):
     """One SGM scan pass over a uint8 cost volume.
@@ -335,6 +365,7 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     lats = tuple(int(v) for v in lats)
     if not 1 <= len(lats) <= 3:
         raise ValueError(f'1 to 3 directions per pass, got {lats}')
+    plan = scan_plan(D, N, lanes, B, lats)
     if _route(cost, p2, accum) == 'cpu':
         return scan_plain(cost, p2, lats, p1, invalid_cost, reverse,
                           sub_cost_mult, accum, emit_votes)
@@ -343,12 +374,12 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     votes = (torch.empty((B, len(lats), N, lanes), dtype=torch.int32,
                          device=dev) if emit_votes else None)
     lat3 = lats + (0,) * (3 - len(lats))
-    _launch('scan', 's2p_scan', cost.data_ptr(), *cost.stride(),
+    _launch('scan', 's2p_scan_plan', cost.data_ptr(), *cost.stride(),
             p2.data_ptr(), None if accum is None else accum.data_ptr(),
             S.data_ptr(), None if votes is None else votes.data_ptr(),
             B, N, D, lanes, len(lats), *lat3, float(p1),
             float(invalid_cost), float(sub_cost_mult), int(bool(reverse)),
-            kernels=len(lats))
+            plan['chains'], plan['depth'], kernels=len(lats))
     return S, votes
 
 
@@ -732,56 +763,129 @@ def prepass_secondary(s2, W, disp_min, D):
     return torch.nn.functional.pad(s2t, (0, 0, pad, pad)), pad, W
 
 
-def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
-                            emit_votes=True, disp_min=0):
-    """Aggregation partials of one side of the flow.
+def flow_chains(variant):
+    """The flow's scan passes as its chains of dependent launches, one per
+    orientation: {'h' or 'v': [(key, direction indices, lateral offsets,
+    sub_cost_mult)]} in launch order.  A later pass of an orientation
+    accumulates into the earlier one; the overcount fix goes to the first
+    pass of :func:`scan_passes` and to no other.  The chains share no
+    sum and no carry, so they may run at once."""
+    passes = scan_passes(variant)
+    n_dirs = sum(len(idx) for _, idx, _ in passes)
+    sub = float(n_dirs - 1) if variant.overcount_fix else 0.0
+    chains = {}
+    for j, (key, idx, lats) in enumerate(passes):
+        chains.setdefault(key[0], []).append(
+            (key, idx, lats, sub if j == 0 else 0.0))
+    return chains
 
-    ``s1`` (B, H, W) are the bit-annotated reference signatures.  ``s2``
-    is either the rebased secondary of the batch, (B, H, W + margin) at
-    base ``disp_min`` 0, or the single tile's, (B, H, W) at a signed
+
+_streams = {}
+
+
+def _side_streams(dev, n):
+    """``n`` side streams of a CUDA device, made once and reused."""
+    got = _streams.setdefault(dev.index, [])
+    while len(got) < n:
+        got.append(torch.cuda.Stream(dev))
+    return got[:n]
+
+
+def flow_volumes(s1, s2, D, variant, allowed=None, disp_min=0):
+    """One side's inputs to the scans, {orientation: (uint8 cost, p2)}:
+    'h' (B, W, D, H) and (B, W, H), 'v' (B, H, D, W) and (B, H, W), for
+    the orientations that :func:`flow_chains` scans.
+
+    ``s1`` (B, H, W) are the bit-annotated reference signatures.  ``s2`` is
+    either the rebased secondary of the batch, (B, H, W + margin) at base
+    ``disp_min`` 0, or the single tile's, (B, H, W) at a signed
     ``disp_min``, read through a transposed copy padded by ``pad`` rows
     on each side (``disp_min + pad`` a multiple of 8, as the TPU kernel
     lays it out).  The uint8 cost volume is built once in the (W, D, H)
-    layout; the horizontal passes scan it along W, the vertical ones a
-    transposed copy along H.  Classic independent scans (tsgm=1), BIG
-    out-of-range costs, the overcount fix on the first pass, every later
-    pass of an orientation accumulating into the previous one.
-
-    Returns ([S_v (B, H, D, W), S_h viewed as (B, H, D, W)], votes list
-    of (B, H, W) int32 in direction order, None where not emitted)."""
-    from .mgm_flow import BIG
-
+    layout; the vertical passes read a transposed copy, so that every
+    scan load coalesces along its lanes."""
     B, H, W = s1.shape
-    nbits = variant.census_win ** 2 - 1
     s1t = s1.transpose(1, 2).contiguous()                    # (B, W, H)
     s2t, pad, sec_len = prepass_secondary(s2, W, disp_min, D)
-    cost_h = cost_prepass(s1t, s2t, D, disp_min, nbits, pad, sec_len,
-                          allowed=allowed)                   # (B, W, D, H)
-    # the vertical passes read (B, H, D, W): one transposed copy lets
-    # every scan load coalesce along its lanes
-    cost = {'v': cost_h.permute(0, 3, 2, 1).contiguous(), 'h': cost_h}
-    p2 = {'v': torch.full((B, H, W), variant.p2, dtype=torch.float32,
-                          device=s1.device),
-          'h': torch.full((B, W, H), variant.p2, dtype=torch.float32,
-                          device=s1.device)}
+    cost_h = cost_prepass(s1t, s2t, D, disp_min, variant.census_win ** 2 - 1,
+                          pad, sec_len, allowed=allowed)     # (B, W, D, H)
+    vols = {}
+    for o in flow_chains(variant):
+        cost = cost_h if o == 'h' else cost_h.permute(0, 3, 2, 1).contiguous()
+        vols[o] = (cost, torch.full(cost[:, :, 0].shape, variant.p2,
+                                    dtype=torch.float32, device=s1.device))
+    return vols
 
-    S = {'v': None, 'h': None}
-    passes = scan_passes(variant)
-    votes = [None] * sum(len(idx) for _, idx, _ in passes)
-    sub = float(len(votes) - 1) if variant.overcount_fix else 0.0
-    for key, dir_idx, lats in passes:
-        o = key[0]
-        S[o], v = scan(cost[o], p2[o], lats, variant.p1, BIG,
-                       reverse=key[1] == 'b', sub_cost_mult=sub,
-                       accum=S[o], emit_votes=emit_votes)
-        sub = 0.0                # exactly one pass applies the fix
-        if v is not None:
-            for j, i in enumerate(dir_idx):
-                votes[i] = v[:, j] if o == 'v' else v[:, j].transpose(1, 2)
-    parts = [S['v']] if S['v'] is not None else []
-    if S['h'] is not None:
-        parts.append(S['h'].permute(0, 3, 2, 1))
-    return parts, votes
+
+def flow_scans(sides, variant):
+    """The flow's scan passes over the volumes of :func:`flow_volumes`.
+
+    ``sides`` yields ({orientation: (cost, p2)}, emit_votes) per side.
+    Classic independent scans (tsgm=1), BIG out-of-range costs, the chains
+    of :func:`flow_chains`.  On CUDA every chain (each side's horizontal
+    and vertical passes) runs on a side stream of its own, forked from the
+    caller's stream as soon as its side's volumes are enqueued, all at
+    once; the caller's stream waits for them all before this returns.  On
+    the CPU the passes run one after another.
+
+    Returns, per side, ([S_v (B, H, D, W), S_h viewed as (B, H, D, W)],
+    votes list of (B, H, W) int32 in direction order, None where not
+    emitted)."""
+    from .mgm_flow import BIG
+
+    chains = flow_chains(variant)
+    n_dirs = sum(len(c[1]) for chain in chains.values() for c in chain)
+    keep, forked, out = [], [], []
+    for vols, emit_votes in sides:
+        # the caller's stream frees the volumes only after it has waited
+        # for the chains that read them
+        keep.append(vols)
+        S, votes = {}, [None] * n_dirs
+        for o, (cost, p2) in vols.items():
+            ctx = contextlib.nullcontext()
+            if cost.is_cuda:
+                main = torch.cuda.current_stream(cost.device)
+                st = _side_streams(cost.device, len(forked) + 1)[-1]
+                st.wait_stream(main)
+                forked.append(st)
+                ctx = torch.cuda.stream(st)
+            with ctx:
+                for key, idx, lats, sub in chains[o]:
+                    S[o], v = scan(cost, p2, lats, variant.p1, BIG,
+                                   reverse=key[1] == 'b', sub_cost_mult=sub,
+                                   accum=S.get(o), emit_votes=emit_votes)
+                    for j, i in enumerate(idx if v is not None else ()):
+                        votes[i] = (v[:, j] if o == 'v'
+                                    else v[:, j].transpose(1, 2))
+        parts = [S['v']] if 'v' in S else []
+        if 'h' in S:
+            parts.append(S['h'].permute(0, 3, 2, 1))
+        out.append((parts, votes))
+    for st in forked:
+        main.wait_stream(st)
+    # made on the side streams, used on the caller's: not to be reused
+    # before the caller's stream is done with them
+    for parts, votes in out if forked else ():
+        for t in parts + [vo for vo in votes if vo is not None]:
+            t.record_stream(main)
+    return out
+
+
+def flow_partials_sides(sides, D, variant, allowed=None):
+    """Aggregation partials of one or both sides of the flow: ``sides``
+    holds (s1, s2, disp_min, emit_votes) per side (:func:`flow_volumes`);
+    returns :func:`flow_scans` of them, each side's volumes enqueued on
+    the caller's stream while the chains of the sides before it run."""
+    return flow_scans(((flow_volumes(s1, s2, D, variant, allowed, dm), ev)
+                       for s1, s2, dm, ev in sides), variant)
+
+
+def flow_partials_from_sigs(s1, s2, D, variant, allowed=None,
+                            emit_votes=True, disp_min=0):
+    """Aggregation partials of one side of the flow: ([S_v, S_h viewed as
+    (B, H, D, W)], votes) of :func:`flow_partials_sides`."""
+    return flow_partials_sides([(s1, s2, disp_min, emit_votes)], D,
+                               variant, allowed)[0]
 
 
 def flow_one_side(im1, im2, disp_min, D, variant, ext=None,

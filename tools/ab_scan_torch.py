@@ -9,7 +9,8 @@ Usage, from the repo root on a machine with one CUDA card and nvcc:
 Both sources (the second defaults to s2p_tpu_torch/csrc/scan.cu) are built
 with the port's nvcc flags into out/ab_scan_build/ and their ``s2p_scan``
 entries run on the same random uint8 cost volumes, at the flow's bucket
-shapes (8 x 448 x 512 and 8 x 512 x 448, 80 candidates) with one and
+shapes (bucket A: 8 x 448 x 512 and 8 x 512 x 448, 80 candidates;
+bucket B: 2 x 832 x 896 and 2 x 896 x 832, 96 candidates) with one and
 three directions, and at one 64 x 896 tile with 528 candidates (new
 version only when the old one refuses D > 512).  Each case runs in the
 order new, old, old, new (median of 5 CUDA-event runs each) and the two
@@ -30,7 +31,8 @@ sys.path.insert(0, ROOT)
 
 from s2p_tpu_torch.ops import _build, sgm_kernels as sk  # noqa: E402
 
-CASES = ((8, 448, 80, 512), (8, 512, 80, 448), (1, 64, 528, 896))
+CASES = ((8, 448, 80, 512), (8, 512, 80, 448), (2, 832, 96, 896),
+         (2, 896, 96, 832), (1, 64, 528, 896))
 
 
 def build(srcs, out):
