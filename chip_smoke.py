@@ -9,8 +9,8 @@ the JAX package.  Phases, each timed on a line of its own:
   1. device: the card's name and power limit (nvidia-smi), torch's version;
   2. build: the CUDA kernels, one nvcc per source in parallel, into
      s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
-     lines, and a check that every instantiation of K2 has a 0-byte stack
-     frame and no spill;
+     lines, and a check that every instantiation of the scan kernel up to
+     4096 candidates (K2 and K4a) has a 0-byte stack frame and no spill;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -18,11 +18,13 @@ the JAX package.  Phases, each timed on a line of its own:
      (one 64 x 896 tile), compared bitwise and NaN-aware, each timed with
      CUDA events; then the scan per bucket as the flow launches it, both
      sides' four chains of passes at once on side streams, bitwise
-     against the passes one by one and timed at prefetch depths 1 and 2;
-     then K2 and K3 against their plain versions at small adversarial
-     shapes and values (tied candidates, columns of 255, D 1 to 528,
-     ragged lane counts, N 1 and 2, laterals -1/0/+1 with sub and accum;
-     NaN, inf and all-BIG partials), one line per case;
+     against the passes one by one and timed beside the same passes on
+     one stream; then the scan (K2 and K4a) and K3 against their plain
+     versions at small adversarial shapes and values (tied candidates,
+     columns of 255, D 1 to 4097, ragged lane counts, N 1 and 2, laterals
+     -1/0/+1 with sub and accum; signatures with padding, allowed
+     candidates and lane-fold segments; NaN, inf and all-BIG partials),
+     one line per case;
   4. kernels of the classic SGM matcher against their plain versions, on
      the 512 x 512 pair with 64 candidates from -8 (bench.py): the four
      signature-mode scan passes (K4a), one vertical pass with 3 MGM
@@ -186,17 +188,6 @@ def equal(a, b):
     same = a == b
     err = (a.long() - b.long()).abs().max().item() if a.numel() else 0
     return bool(same.all()), float(err)
-
-
-@contextmanager
-def k2_depth(depth):
-    """K2's prefetch depth for the launches made inside."""
-    from s2p_tpu_torch.ops import sgm_kernels as sk
-    default, sk.K2_DEPTH = sk.K2_DEPTH, depth
-    try:
-        yield
-    finally:
-        sk.K2_DEPTH = default
 
 
 def timed(fn, reps):
@@ -413,9 +404,8 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
 def check_bucket_scans(vols, seq, st):
     """K2 per bucket as the flow launches it: both sides' four chains of
     passes at once (sgm_kernels.flow_scans), bitwise against the passes
-    run one by one, and timed at each prefetch depth (in the order 1, 2,
-    2, 1) beside the same passes one after another on one stream; the
-    JSON line reports the better of the default depth's two times."""
+    run one by one, and timed twice beside the same passes one after
+    another on one stream; the JSON line reports the better of the two."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
@@ -445,27 +435,26 @@ def check_bucket_scans(vols, seq, st):
                                       sub_cost_mult=sub, accum=S.get(o),
                                       emit_votes=votes)
 
-    times = {1: [], 2: []}
-    for depth in (1, 2, 2, 1):
-        with k2_depth(depth):
-            times[depth].append(timed(lambda: sk.flow_scans(ins, v), 5))
+    ts = [timed(lambda: sk.flow_scans(ins, v), 5) for _ in range(2)]
     one_stream = timed(serial, 3)
-    for depth, ts in times.items():
-        print(f'  scan bucket (both sides, four chains at once), depth '
-              f'{depth}: {ts[0]:.3f}, {ts[1]:.3f} ms', flush=True)
+    print(f'  scan bucket (both sides, four chains at once): {ts[0]:.3f}, '
+          f'{ts[1]:.3f} ms', flush=True)
     print(f'  scan bucket, the same passes on one stream: {one_stream:.3f} ms',
           flush=True)
-    st['bucket_ms'] = min(times[sk.K2_DEPTH])
+    st['bucket_ms'] = min(ts)
     torch.cuda.empty_cache()
 
 
 def check_adversarial():
-    """K2 and K3 against their plain versions at small shapes that stress
-    their designs, each case on a line of its own: tied candidates,
-    columns of 255, D from 1 to 528 (one group, a ragged group, past 256
-    and the wide tile's), lanes that no chain count divides, N 1 and 2,
-    laterals -1/0/+1 in one pass with sub and accum, both depths; K3 on
-    NaN, inf and all-BIG partials, D 1 and 2, either part transposed."""
+    """The scan (K2 and K4a) and K3 against their plain versions at small
+    shapes that stress their designs, each case on a line of its own:
+    tied candidates, columns of 255, D from 1 to 4097 (one group, a ragged
+    group, past 256, the wide tile's and past 4096, scan_wide_kernel),
+    lanes that no chain count divides, N 1 and 2, laterals -1/0/+1 in one
+    pass with sub and accum; signatures with reference padding, invalid
+    pixels, allowed candidates and lane-fold segments, vertical and
+    horizontal; K3 on NaN, inf and all-BIG partials, D 1 and 2, either
+    part transposed."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
@@ -485,7 +474,8 @@ def check_adversarial():
         for N, lanes in ((1, 61), (2, 61), (7, 64)):
             cases.append((D, N, lanes, 'random'))
     cases += [(80, 9, 61, 'tied'), (80, 9, 61, '255 columns'),
-              (528, 5, 33, 'tied'), (17, 12, 61, '255 columns')]
+              (528, 5, 33, 'tied'), (17, 12, 61, '255 columns'),
+              (4097, 3, 61, 'random'), (4104, 2, 7, 'tied')]
     for D, N, lanes, kind in cases:
         B = 2
         cost = torch.randint(0, 25, (B, N, D, lanes), dtype=torch.uint8,
@@ -501,12 +491,10 @@ def check_adversarial():
                                     ((1,), True, 0.0, None),
                                     ((0, -1), True, 1.0, accum)):
             ref = sk.scan_plain(cost, p2, lats, 8.0, mf.BIG, rev, sub, acc)
-            for depth in (1, 2):
-                with k2_depth(depth):
-                    got = sk.scan(cost, p2, lats, 8.0, mf.BIG, rev, sub, acc)
-                verdict(f'scan D {D} N {N} lanes {lanes} {kind} lats {lats} '
-                        f'reverse {rev} sub {sub} accum {acc is not None} '
-                        f'depth {depth}', zip(got, ref))
+            got = sk.scan(cost, p2, lats, 8.0, mf.BIG, rev, sub, acc)
+            verdict(f'scan D {D} N {N} lanes {lanes} {kind} lats {lats} '
+                    f'reverse {rev} sub {sub} accum {acc is not None}',
+                    zip(got, ref))
     # a strided view of the cost, as any caller may give
     cost = torch.randint(0, 25, (2, 7, 40, 30), dtype=torch.uint8,
                          device=dev, generator=g)[:, :, ::2]
@@ -514,6 +502,7 @@ def check_adversarial():
     verdict('scan strided cost', zip(
         sk.scan(cost, p2, (0, 1, -1), 8.0, mf.BIG, False),
         sk.scan_plain(cost, p2, (0, 1, -1), 8.0, mf.BIG, False)))
+    check_adversarial_sig(g, verdict)
 
     for D in (1, 2, 17, 80):
         B, H, W = 2, 37, 45
@@ -549,6 +538,63 @@ def check_adversarial():
         raise AssertionError(f'{len(failed)} adversarial cases differ from '
                              f'the plain versions: {failed[:5]}')
     torch.cuda.empty_cache()
+
+
+def check_adversarial_sig(g, verdict):
+    """The scan in signature mode (K4a) against its plain version:
+    reference padding, invalid pixels, allowed candidates, lane-fold
+    segments, vertical and horizontal passes, D 1 to 4097."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = g.device
+
+    def sigs(shape, p_pad=0.0):
+        v = torch.randint(0, 1 << 24, shape, device=dev, generator=g)
+        v |= (torch.rand(shape, device=dev, generator=g) >= 0.1).long() << 24
+        v |= (torch.rand(shape, device=dev, generator=g) < p_pad).long() << 25
+        return v.to(torch.int32)
+
+    # (D, N, lanes, horizontal, disp_min, segment width, kind)
+    cases = [(1, 2, 61, False, 0, None, 'pad'),
+             (17, 1, 61, False, -5, None, 'allowed'),
+             (17, 7, 61, True, 3, None, 'allowed'),
+             (80, 9, 64, False, 0, 16, 'allowed'),
+             (80, 9, 60, True, 0, 12, 'pad'),
+             (257, 3, 61, False, -100, None, ''),
+             (528, 2, 33, True, -20, None, 'allowed'),
+             (4097, 2, 7, False, -2000, None, 'allowed')]
+    for D, N, lanes, hor, dmin, seg_w, kind in cases:
+        B = 2
+        s1 = sigs((B, N, lanes), 0.1 if kind == 'pad' else 0.0)
+        pad = 0
+        if hor:
+            pad = max(0, -dmin, dmin + D)
+            pad += (-(dmin + pad)) % 8
+            s2, sec_len = sigs((B, N + 2 * pad, lanes)), N
+        else:
+            s2, sec_len = sigs((B, N, lanes + 5)), lanes + 5
+        p2 = torch.rand((B, N, lanes), device=dev, generator=g) * 40
+        allowed = None
+        if kind == 'allowed':
+            shape = (B, D) if seg_w is None else (B, lanes // seg_w, D)
+            allowed = (torch.rand(shape, device=dev, generator=g)
+                       < 0.7).to(torch.int32)
+        accum = torch.rand((B, N, D, lanes), device=dev, generator=g) * 100
+        for dirs, rev, sub, acc in ((((0,), (1,), (-1,)), False, 2.0, accum),
+                                    (((1,),), True, 0.0, None),
+                                    (((0,),), True, 1.0, accum)):
+            if hor and any(lat for (lat,) in dirs):
+                continue
+            args = (s1, s2, p2, dirs, 8.0, 24.0, 24, D, dmin, sec_len, rev,
+                    hor)
+            kw = dict(pad=pad, sub_cost_mult=sub, allowed=allowed,
+                      accum=acc, seg_w=seg_w)
+            verdict(f'scan_sig D {D} N {N} lanes {lanes} horizontal {hor} '
+                    f'disp_min {dmin} seg_w {seg_w} {kind} dirs {dirs} '
+                    f'reverse {rev} sub {sub} accum {acc is not None}',
+                    zip(sk.scan_sig(*args, **kw),
+                        sk.scan_sig_plain(*args, **kw)))
 
 
 def check_outputs(root, specs, cpu_root, cpu_indices):
@@ -1034,7 +1080,7 @@ def main():
                 if ('registers' in line or 'spill' in line
                         or 'Function properties' in line):
                     print(f'  {name}: {line.strip()}')
-        check_no_spill(_build.build_log('scan'), 'k2_scan_kernel')
+        check_no_spill(_build.build_log('scan'), 'scan_kernel')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))

@@ -1,10 +1,11 @@
 // One SGM scan pass with one lateral carry offset per direction.
 //
 // Replaces s2p_tpu/ops/sgm_pallas.py _scan_kernel (:81, wrapper
-// _scan_pass_pallas :244) in two of its modes:
+// _scan_pass_pallas :244) in two of its modes, which differ only in where
+// a step's cost row comes from:
 //
-//   * cost mode (s2p_scan): the cost rows come from the uint8 pre-pass
-//     volume, cv == 255 meaning invalid_cost (the mgm flow, K2);
+//   * cost mode (s2p_scan): the uint8 pre-pass volume, cv == 255 meaning
+//     invalid_cost (the mgm flow, K2);
 //   * signature mode (s2p_scan_sig): the cost of (step, lane, k) is built
 //     in the kernel from bit-packed census signatures (the classic SGM
 //     matcher, K4a):
@@ -19,8 +20,7 @@
 //     The TPU kernel builds the shifted rows with Hankel lane rolls
 //     (vertical) or a sublane window of the padded transposed secondary
 //     (horizontal); both wrap, and both equal this direct indexing under
-//     the [0, sec_len) mask, so the kernel indexes directly and reads s2
-//     only where the candidate is in range.
+//     the [0, sec_len) mask, so the kernel indexes directly.
 //
 //     Its lane-fold mode (seg_w, the TPU kernel's sgm_pallas.py:116-123)
 //     scans several tiles side by side on the lane axis, each a segment
@@ -38,174 +38,271 @@
 //
 // "dead" is step 0 and every lane whose predecessor x - lat[d] lies
 // outside the image, or, in the lane-fold mode, in another segment (a dead
-// carry restarts fresh: a fresh carry is zero and minconv(0) == 0, which is
-// how the TPU kernel masks the segment edges).  The f32 operations run in exactly this order, and
-// the build disables FMA contraction, so the sums round as the
-// reference's do around BIG = 1e9.
+// carry restarts fresh: a fresh carry is zero and minconv(0) == 0, which
+// is how the TPU kernel masks the segment edges).  The f32 operations run
+// in exactly this order, and the build disables FMA contraction, so the
+// sums round as the reference's do around BIG = 1e9.
 //
 // Design.  The TPU kernel carries L in VMEM across sequential grid steps;
 // CUDA blocks run in no order.  For one direction, lane x at step s
 // depends only on lane x - lat at step s - 1, so the positions
-// x = c + lat * s form independent chains (K2 wraps them around the
-// lanes), and a block can own any set of chains for all steps.  A block
-// owns C consecutive chains (threadIdx.x,
-// so loads and stores coalesce along the lanes) and splits the D
-// candidates of each chain over T groups (threadIdx.y).  Each thread
-// keeps its candidates' carry in registers; per step it publishes its
-// partial minimum, argmin and edge values in shared memory
+// x = (q + lat * s) mod lanes form independent chains, one per lane, and
+// a block can own any set of chains for all steps: where a chain wraps,
+// its predecessor leaves the image and the step is dead (the rule above),
+// so every thread works at every step.  A block owns C consecutive chains
+// (threadIdx.x, so loads and stores coalesce along the lanes) and splits
+// the D candidates of each chain over T groups of 8 (threadIdx.y).  Each
+// thread keeps its candidates' carry in registers; per step it publishes
+// its partial minimum, argmin and edge values in shared memory
 // (double-buffered: one __syncthreads per step), from which the next step
-// reads m and the neighbouring candidates of its edges, and the vote is
-// the lowest-index minimum over the groups (strict <, groups in order).
+// reads m, the vote (the lowest-index minimum over the groups, strict <,
+// groups in order) and the neighbouring candidates of its edges.
 // Directions run as successive launches on the stream in direction order:
 // the first writes S = L_0, the next ones S = S + L_d, the last also
 // subtracts sub * cost and adds accum -- the reference's order of f32
 // operations.
 //
-// K2 (cost mode, k2_scan_kernel).  Bound: bytes -- the u8 cost, p2 and
-// accum in, S out, once each -- plus, with one launch per direction, the
-// S round trip between a pass's directions (about 9 GB per side at
-// 8 x 448 x 512 x 80, 2.7 ms at 3.35 TB/s).  What bounds it on the card is
-// each step's serial path and its instruction count, and, with a bucket's
-// launches running at once, the bytes: the steps of a chain run in order
-// and every step ends in a barrier.  The first design issued a step's
-// loads only after the previous step's barrier, spent most of a step's
-// instructions on 64-bit address arithmetic and a branch per candidate,
-// and gave a lateral direction lanes + N - 1 chains of which only lanes
-// had work at any step.  This kernel:
-//   * wraps the chains: chain q is at lane (q + lat * s) mod lanes, so a
-//     direction has exactly one chain per lane, every thread works at
-//     every step, and a chain whose predecessor x - lat leaves the image
-//     takes a dead step there and starts afresh (the rule above);
-//   * issues step s + kP's loads (cost row, p2, S, accum) before step s's
-//     exchange, into a ring of kP + 1 register slots (the step loop is
-//     unrolled by kP + 1, so every slot index is a constant).  None of
-//     those loads depends on the carry, and each element of S is read and
-//     written by one thread at one step, so prefetching it is safe.  Depth
-//     1 is the default: depth 2 is faster for one launch alone but costs
-//     registers, hence blocks per SM, and the flow runs a bucket's
-//     launches at once (PERF.md);
-//   * runs a group of 8 candidates without a branch (kFull: every group
-//     full; otherwise a candidate past D costs inf and is not stored),
-//     with 32-bit offsets inside a tile and the uint8 cost turned into f32
-//     exactly by 2^23 + v - 2^23;
-//   * lays a step's partial minima out chain by chain (padded to a multiple
-//     of 4 groups) so that a thread reads its chain's as float4s, and folds
-//     the vote into the next step's reduction, which the step needs for m
-//     anyway;
-//   * holds a slot's S and accum arrays only in the launches that read them
-//     (kMode).  With at most 512 threads a block (C = min(32, 512 / T)) and
-//     one block an SM allowed every instantiation stays within 128
-//     registers: no spill at any D up to 4096.  The one launch that reads
-//     both S and accum (the last direction of a pass with accum) runs at
-//     depth 1.
+// Bound: bytes -- the cost (u8 volume or signatures), p2 and accum in, S
+// out, once each -- plus, with one launch per direction, the S round trip
+// between a pass's directions (about 9 GB per side at 8 x 448 x 512 x 80,
+// 2.7 ms at 3.35 TB/s).  What bounds it on the card is each step's serial
+// path, a chain's steps running in order with a barrier at the end of
+// each.  So the kernel:
+//   * issues step s + 1's loads (the cost source's, p2, S, accum) before
+//     step s's exchange, into the other of two register slots (the step
+//     loop is unrolled by two, so every slot index is a constant).  None
+//     of those loads depends on the carry, and each element of S is read
+//     and written by one thread at one step, so prefetching it is safe.
+//     A prefetch two steps deep was measured slower on the flow's path:
+//     it costs registers, hence blocks per SM, when a bucket's launches
+//     share the SMs (PERF.md);
+//   * runs a group without a branch (kFull: every group full; otherwise a
+//     candidate past D costs inf and is not stored), with 32-bit offsets
+//     inside a tile, and turns a uint8 cost into f32 exactly by
+//     2^23 + v - 2^23;
+//   * lays a step's partial minima out chain by chain (padded to a
+//     multiple of 4 groups) so that a thread reads its chain's as float4s,
+//     and folds the vote into the next step's reduction, which the step
+//     needs for m anyway;
+//   * holds a slot's S and accum arrays only in the launches that read
+//     them (kMode).
+// With at most 512 threads a block (C = min(32, 512 / T)) and one block
+// an SM allowed, every instantiation of scan_kernel (D up to 4096) stays
+// within 128 registers: no spill.  A wider D, up to 16384 (a tile wider
+// than 4096 columns with its full range), runs scan_wide_kernel: the same
+// loop with 32 candidates a thread and the loads issued at their step,
+// whose carry and slot do not fit in registers (it spills; PERF.md).
 // The uint8 cost may be any strided view.  The Python layer runs the
 // flow's four independent chains of launches (two sides, two
 // orientations) on four streams at once.
-//
-// K4a (signature mode, scan_dir_kernel) keeps the first design: its cost
-// is computed from loaded signatures inside the step, groups of 16 or 32
-// candidates, C = 32 while T <= 16, halving as T doubles (C * T <= 512),
-// any D up to 16384.  Bound: bytes (the signatures in, S out, accum in);
-// the chains' sequential steps keep it far above that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kThreads = 512;               // chains x groups per block
+constexpr int kK = 8;                       // candidates per thread
+constexpr int kWideK = 32;                  // ... in scan_wide_kernel
+constexpr int kMaxD = kK * kThreads;        // scan_kernel: one chain a block
+constexpr int kWideMaxD = kWideK * kThreads;
+// shared slots per buffer: C * Tp <= kThreads + 3 * 32
+constexpr int kShared = kThreads + 96;
+constexpr long long kInt = 1LL << 31;       // offsets inside a tile below
+constexpr int kValidBit = 24;
+constexpr int kPadBit = 25;
+
 // ------------------------------------------------------------------ //
-// K2: cost mode, loads kP steps ahead of the exchange
+// Cost sources.  tile(b) is tile b of the batch with int offsets inside
+// it; load() issues one step's loads for kN candidates from k0 into a Raw,
+// which nothing reads before the step; cost() is candidate j's f32 cost.
+// fits() says whether a tile's offsets fit in an int.
 // ------------------------------------------------------------------ //
 
-constexpr int kK2 = 8;                       // candidates per thread
-constexpr int kK2Threads = 512;              // chains x groups per block
-constexpr int kK2MaxD = kK2 * kK2Threads;    // one chain per block
-constexpr int kK2Depth = 1;                  // default prefetch depth
-// shared slots per buffer: C * Tp <= kK2Threads + 3 * 32
-constexpr int kK2Shared = kK2Threads + 96;
-
-// the uint8 pre-pass volume through its strides
+// cost mode: the uint8 pre-pass volume through its strides
 struct CostU8 {
   const uint8_t* cost;
   long long sb, sn, sk, sl;
   float invalid;
+  template <int kN>
+  struct Raw {
+    uint8_t v[kN];
+  };
+  struct Tile {
+    const uint8_t* c;
+    int sn, sk, sl;
+    float invalid;
+    template <int kN, bool kFull>
+    __device__ __forceinline__ void load(Raw<kN>& r, int n, int x, int k0,
+                                         int cnt) const {
+      const uint8_t* const p = c + (n * sn + x * sl + k0 * sk);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        r.v[j] = kFull || j < cnt ? __ldg(p + j * sk) : 0;
+    }
+    template <int kN>
+    __device__ __forceinline__ float cost(const Raw<kN>& r, int j) const {
+      // 2^23 + v - 2^23 is exact
+      return r.v[j] == 255
+                 ? invalid
+                 : __int_as_float(0x4B000000 | r.v[j]) - 8388608.f;
+    }
+  };
+  bool fits(int N, int D, int lanes) const {
+    return sn >= 0 && sl >= 0 && sk >= 0 &&
+           (N - 1) * sn + (lanes - 1) * sl + (D - 1) * sk < kInt;
+  }
+  __device__ __forceinline__ Tile tile(int b) const {
+    return Tile{cost + b * sb, (int)sn, (int)sk, (int)sl, invalid};
+  }
+};
+
+// signature mode: the census cost built from the packed signatures
+struct CostSig {
+  const uint32_t* s1;       // (B, N, lanes)
+  const uint32_t* s2;       // vertical (B, N, len2); horizontal (B, len2, lanes)
+  const int32_t* allowed;   // (B, lanes / seg_w, D) or null
+  int N, lanes, len2, D, dmin, pad, sec_len, horizontal, seg_w;
+  uint32_t mask;
+  float invalid;
+  template <int kN>
+  struct Raw {
+    uint32_t a;             // the reference's signature
+    uint32_t s[kN];         // the candidates' (0, not valid, out of range)
+    int al[kN];             // allowed[k] (1 without allowed)
+  };
+  struct Tile {
+    const uint32_t* s1;
+    const uint32_t* s2;     // horizontal: from row pad
+    const int32_t* al;
+    int lanes, len2, D, dmin, sec_len, horizontal, seg_w;
+    uint32_t mask;
+    float invalid;
+    template <int kN, bool kFull>
+    __device__ __forceinline__ void load(Raw<kN>& r, int n, int x, int k0,
+                                         int cnt) const {
+      r.a = __ldg(s1 + n * lanes + x);
+      // candidate k0 + j at position ix0 + j: the column x + dmin + k
+      // (vertical) or the row n + dmin + k (horizontal) of the secondary
+      const int ix0 = (horizontal ? n : x) + dmin + k0;
+      const uint32_t* const p = horizontal ? s2 + x : s2 + n * len2;
+      const int step = horizontal ? lanes : 1;
+      const int32_t* const ap =
+          al != nullptr ? al + (x / seg_w) * D + k0 : nullptr;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const bool in = kFull || j < cnt;
+        const int ix = ix0 + j;
+        r.s[j] = in && ix >= 0 && ix < sec_len ? __ldg(p + ix * step) : 0u;
+        r.al[j] = in && ap != nullptr ? __ldg(ap + j) : 1;
+      }
+    }
+    template <int kN>
+    __device__ __forceinline__ float cost(const Raw<kN>& r, int j) const {
+      if ((r.a >> kPadBit) & 1u) return 0.f;
+      const uint32_t s = r.s[j];
+      const bool ok = ((r.a >> kValidBit) & 1u) && ((s >> kValidBit) & 1u) &&
+                      r.al[j] == 1;
+      return ok ? (float)__popc((r.a ^ s) & mask) : invalid;
+    }
+  };
+  bool fits(int N, int D, int lanes) const {
+    return (long long)N * lanes < kInt &&
+           (long long)len2 * (horizontal ? lanes : N) < kInt &&
+           (long long)(lanes / seg_w) * D < kInt;
+  }
+  __device__ __forceinline__ Tile tile(int b) const {
+    return Tile{s1 + (long long)b * N * lanes,
+                horizontal ? s2 + ((long long)b * len2 + pad) * lanes
+                           : s2 + (long long)b * N * len2,
+                allowed != nullptr
+                    ? allowed + (long long)b * (lanes / seg_w) * D
+                    : nullptr,
+                lanes, len2, D, dmin, sec_len, horizontal, seg_w, mask,
+                invalid};
+  }
+};
+
+// one direction's launch
+struct Pass {
+  const float* p2;          // (B, N, lanes)
+  const float* accum;       // (B, N, D, lanes) or null
+  float* S;                 // (B, N, D, lanes)
+  int* votes;               // (B, n_dirs, N, lanes) or null
+  int N, D, lanes, seg_w, lat, dir, n_dirs, last;
+  float p1, sub;
+  int reverse;
 };
 
 // One step's loads.  kMode bit 0: the launch reads S (a later direction);
 // bit 1: it reads accum (the last direction of a pass with accum).
-template <int kMode>
+template <class Src, int kN, int kMode>
 struct Slot {
-  uint8_t cv[kK2];
-  float sp[(kMode & 1) ? kK2 : 1];
-  float ac[(kMode & 2) ? kK2 : 1];
+  typename Src::template Raw<kN> raw;
+  float sp[(kMode & 1) ? kN : 1];
+  float ac[(kMode & 2) ? kN : 1];
   float p2v;
 };
 
-// kFull: D is a multiple of kK2, so every group is full.  Offsets inside
-// one tile are 32-bit (k2_launch_dirs checks that they fit).
-template <int kP, int kMode, bool kFull>
-__global__ void __launch_bounds__(kK2Threads, 1)
-k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
-               const float* __restrict__ accum, float* S,
-               int* __restrict__ votes, int N, int D, int lanes, int lat,
-               int dir, int n_dirs, int last, float p1, float sub,
-               int reverse) {
+// The chain loop: kN candidates a thread, a step's loads issued kP (1 or
+// 0) steps ahead; kFull: D is a multiple of kN.
+template <class Src, int kN, int kP, int kMode, bool kFull>
+__device__ __forceinline__ void scan_chains(const Src& src, const Pass& a) {
   // per buffer (2): a chain's T groups side by side, padded to Tp, a
   // multiple of 4, so that a thread reads them as float4s
-  __shared__ __align__(16) float s_best[2 * kK2Shared];
-  __shared__ __align__(16) int s_arg[2 * kK2Shared];
-  __shared__ float s_lo[2 * kK2Shared];
-  __shared__ float s_hi[2 * kK2Shared];
+  __shared__ __align__(16) float s_best[2 * kShared];
+  __shared__ __align__(16) int s_arg[2 * kShared];
+  __shared__ float s_lo[2 * kShared];
+  __shared__ float s_hi[2 * kShared];
   constexpr int R = kP + 1;                  // ring slots
+  const int N = a.N, D = a.D, lanes = a.lanes, seg_w = a.seg_w,
+            lat = a.lat;
   const int C = blockDim.x, T = blockDim.y;
   const int Tp = (T + 3) & ~3;
   const float inf = __int_as_float(0x7f800000);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int me = tx * Tp + ty;               // this thread's slot
   for (int g = T + ty; g < Tp; g += T)       // the padding never wins
-    s_best[tx * Tp + g] = s_best[kK2Shared + tx * Tp + g] = inf;
+    s_best[tx * Tp + g] = s_best[kShared + tx * Tp + g] = inf;
   const int b = blockIdx.y;
   const int q = blockIdx.x * C + tx;
-  const int k0 = ty * kK2;
-  const int cnt = kFull ? kK2 : (D - k0 < kK2 ? D - k0 : kK2);
-  // chain q is at lane (q + lat * s) mod lanes at step s: every lane on
-  // one chain at every step; a step whose predecessor x - lat leaves the
-  // image is dead, so where the chain wraps it starts afresh
+  const int k0 = ty * kN;
+  const int cnt = kFull ? kN : (D - k0 < kN ? D - k0 : kN);
+  // chain q is at lane (q + lat * s) mod lanes at step s
   const bool valid = q < lanes;
   const int adv = ((lat % lanes) + lanes) % lanes;
   auto next = [&](int x) {
     return x + adv >= lanes ? x + adv - lanes : x + adv;
   };
   int xf = q;                                // lane of the next fetch
-  const int n0 = reverse ? N - 1 : 0, dn = reverse ? -1 : 1;
+  const int n0 = a.reverse ? N - 1 : 0, dn = a.reverse ? -1 : 1;
+  const typename Src::Tile t = src.tile(b);
   // the tile's bases; offsets from them are ints
-  const uint8_t* const cb = src.cost + b * src.sb;
-  const int csn = (int)src.sn, csl = (int)src.sl, csk = (int)src.sk;
   const long long tile = (long long)b * N * D * lanes;
-  float* const Sb = S + tile;
-  const float* const ab = accum + (accum != nullptr ? tile : 0);
-  const float* const pb = p2 + (long long)b * N * lanes;
-  int* const vb = votes + (votes != nullptr
-                           ? ((long long)b * n_dirs + dir) * N * lanes : 0);
-  const float sub_l = last ? sub : 0.f;
-  const float inv = src.invalid;
-  Slot<kMode> ring[R];
-  float Lp[kK2];
+  float* const Sb = a.S + tile;
+  const float* const ab = a.accum + (a.accum != nullptr ? tile : 0);
+  const float* const pb = a.p2 + (long long)b * N * lanes;
+  int* const vb = a.votes + (a.votes != nullptr
+                             ? ((long long)b * a.n_dirs + a.dir) * N * lanes
+                             : 0);
+  const float sub_l = a.last ? a.sub : 0.f;
+  const float p1 = a.p1;
+  Slot<Src, kN, kMode> ring[R];
+  float Lp[kN];
 #pragma unroll
-  for (int j = 0; j < kK2; ++j) Lp[j] = j < cnt ? 0.f : inf;
+  for (int j = 0; j < kN; ++j) Lp[j] = j < cnt ? 0.f : inf;
 
   // issue step s's loads into sl; nothing waits for them until step s
-  auto fetch = [&](Slot<kMode>& sl, int s) {
+  auto fetch = [&](Slot<Src, kN, kMode>& sl, int s) {
     const int x = xf;
     xf = next(xf);
     if (!valid) return;
     const int n = n0 + dn * s;
-    const uint8_t* const cp = cb + (n * csn + x * csl + k0 * csk);
     const int o = (n * D + k0) * lanes + x;
     sl.p2v = __ldg(pb + n * lanes + x);
+    t.template load<kN, kFull>(sl.raw, n, x, k0, cnt);
 #pragma unroll
-    for (int j = 0; j < kK2; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const bool in = kFull || j < cnt;
-      sl.cv[j] = in ? __ldg(cp + j * csk) : 0;
       if constexpr ((kMode & 1) != 0) sl.sp[j] = in ? Sb[o + j * lanes] : 0.f;
       if constexpr ((kMode & 2) != 0)
         sl.ac[j] = in ? __ldg(ab + o + j * lanes) : 0.f;
@@ -221,11 +318,11 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
     arg = 0;
     for (int g = 0; g < Tp / 4; ++g) {
       const float4 v = vb4[g];
-      const int4 a = ab4[g];
-      if (v.x < best) best = v.x, arg = a.x;
-      if (v.y < best) best = v.y, arg = a.y;
-      if (v.z < best) best = v.z, arg = a.z;
-      if (v.w < best) best = v.w, arg = a.w;
+      const int4 w = ab4[g];
+      if (v.x < best) best = v.x, arg = w.x;
+      if (v.y < best) best = v.y, arg = w.y;
+      if (v.z < best) best = v.z, arg = w.z;
+      if (v.w < best) best = v.w, arg = w.w;
     }
     return best;
   };
@@ -241,11 +338,11 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
   auto vote = [&](int s, int x, int arg) {
     vb[(n0 + dn * s) * lanes + x] = arg;
   };
-  const bool voter = valid && ty == 0 && votes != nullptr;
+  const bool voter = valid && ty == 0 && a.votes != nullptr;
   int x = q, xprev = q;                      // lanes of this and the last step
 
-  auto step = [&](const Slot<kMode>& sl, int s) {
-    const int cur = (s & 1) * kK2Shared, prv = cur ^ kK2Shared;
+  auto step = [&](const Slot<Src, kN, kMode>& sl, int s) {
+    const int cur = (s & 1) * kShared, prv = cur ^ kShared;
     // step s - 1's minimum is this step's m and step s - 1's vote: one
     // reduction, before this step's barrier
     float m = 0.f;
@@ -257,7 +354,11 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
       m = minimum(prv);
     }
     if (valid) {
-      const bool dead = s == 0 || (lat > 0 ? x < lat : x >= lanes + lat);
+      bool dead = s == 0;
+      if (lat != 0) {                        // x's place in its segment
+        const int xl = seg_w < lanes ? x % seg_w : x;
+        dead = dead || (lat > 0 ? xl < lat : xl >= seg_w + lat);
+      }
       float lo = inf, hi = inf;
       if (!dead) {
         if (ty > 0) lo = s_hi[prv + me - 1];
@@ -271,15 +372,13 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
       // last group only) costs inf, so its carry stays inf, which is the
       // last real candidate's right neighbour hi = inf; it is not stored
 #pragma unroll
-      for (int j = 0; j < kK2; ++j) {
-        // the uint8 cost as f32: 2^23 + v - 2^23 is exact
-        const float cv = __int_as_float(0x4B000000 | sl.cv[j]) - 8388608.f;
+      for (int j = 0; j < kN; ++j) {
         const float c = !kFull && j >= cnt ? inf
-                        : sl.cv[j] == 255 ? inv : cv;
+                        : t.template cost<kN>(sl.raw, j);
         const float here = Lp[j];
-        const float after = j + 1 < kK2 ? Lp[j + 1] : hi;
-        const float t = fminf(fminf(here, fminf(before, after) + p1), mp2);
-        const float L = c + (dead ? 0.f : t - m);
+        const float after = j + 1 < kN ? Lp[j + 1] : hi;
+        const float u = fminf(fminf(here, fminf(before, after) + p1), mp2);
+        const float L = c + (dead ? 0.f : u - m);
         before = here;
         Lp[j] = L;
         if (j == 0 || L < best) {
@@ -297,7 +396,7 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
       s_lo[cur + me] = Lp[0];
       float last_l = Lp[0];
 #pragma unroll
-      for (int j = 1; j < kK2; ++j)
+      for (int j = 1; j < kN; ++j)
         if (kFull || j < cnt) last_l = Lp[j];
       s_hi[cur + me] = last_l;
     }
@@ -319,282 +418,71 @@ k2_scan_kernel(CostU8 src, const float* __restrict__ p2,
       }
     }
   }
-  if (voter) {                                 // the last step's vote
+  if (voter) {                               // the last step's vote
     int arg;
-    reduce(((N - 1) & 1) * kK2Shared, arg);
+    reduce(((N - 1) & 1) * kShared, arg);
     vote(N - 1, xprev, arg);
   }
 }
 
-// chains per block of the default plan (the Python wrapper's scan_plan)
-inline int k2_chains(int D) {
-  const int T = (D + kK2 - 1) / kK2;
-  const int C = kK2Threads / T;
-  return C < 32 ? C : 32;
+template <class Src, int kMode, bool kFull>
+__global__ void __launch_bounds__(kThreads, 1)
+scan_kernel(Src src, Pass a) {
+  scan_chains<Src, kK, 1, kMode, kFull>(src, a);
 }
 
-template <int kP, bool kFull>
-void k2_launch(int mode, dim3 grid, dim3 block, cudaStream_t stream,
-               const CostU8& src, const float* p2, const float* accum,
-               float* S, int* votes, int N, int D, int lanes, int lat,
-               int dir, int n_dirs, int last, float p1, float sub,
-               int reverse) {
-#define S2P_K2_ARGS                                                      \
-  src, p2, accum, S, votes, N, D, lanes, lat, dir, n_dirs, last, p1, sub, \
-      reverse
+template <class Src, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+scan_wide_kernel(Src src, Pass a) {
+  scan_chains<Src, kWideK, 0, kMode, false>(src, a);
+}
+
+template <class Src, bool kWide, bool kFull, int kMode>
+void launch_mode(dim3 grid, dim3 block, cudaStream_t stream, const Src& src,
+                 const Pass& a) {
+  if constexpr (kWide)
+    scan_wide_kernel<Src, kMode><<<grid, block, 0, stream>>>(src, a);
+  else
+    scan_kernel<Src, kMode, kFull><<<grid, block, 0, stream>>>(src, a);
+}
+
+template <class Src, bool kWide, bool kFull>
+void launch(int mode, dim3 grid, dim3 block, cudaStream_t stream,
+            const Src& src, const Pass& a) {
   switch (mode) {
-    case 0: k2_scan_kernel<kP, 0, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
-    case 1: k2_scan_kernel<kP, 1, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
-    case 2: k2_scan_kernel<kP, 2, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
-    // S and accum: two more arrays a slot, so depth 1 keeps it in registers
-    default: k2_scan_kernel<1, 3, kFull><<<grid, block, 0, stream>>>(S2P_K2_ARGS); break;
+    case 0: launch_mode<Src, kWide, kFull, 0>(grid, block, stream, src, a); break;
+    case 1: launch_mode<Src, kWide, kFull, 1>(grid, block, stream, src, a); break;
+    case 2: launch_mode<Src, kWide, kFull, 2>(grid, block, stream, src, a); break;
+    default: launch_mode<Src, kWide, kFull, 3>(grid, block, stream, src, a); break;
   }
-#undef S2P_K2_ARGS
 }
 
 // One launch per direction, in order, on one stream.
-int k2_launch_dirs(const CostU8& src, const float* p2, const float* accum,
-                   float* S, int* votes, int B, int N, int D, int lanes,
-                   int n_dirs, const int* lats, float p1, float sub,
-                   int reverse, int chains, int depth, cudaStream_t stream) {
-  if (n_dirs < 1 || n_dirs > 3 || D > kK2MaxD) return (int)cudaErrorInvalidValue;
+template <class Src>
+int launch_dirs(const Src& src, const float* p2, const float* accum,
+                float* S, int* votes, int B, int N, int D, int lanes,
+                int seg_w, int n_dirs, const int* lats, float p1, float sub,
+                int reverse, cudaStream_t stream) {
+  if (n_dirs < 1 || n_dirs > 3 || D > kWideMaxD || seg_w <= 0 ||
+      (lanes > 0 && lanes % seg_w != 0))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || N <= 0 || D <= 0 || lanes <= 0) return (int)cudaGetLastError();
-  const int T = (D + kK2 - 1) / kK2;
-  if (chains < 1 || chains * T > kK2Threads ||
-      chains * ((T + 3) & ~3) > kK2Shared || depth < 1 || depth > 2)
+  if (!src.fits(N, D, lanes) || (long long)N * D * lanes >= kInt)
     return (int)cudaErrorInvalidValue;
-  // 32-bit offsets inside one tile
-  const long long span = (N - 1) * src.sn + (lanes - 1) * src.sl
-                         + (D - 1) * src.sk;
-  if (src.sn < 0 || src.sl < 0 || src.sk < 0 || span >= (1LL << 31) ||
-      (long long)N * D * lanes >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const bool full = D % kK2 == 0;
+  const bool wide = D > kMaxD;
+  const int kn = wide ? kWideK : kK;
+  const int T = (D + kn - 1) / kn;
+  const int C = kThreads / T < 32 ? kThreads / T : 32;
+  const dim3 grid((lanes + C - 1) / C, B);   // one chain a lane
+  const dim3 block(C, T);
   for (int d = 0; d < n_dirs; ++d) {
-    const int lat = lats[d];
-    const dim3 grid((lanes + chains - 1) / chains, B);  // one chain a lane
-    const dim3 block(chains, T);
     const int last = d == n_dirs - 1;
+    const Pass a{p2, accum, S, votes, N, D, lanes, seg_w, lats[d], d,
+                 n_dirs, last, p1, sub, reverse};
     const int mode = (d > 0 ? 1 : 0) | (last && accum != nullptr ? 2 : 0);
-#define S2P_K2_LAUNCH(P, F)                                              \
-  k2_launch<P, F>(mode, grid, block, stream, src, p2, accum, S, votes, N, D, \
-                  lanes, lat, d, n_dirs, last, p1, sub, reverse)
-    if (depth == 1 && full) S2P_K2_LAUNCH(1, true);
-    else if (depth == 1) S2P_K2_LAUNCH(1, false);
-    else if (full) S2P_K2_LAUNCH(2, true);
-    else S2P_K2_LAUNCH(2, false);
-#undef S2P_K2_LAUNCH
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
-}
-
-// ------------------------------------------------------------------ //
-// K4a: signature mode
-// ------------------------------------------------------------------ //
-
-constexpr int kMaxThreads = 512;  // chains x candidate groups per block
-constexpr int kMaxChains = 32;
-constexpr int kValidBit = 24;
-constexpr int kPadBit = 25;
-
-// K4a's cost source.  row(b, n, x, k0) does the per-(step, lane) address
-// work once; Row::raw(j) computes candidate k0 + j's cost.
-
-// signature mode: the census cost built from the packed signatures
-struct CostSig {
-  const uint32_t* s1;       // (B, N, lanes)
-  const uint32_t* s2;       // vertical (B, N, W2); horizontal (B, N2, lanes)
-  const int32_t* allowed;   // (B, lanes / seg_w, D) or null
-  int N, lanes, len2, D, dmin, pad, sec_len, horizontal, seg_w;
-  uint32_t mask;
-  float invalid;
-  struct Row {
-    using Raw = float;
-    const uint32_t* p;      // s2 at candidate position ix = 0
-    const int32_t* al;      // allowed from k0, or null
-    long long step;         // s2 elements between positions ix and ix + 1
-    uint32_t a, mask;
-    int ix0, sec_len;       // position of candidate k0; the range
-    int state;              // 0: compute, 1: reference padding, 2: invalid
-    float invalid;
-    __device__ __forceinline__ Raw raw(int j) const {
-      if (state == 1) return 0.f;
-      const int ix = ix0 + j;
-      bool ok = state == 0 && ix >= 0 && ix < sec_len;
-      if (ok && al != nullptr) ok = al[j] == 1;
-      if (!ok) return invalid;
-      const uint32_t s = p[ix * step];
-      if (!((s >> kValidBit) & 1u)) return invalid;
-      return (float)__popc((a ^ s) & mask);
-    }
-    __device__ __forceinline__ float value(Raw v) const { return v; }
-  };
-  __device__ __forceinline__ Row row(int b, int n, int x, int k0) const {
-    const uint32_t a = s1[((long long)b * N + n) * lanes + x];
-    const int state = ((a >> kPadBit) & 1u) ? 1 : (((a >> kValidBit) & 1u) ? 0 : 2);
-    const uint32_t* p =
-        horizontal ? s2 + ((long long)b * len2 + pad) * lanes + x
-                   : s2 + ((long long)b * N + n) * len2;
-    const int32_t* al =
-        allowed == nullptr
-            ? nullptr
-            : allowed + ((long long)b * (lanes / seg_w) + x / seg_w) * D + k0;
-    return Row{p, al,
-               horizontal ? (long long)lanes : 1LL, a, mask,
-               (horizontal ? n : x) + dmin + k0, sec_len, state, invalid};
-  }
-};
-
-// kC: chains per block, compile-time where it is 32 (0: blockDim.x).
-template <int kK, int kC, class Cost>
-__global__ void __launch_bounds__(kMaxThreads)
-scan_dir_kernel(Cost src, const float* __restrict__ p2,
-                const float* __restrict__ accum, float* S,
-                int* __restrict__ votes, int N, int D, int lanes,
-                int seg_w, int n_chains, int lat, int dir, int n_dirs,
-                int first, int last, float p1, float sub, int reverse) {
-  // per buffer (2) and thread (T x C <= kMaxThreads): the partial minimum,
-  // its argmin, the first and the last carry of the thread's group
-  __shared__ float s_best[2 * kMaxThreads];
-  __shared__ int s_arg[2 * kMaxThreads];
-  __shared__ float s_lo[2 * kMaxThreads];
-  __shared__ float s_hi[2 * kMaxThreads];
-  const int C = kC > 0 ? kC : blockDim.x, T = blockDim.y;
-  const float inf = __int_as_float(0x7f800000);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * C + tx;
-  const int k0 = ty * kK;
-  const int cnt = D - k0 < kK ? D - k0 : kK;          // >= 1 by launch
-  const int x0 = lat > 0 ? q - lat * (N - 1) : q;     // lane at step 0
-  float Lp[kK];
-#pragma unroll
-  for (int j = 0; j < kK; ++j) Lp[j] = 0.f;
-  bool started = false;
-  for (int s = 0; s < N; ++s) {
-    const int x = x0 + lat * s;
-    const bool valid = q < n_chains && x >= 0 && x < lanes;
-    const int cur = (s & 1) * kMaxThreads, prv = ((s & 1) ^ 1) * kMaxThreads;
-    if (valid) {
-      bool dead = !started;
-      if (seg_w < lanes && lat != 0) {
-        const int xl = x % seg_w;
-        dead = dead || (lat > 0 ? xl < lat : xl >= seg_w + lat);
-      }
-      const int n = reverse ? N - 1 - s : s;
-      float m = 0.f, lo = inf, hi = inf;
-      if (!dead) {
-        m = s_best[prv + tx];
-        for (int g = 1; g < T; ++g) m = fminf(m, s_best[prv + g * C + tx]);
-        if (ty > 0) lo = s_hi[prv + (ty - 1) * C + tx];
-        if (ty + 1 < T) hi = s_lo[prv + (ty + 1) * C + tx];
-      }
-      const float p2v = p2[((long long)b * N + n) * lanes + x];
-      const long long o = (((long long)b * N + n) * D + k0) * lanes + x;
-      const typename Cost::Row row = src.row(b, n, x, k0);
-      typename Cost::Row::Raw cv[kK];
-      float sp[kK], ac[kK];
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        cv[j] = 0;
-        sp[j] = 0.f;
-        ac[j] = 0.f;
-        if (j < cnt) {
-          cv[j] = row.raw(j);
-          if (!first) sp[j] = S[o + (long long)j * lanes];
-          if (last && accum != nullptr) ac[j] = accum[o + (long long)j * lanes];
-        }
-      }
-      float best = 0.f, before = lo;          // before: old Lp[k - 1]
-      int arg = k0;
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        if (j < cnt) {
-          const float c = row.value(cv[j]);
-          const float here = Lp[j];
-          float contrib = 0.f;
-          if (!dead) {
-            const float after = j + 1 < cnt ? Lp[j + 1] : hi;
-            const float t = fminf(fminf(here, fminf(before, after) + p1),
-                                  m + p2v);
-            contrib = t - m;
-          }
-          before = here;
-          const float L = c + contrib;
-          Lp[j] = L;
-          if (j == 0 || L < best) {
-            best = L;
-            arg = k0 + j;
-          }
-          float ssum = first ? L : sp[j] + L;
-          if (last) {
-            if (sub != 0.f) ssum = ssum - sub * c;
-            if (accum != nullptr) ssum = ssum + ac[j];
-          }
-          S[o + (long long)j * lanes] = ssum;
-        }
-      }
-      s_best[cur + ty * C + tx] = best;
-      s_arg[cur + ty * C + tx] = arg;
-      s_lo[cur + ty * C + tx] = Lp[0];
-      float last_l = Lp[0];
-#pragma unroll
-      for (int j = 1; j < kK; ++j)
-        if (j < cnt) last_l = Lp[j];
-      s_hi[cur + ty * C + tx] = last_l;
-      started = true;
-    }
-    __syncthreads();
-    if (valid && ty == 0 && votes != nullptr) {
-      float best = s_best[cur + tx];
-      int arg = s_arg[cur + tx];
-      for (int g = 1; g < T; ++g) {
-        if (s_best[cur + g * C + tx] < best) {
-          best = s_best[cur + g * C + tx];
-          arg = s_arg[cur + g * C + tx];
-        }
-      }
-      const int n = reverse ? N - 1 - s : s;
-      votes[(((long long)b * n_dirs + dir) * N + n) * lanes + x] = arg;
-    }
-  }
-}
-
-// One launch per direction, in order, on one stream.
-template <class Cost>
-int launch_dirs(const Cost& src, const void* p2, const void* accum, void* S,
-                void* votes, int B, int N, int D, int lanes, int seg_w,
-                int n_dirs, const int* lats, float p1, float sub, int reverse,
-                cudaStream_t stream) {
-  if (n_dirs < 1 || n_dirs > 3) return (int)cudaErrorInvalidValue;
-  if (seg_w <= 0 || (lanes > 0 && lanes % seg_w != 0))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || N <= 0 || D <= 0 || lanes <= 0) return (int)cudaGetLastError();
-  const int kk = D <= 16 * 16 ? 16 : 32;
-  const int T = (D + kk - 1) / kk;
-  if (T > kMaxThreads) return (int)cudaErrorInvalidValue;
-  int C = kMaxChains;
-  while (C > 1 && C * T > kMaxThreads) C /= 2;
-  for (int d = 0; d < n_dirs; ++d) {
-    const int lat = lats[d];
-    const int n_chains = lanes + (lat < 0 ? -lat : lat) * (N - 1);
-    const dim3 grid((n_chains + C - 1) / C, B);
-    const dim3 block(C, T);
-#define S2P_SCAN_ARGS                                                       \
-  src, (const float*)p2, (const float*)accum, (float*)S, (int*)votes, N, D, \
-      lanes, seg_w, n_chains, lat, d, n_dirs, d == 0, d == n_dirs - 1, p1,  \
-      sub, reverse
-    if (C != kMaxChains)
-      scan_dir_kernel<32, 0, Cost><<<grid, block, 0, stream>>>(S2P_SCAN_ARGS);
-    else if (kk == 16)
-      scan_dir_kernel<16, kMaxChains, Cost><<<grid, block, 0, stream>>>(
-          S2P_SCAN_ARGS);
-    else
-      scan_dir_kernel<32, kMaxChains, Cost><<<grid, block, 0, stream>>>(
-          S2P_SCAN_ARGS);
-#undef S2P_SCAN_ARGS
+    if (wide) launch<Src, true, false>(mode, grid, block, stream, src, a);
+    else if (D % kK == 0) launch<Src, false, true>(mode, grid, block, stream, src, a);
+    else launch<Src, false, false>(mode, grid, block, stream, src, a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -603,37 +491,19 @@ int launch_dirs(const Cost& src, const void* p2, const void* accum, void* S,
 
 }  // namespace
 
-// Cost mode (K2): the uint8 pre-pass volume, with a launch plan: chains
-// per block (chains * ceil(D / 8) <= 512) and the prefetch depth (1 or 2;
-// 1 for a launch that reads both S and accum).
-extern "C" int s2p_scan_plan(const void* cost, long long cs_b, long long cs_n,
-                             long long cs_k, long long cs_l, const void* p2,
-                             const void* accum, void* S, void* votes, int B,
-                             int N, int D, int lanes, int n_dirs, int lat0,
-                             int lat1, int lat2, float p1, float invalid_cost,
-                             float sub, int reverse, int chains, int depth,
-                             void* stream) {
-  const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
-                   invalid_cost};
-  const int lats[3] = {lat0, lat1, lat2};
-  return k2_launch_dirs(src, (const float*)p2, (const float*)accum,
-                        (float*)S, (int*)votes, B, N, D, lanes, n_dirs, lats,
-                        p1, sub, reverse, chains, depth,
-                        (cudaStream_t)stream);
-}
-
-// Cost mode with the default plan (k2_chains, kK2Depth).
+// Cost mode (K2): the uint8 pre-pass volume through its strides.
 extern "C" int s2p_scan(const void* cost, long long cs_b, long long cs_n,
                         long long cs_k, long long cs_l, const void* p2,
                         const void* accum, void* S, void* votes, int B, int N,
                         int D, int lanes, int n_dirs, int lat0, int lat1,
                         int lat2, float p1, float invalid_cost, float sub,
                         int reverse, void* stream) {
-  return s2p_scan_plan(cost, cs_b, cs_n, cs_k, cs_l, p2, accum, S, votes, B,
-                       N, D, lanes, n_dirs, lat0, lat1, lat2, p1,
-                       invalid_cost, sub, reverse,
-                       D > 0 && D <= kK2MaxD ? k2_chains(D) : 1, kK2Depth,
-                       stream);
+  const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
+                   invalid_cost};
+  const int lats[3] = {lat0, lat1, lat2};
+  return launch_dirs(src, (const float*)p2, (const float*)accum, (float*)S,
+                     (int*)votes, B, N, D, lanes, lanes, n_dirs, lats, p1,
+                     sub, reverse, (cudaStream_t)stream);
 }
 
 // Signature mode (K4a): the census cost built in the kernel.  ``len2`` is
@@ -651,8 +521,9 @@ extern "C" int s2p_scan_sig(const void* s1, const void* s2,
                     (const int32_t*)allowed, N, lanes, len2, D, disp_min,
                     pad, sec_len, horizontal, seg_w, mask, invalid_cost};
   const int lats[3] = {lat0, lat1, lat2};
-  return launch_dirs(src, p2, accum, S, votes, B, N, D, lanes, seg_w, n_dirs,
-                     lats, p1, sub, reverse, (cudaStream_t)stream);
+  return launch_dirs(src, (const float*)p2, (const float*)accum, (float*)S,
+                     (int*)votes, B, N, D, lanes, seg_w, n_dirs, lats, p1,
+                     sub, reverse, (cudaStream_t)stream);
 }
 
 extern "C" const char* s2p_scan_error(int code) {

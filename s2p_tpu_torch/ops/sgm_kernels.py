@@ -6,7 +6,7 @@ Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
     (``csrc/cost_prepass.cu``; TPU kernel ``_cost_prepass_kernel``);
   * :func:`scan` -- K2, one SGM scan pass over that volume, all
     same-orientation directions at once (``csrc/scan.cu``; TPU kernel
-    ``_scan_kernel`` in cost mode), launched by :func:`scan_plan`;
+    ``_scan_kernel`` in cost mode);
   * :func:`scan_sig` -- one SGM scan pass with the census cost built in
     the kernel from bit-packed signatures: K4a with one lateral per
     direction (``csrc/scan.cu``), also over tiles side by side on the
@@ -90,8 +90,6 @@ _ARGTYPES = {
     's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [_U, _P],
     's2p_scan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
-    's2p_scan_plan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
-                     + [_I] * 8 + [_F, _F, _F, _I, _I, _I, _P],
     's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 5
                     + [_F, _F, _F, _I, _P],
     's2p_scan_mgm': [_P] * 9 + [_I] * 9 + [_U, _I, _IP, _IP]
@@ -315,31 +313,6 @@ def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
                       cost.shape[2])
 
 
-_K2_GROUP = 8            # candidates per thread (csrc/scan.cu kK2)
-_K2_THREADS = 512        # threads per block at most (kK2Threads)
-K2_MAX_D = _K2_GROUP * _K2_THREADS
-# prefetch depth, 1 or 2, measured on the card (PERF.md); chip_smoke.py
-# sets it to time and check both
-K2_DEPTH = 1
-
-
-def scan_plan(D, N=1, lanes=1, B=1, lats=(0,)):
-    """K2's launch plan for a (B, N, D, lanes) pass: candidates per thread
-    (``group``), candidate groups per chain (``groups``), chains per block
-    (``chains``), threads per block, the prefetch depth (the kernel runs
-    a launch that reads both S and accum at depth 1) and, per direction,
-    the chains (one per lane: chain q is at lane (q + lat * s) mod lanes
-    at step s) and the blocks that cover them."""
-    if not 0 < D <= K2_MAX_D:
-        raise ValueError(f'the scan takes 1 to {K2_MAX_D} candidates, got {D}')
-    groups = -(-D // _K2_GROUP)
-    chains = min(32, _K2_THREADS // groups)
-    n_chains = [lanes for _ in lats]
-    return dict(group=_K2_GROUP, groups=groups, chains=chains,
-                threads=chains * groups, depth=K2_DEPTH, n_chains=n_chains,
-                blocks=[B * -(-n // chains) for n in n_chains])
-
-
 def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
          accum=None, emit_votes=True):
     """One SGM scan pass over a uint8 cost volume.
@@ -365,7 +338,6 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     lats = tuple(int(v) for v in lats)
     if not 1 <= len(lats) <= 3:
         raise ValueError(f'1 to 3 directions per pass, got {lats}')
-    plan = scan_plan(D, N, lanes, B, lats)
     if _route(cost, p2, accum) == 'cpu':
         return scan_plain(cost, p2, lats, p1, invalid_cost, reverse,
                           sub_cost_mult, accum, emit_votes)
@@ -374,12 +346,12 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     votes = (torch.empty((B, len(lats), N, lanes), dtype=torch.int32,
                          device=dev) if emit_votes else None)
     lat3 = lats + (0,) * (3 - len(lats))
-    _launch('scan', 's2p_scan_plan', cost.data_ptr(), *cost.stride(),
+    _launch('scan', 's2p_scan', cost.data_ptr(), *cost.stride(),
             p2.data_ptr(), None if accum is None else accum.data_ptr(),
             S.data_ptr(), None if votes is None else votes.data_ptr(),
             B, N, D, lanes, len(lats), *lat3, float(p1),
             float(invalid_cost), float(sub_cost_mult), int(bool(reverse)),
-            plan['chains'], plan['depth'], kernels=len(lats))
+            kernels=len(lats))
     return S, votes
 
 

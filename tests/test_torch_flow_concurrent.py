@@ -2,7 +2,8 @@
 scans of both sides and both orientations at once on the card) on
 device="cpu", against the pass-by-pass route of one side at a time, the
 JAX package's ``flow_partials_from_sigs`` in interpret mode and the batch
-entry; and K2's launch plan at the shapes ``chip_smoke.py`` runs."""
+entry; and the scan's wrappers past 4096 candidates against the JAX
+package."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -175,41 +176,73 @@ def test_flow_chains_cover_every_pass_once(nb_dir):
     assert sorted(i for c in flat for i in c[1]) == list(range(n_dirs))
 
 
-# (B, N, D, lanes) of every scan chip_smoke.py runs: bucket A vertical and
-# horizontal, bucket B, the wide tile, the 800 x 800 single tile (padded
-# to 800 x 808) and bucket A's lanes folded by 2 (1184 lanes)
-PLAN_SHAPES = [(8, 448, 80, 512), (8, 512, 80, 448), (2, 832, 96, 896),
-               (2, 896, 96, 832), (1, 64, 528, 896), (1, 896, 528, 64),
-               (1, 800, 96, 808), (1, 808, 96, 800), (4, 448, 80, 1184),
-               (2, 7, 17, 61), (2, 1, 1, 61), (1, 2, 257, 61)]
+def _h_pad(dmin, D, G=8):
+    """The horizontal secondary's padding of ``sgm_pallas``."""
+    pad = max(0, -dmin, dmin + D)
+    return pad + (-(dmin + pad)) % G
 
 
-@pytest.mark.parametrize('shape', PLAN_SHAPES)
-def test_scan_plan_covers_every_chain_once(shape):
-    B, N, D, lanes = shape
-    lats = (0, 1, -1)
-    plan = sk.scan_plan(D, N, lanes, B, lats)
-    C, T, g = plan['chains'], plan['groups'], plan['group']
-    assert plan['threads'] == C * T and C * T <= 512
-    assert C >= 1 and T * g >= D > (T - 1) * g
-    assert plan['depth'] == sk.K2_DEPTH in (1, 2)
-    for lat, n_chains, blocks in zip(lats, plan['n_chains'], plan['blocks']):
-        per_tile = blocks // B
-        q = (np.arange(per_tile)[:, None] * C + np.arange(C)).ravel()
-        assert len(np.unique(q)) == q.size
-        assert q.max() + 1 >= n_chains > (per_tile - 1) * C
-        # at every step each lane is on exactly one chain (chain q is at
-        # lane (q + lat * s) mod lanes)
-        assert n_chains == lanes
-        q = q[q < n_chains]
-        for s in sorted({0, 1, N // 2, N - 1}):
-            x = np.sort((q + lat * s) % lanes)
-            assert np.array_equal(x, np.arange(lanes))
+def _sigs(rng, shape):
+    s = rng.randint(0, 1 << 24, size=shape).astype(np.uint32)
+    s |= (rng.rand(*shape) < 0.9).astype(np.uint32) << sp._VALID_BIT
+    s |= (rng.rand(*shape) < 0.1).astype(np.uint32) << sp._PAD_BIT
+    return s
 
 
-def test_scan_plan_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError):
-        sk.scan_plan(sk.K2_MAX_D + 1)
-    cost = torch.zeros((1, 4, sk.K2_MAX_D + 1, 2), dtype=torch.uint8)
-    with pytest.raises(ValueError):
-        sk.scan(cost, torch.zeros((1, 4, 2)), (0,), 8.0, tf.BIG, False)
+def _t(a):
+    """uint32 or other numpy -> torch with a batch axis of 1."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                            else a)[None]
+
+
+# past 4096 candidates the card runs the scan's wide kernel; the wrappers
+# take up to 16384 on both devices.  (orientation, reverse, laterals,
+# overcount multiplier, accum)
+_WIDE_CASES = {
+    'cost_v_sub': ('cost', False, ((0,), (1,), (-1,)), 2.0, False),
+    'cost_h_accum': ('cost', True, ((0,),), 0.0, True),
+    'sig_v_allowed': ('sig_v', True, ((0,), (-1,), (1,)), 2.0, True),
+    'sig_h': ('sig_h', False, ((0,),), 0.0, False),
+}
+
+
+@pytest.mark.parametrize('case', sorted(_WIDE_CASES))
+def test_scan_past_4096_candidates_matches_pallas(case):
+    mode, reverse, dirs, sub, with_accum = _WIDE_CASES[case]
+    rng = np.random.RandomState(len(case))
+    N, W, D, dmin = 8, 5, 4097, -2050
+    p2 = rng.choice([16.0, 32.0], size=(N, W)).astype(np.float32)
+    accum = (rng.randint(0, 3000, size=(N, D, W)).astype(np.float32)
+             if with_accum else None)
+    kw = dict(sub_cost_mult=sub)
+    if mode == 'cost':
+        cost = rng.randint(0, 25, size=(N, D, W)).astype(np.uint8)
+        cost[rng.rand(N, D, W) < 0.2] = 255
+        S_ref, v_ref = sp._scan_pass_pallas(
+            None, None, jnp.asarray(p2), D, 0, list(dirs), 8.0, tf.BIG, 24,
+            reverse, False, interpret=True, emit_votes=True,
+            accum=None if accum is None else jnp.asarray(accum),
+            cost=jnp.asarray(cost), **kw)
+        S, v = sk.scan(_t(cost), _t(p2), [l[0] for l in dirs], 8.0, tf.BIG,
+                       reverse, accum=None if accum is None else _t(accum),
+                       **kw)
+    else:
+        horizontal = mode == 'sig_h'
+        s1 = _sigs(rng, (N, W))
+        pad = _h_pad(dmin, D) if horizontal else 0
+        s2 = np.pad(_sigs(rng, (N, W)), ((pad, pad), (0, 0)))
+        allowed = (rng.rand(D) < 0.8).astype(np.int32)
+        S_ref, v_ref = sp._scan_pass_pallas(
+            jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(p2), D, dmin,
+            list(dirs), 8.0, 24.0, 24, reverse, horizontal, interpret=True,
+            allowed=jnp.asarray(allowed)[:, None],
+            accum=None if accum is None else jnp.asarray(accum), **kw)
+        S, v = sk.scan_sig(
+            _t(s1), _t(s2), _t(p2), dirs, 8.0, 24.0, 24, D, dmin,
+            N if horizontal else W, reverse, horizontal, pad=pad,
+            allowed=_t(allowed), accum=None if accum is None else _t(accum),
+            **kw)
+    _same(S[0].numpy(), S_ref)
+    _same(v[0].numpy(), v_ref)
+    assert (np.asarray(S_ref) < 24.0 * len(dirs)).any()

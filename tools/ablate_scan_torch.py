@@ -38,8 +38,8 @@ sys.path.insert(0, ROOT)
 from s2p_tpu_torch.ops import _build, sgm_kernels as sk  # noqa: E402
 
 LOADS = (('sl.p2v = __ldg(pb + n * lanes + x);', 'sl.p2v = 32.f;'),
-         ('sl.cv[j] = in ? __ldg(cp + j * csk) : 0;',
-          'sl.cv[j] = (uint8_t)((k0 + j + n) & 15);'),
+         ('r.v[j] = kFull || j < cnt ? __ldg(p + j * sk) : 0;',
+          'r.v[j] = (uint8_t)((k0 + j + n) & 15);'),
          ('sl.sp[j] = in ? Sb[o + j * lanes] : 0.f;', 'sl.sp[j] = 0.f;'),
          ('sl.ac[j] = in ? __ldg(ab + o + j * lanes) : 0.f;',
           'sl.ac[j] = 0.f;'))

@@ -13,9 +13,11 @@ the host time of each step of stereo_matching_all (TIFF reads, the
 enqueue of the batched matcher, rejection mask, erosion, file writes,
 and the rest: padding, transfers and waits on the device), the device
 time of each kernel, the device's busy time (the union of its kernels'
-intervals: the flow's scans overlap on side streams) and its idle share,
-and ends with the same numbers as one JSON line.  It imports nothing of
-JAX.
+intervals: the flow's scans overlap on side streams), its idle share and
+the device memory the profiled run peaked at (``max_memory_allocated``),
+and ends with the same numbers as one JSON line.  Copied into another
+checkout's ``tools/``, it measures that checkout's package.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ def main(bucket_name='A'):
         pipeline.stereo_matching_all(cfg, tiles)          # build, warm up
         torch.cuda.synchronize()
         host.clear()
+        torch.cuda.reset_peak_memory_stats()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -84,6 +87,7 @@ def main(bucket_name='A'):
             pipeline.stereo_matching_all(cfg, tiles)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -105,7 +109,8 @@ def main(bucket_name='A'):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     print(f'bucket {bucket_name}: {len(specs)} tiles, wall {wall:.4f} s, '
           f'device busy {busy_ms:.3f} ms (kernel times summed '
-          f'{summed_ms:.3f} ms), idle share {1 - busy_ms / 1e3 / wall:.4f}')
+          f'{summed_ms:.3f} ms), idle share {1 - busy_ms / 1e3 / wall:.4f}, '
+          f'peak device memory {peak_mb:.1f} MiB')
     host['other (padding, transfers, device wait)'] = wall - sum(host.values())
     for label, s in sorted(host.items(), key=lambda kv: -kv[1]):
         print(f'  host {label:40s} {s:.4f} s')
@@ -115,7 +120,7 @@ def main(bucket_name='A'):
         'bucket': bucket_name, 'tiles': len(specs), 'card': card,
         'wall_s': wall, 'device_busy_ms': busy_ms,
         'device_summed_ms': summed_ms,
-        'idle_share': 1 - busy_ms / 1e3 / wall,
+        'idle_share': 1 - busy_ms / 1e3 / wall, 'peak_mib': peak_mb,
         'host_s': dict(host), 'device_ms_top': dict(top)}))
     return 0
 
