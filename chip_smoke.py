@@ -10,7 +10,9 @@ the JAX package.  Phases, each timed on a line of its own:
   2. build: the CUDA kernels, one nvcc per source in parallel, into
      s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
      lines, and a check that every instantiation of the scan kernel up to
-     4096 candidates (K2 and K4a) has a 0-byte stack frame and no spill;
+     4096 candidates (K2 and K4a), of the pre-pass (K1) and of the
+     averaged-MGM scan (K4b, both instantiations) has a 0-byte stack
+     frame and no spill;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -19,17 +21,25 @@ the JAX package.  Phases, each timed on a line of its own:
      CUDA events; then the scan per bucket as the flow launches it, both
      sides' four chains of passes at once on side streams, bitwise
      against the passes one by one and timed beside the same passes on
-     one stream; then the scan (K2 and K4a) and K3 against their plain
-     versions at small adversarial shapes and values (tied candidates,
-     columns of 255, D 1 to 4097, ragged lane counts, N 1 and 2, laterals
-     -1/0/+1 with sub and accum; signatures with padding, allowed
-     candidates and lane-fold segments; NaN, inf and all-BIG partials),
-     one line per case;
+     one stream; then every kernel against its plain version at
+     adversarial shapes and values, one line per case: the scan (K2 and
+     K4a: tied candidates, columns of 255, D 1 to 4097, ragged lane
+     counts, N 1 and 2, laterals -1/0/+1 with sub and accum; signatures
+     with padding, allowed candidates and lane-fold segments), K1 (61 and
+     100 lanes, D 1, 17 and 4097, N 1 and 2, signed bases, all-pad and
+     all-invalid rows, `allowed` zeros, windows that reach the
+     secondary's last row, bucket A's and the single tile's shapes), K4b
+     on both instantiations (lanes the 16-block cluster does not divide,
+     1 to 3 directions of 2 and 3 laterals, D 1, N 1, sub and accum,
+     832 and 512 lanes) and a shape that only the global instantiation
+     takes, K3 and K5 on NaN, inf and all-BIG partials;
   4. kernels of the classic SGM matcher against their plain versions, on
      the 512 x 512 pair with 64 candidates from -8 (bench.py): the four
      signature-mode scan passes (K4a), one vertical pass with 3 MGM
-     laterals and one horizontal pass with 2 (K4b), the WTA with the
-     right-reference map (K5);
+     laterals and one horizontal pass with 2 (K4b) and K4b's step floor
+     (one cluster barrier per step, no work), the WTA with the
+     right-reference map (K5); and K4b's two passes at the classic
+     tile's shape (832 x 832, 96 candidates);
   5. stage 4: synthetic rectified tiles in two buckets (A: 8 tiles padded
      to 448 x 512 with 80 candidates; B: 2 tiles at the default tile size,
      padded to 832 x 896 with 96 candidates) through
@@ -73,7 +83,7 @@ the JAX package.  Phases, each timed on a line of its own:
      plain version's time and the least time the card could take (bytes
      over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100 SXM data
      sheet); the scan's entries also carry ``bucket_ms``, both sides of
-     the bucket as the flow launches them;
+     the bucket as the flow launches them, and K4b's ``step_floor_ms``;
  13. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -93,6 +103,7 @@ import time
 from contextlib import contextmanager
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+SPIN_CYCLES = 2_000_000         # a device-side spin ahead of a timed run
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
 BUCKET_A = dict(n=8, h=448, w=512, D=80)
@@ -191,13 +202,18 @@ def equal(a, b):
 
 
 def timed(fn, reps):
-    """Median ms of ``reps`` runs between CUDA events, after one warm run."""
+    """Median ms of ``reps`` runs between CUDA events, after one warm run.
+    A device-side spin of about a millisecond goes ahead of each first
+    event, so the host enqueues the run while the card is busy and the
+    events time the card's work, not the wrappers' host time (which is
+    longer than a kernel of 0.1 ms)."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         t0.record()
         fn()
         t1.record()
@@ -446,15 +462,17 @@ def check_bucket_scans(vols, seq, st):
 
 
 def check_adversarial():
-    """The scan (K2 and K4a) and K3 against their plain versions at small
-    shapes that stress their designs, each case on a line of its own:
-    tied candidates, columns of 255, D from 1 to 4097 (one group, a ragged
-    group, past 256, the wide tile's and past 4096, scan_wide_kernel),
-    lanes that no chain count divides, N 1 and 2, laterals -1/0/+1 in one
-    pass with sub and accum; signatures with reference padding, invalid
-    pixels, allowed candidates and lane-fold segments, vertical and
-    horizontal; K3 on NaN, inf and all-BIG partials, D 1 and 2, either
-    part transposed."""
+    """Every kernel against its plain version at shapes and values that
+    stress its design, each case on a line of its own.  The scan (K2 and
+    K4a): tied candidates, columns of 255, D from 1 to 4097 (one group, a
+    ragged group, past 256, the wide tile's and past 4096,
+    scan_wide_kernel), lanes that no chain count divides, N 1 and 2,
+    laterals -1/0/+1 in one pass with sub and accum; signatures with
+    reference padding, invalid pixels, allowed candidates and lane-fold
+    segments, vertical and horizontal.  K1, K4b (both instantiations) and
+    K5 at their own edges (check_adversarial_prepass, _mgm, _wta_dr).  K3
+    on NaN, inf and all-BIG partials, D 1 and 2, either part
+    transposed."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
@@ -503,6 +521,9 @@ def check_adversarial():
         sk.scan(cost, p2, (0, 1, -1), 8.0, mf.BIG, False),
         sk.scan_plain(cost, p2, (0, 1, -1), 8.0, mf.BIG, False)))
     check_adversarial_sig(g, verdict)
+    check_adversarial_prepass(g, verdict)
+    check_adversarial_mgm(g, verdict)
+    check_adversarial_wta_dr(g, verdict)
 
     for D in (1, 2, 17, 80):
         B, H, W = 2, 37, 45
@@ -540,6 +561,164 @@ def check_adversarial():
     torch.cuda.empty_cache()
 
 
+def adversarial_sigs(g, shape, p_pad=0.0):
+    """Random census signatures: 90% valid, ``p_pad`` reference padding."""
+    import torch
+    dev = g.device
+    v = torch.randint(0, 1 << 24, shape, device=dev, generator=g)
+    v |= (torch.rand(shape, device=dev, generator=g) >= 0.1).long() << 24
+    v |= (torch.rand(shape, device=dev, generator=g) < p_pad).long() << 25
+    return v.to(torch.int32)
+
+
+def check_adversarial_prepass(g, verdict):
+    """K1 against its plain version: lane counts that no 4-byte word
+    divides (the scalar instantiation) and that a 16-lane vector does not,
+    D 1, 17 and 4097, N 1 and 2, signed bases with a padded secondary,
+    reference padding, all-pad and all-invalid rows, `allowed` with
+    zeros, and windows that reach the secondary's last row."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = g.device
+    # (B, N, lanes, D, base: 'wide' (0, N + D secondary rows: the last
+    # window ends at the last row) or a signed disp_min, kind)
+    cases = [(2, 48, 61, 17, 'wide', ''), (2, 1, 64, 1, 'wide', ''),
+             (1, 2, 61, 4097, -2000, 'allowed'),
+             (2, 2, 40, 17, -5, 'pad'),
+             (2, 33, 808, 96, -40, 'allowed zeros pad'),
+             (2, 24, 100, 17, 3, ''), (1, 16, 36, 4097, 'wide', ''),
+             (2, 40, 61, 80, 'wide', 'all-pad rows'),
+             (2, 40, 64, 80, 'wide', 'all-invalid rows'),
+             (1, 1, 61, 1, -3, 'allowed'), (8, 512, 448, 80, 'wide', 'pad'),
+             (1, 800, 800, 96, -40, 'allowed pad')]
+    for B, N, L, D, base, kind in cases:
+        s1 = adversarial_sigs(g, (B, N, L), 0.2 if 'pad' in kind else 0.0)
+        if kind == 'all-pad rows':
+            s1[:, :7] |= 1 << 25
+        elif kind == 'all-invalid rows':
+            s1[:, :7] &= ~(1 << 24)
+        if base == 'wide':
+            dmin, pad, sec = 0, 0, N + D
+            s2 = adversarial_sigs(g, (B, N + D, L))
+        else:
+            dmin = base
+            s2, pad, sec = sk.prepass_secondary(
+                adversarial_sigs(g, (B, L, N)), N, dmin, D)
+        allowed = None
+        if 'allowed' in kind:
+            allowed = (torch.rand((B, D), device=dev, generator=g)
+                       < 0.7).to(torch.int32)
+            if 'zeros' in kind:
+                allowed[0] = 0
+        args = (s1, s2, D, dmin, 24, pad, sec, allowed)
+        verdict(f'cost_prepass B {B} N {N} lanes {L} D {D} base {base} '
+                f'{kind}', [(sk.cost_prepass(*args),
+                             sk.cost_prepass_plain(*args))])
+
+
+def check_adversarial_mgm(g, verdict):
+    """K4b against its plain version on both instantiations (the
+    shared one, forced global): lanes that the cluster's 16 blocks do not
+    divide, 1 to 3 directions of 2 and 3 laterals, D 1, N 1, sub and accum
+    together, `allowed`, vertical and horizontal, bucket B's widths (832
+    lanes, 96 candidates) and the classic pair's (512, 64); then a shape
+    whose carry fits only the global instantiation, chosen by shape."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = g.device
+    v3 = ((0, 1, -1), (1, 0, -1), (-1, 0, 1))
+    # (B, N, lanes, D, dirs, horizontal, disp_min, sub, accum, allowed)
+    cases = [(2, 9, 61, 17, ((0, 1), (1, 0), (-1, 0)), False, -5, 2.0, True,
+              True),
+             (1, 5, 30, 1, ((0, -1, 1),), False, 0, 0.0, False, False),
+             (2, 7, 61, 17, ((0, 1),), True, 3, 1.0, True, False),
+             (1, 8, 100, 64, ((0, -1), (-1, 0)), False, -8, 0.0, False,
+              False),
+             (1, 5, 20, 17, ((0, 1, -1), (1, 0, -1)), False, 2, 3.0, True,
+              True),
+             (1, 1, 61, 17, v3, False, -4, 2.0, True, False),
+             (1, 6, 832, 96, v3, False, -30, 0.0, False, False),
+             (1, 6, 832, 96, ((0, 1),), True, -30, 0.0, False, False),
+             (1, 4, 512, 64, v3, False, -8, 0.0, False, False),
+             (1, 4, 512, 64, ((0, 1, -1),), True, -8, 0.0, False, False)]
+    for B, N, lanes, D, dirs, hor, dmin, sub, acc, al in cases:
+        s1 = adversarial_sigs(g, (B, N, lanes), 0.05)
+        pad = 0
+        if hor:
+            pad = max(0, -dmin, dmin + D)
+            pad += (-(dmin + pad)) % 8
+            s2, sec = adversarial_sigs(g, (B, N + 2 * pad, lanes)), N
+        else:
+            s2, sec = adversarial_sigs(g, (B, N, lanes + 5)), lanes + 5
+        p2 = torch.rand((B, N, lanes), device=dev, generator=g) * 40
+        kw = dict(pad=pad, sub_cost_mult=sub,
+                  allowed=(torch.rand((B, D), device=dev, generator=g)
+                           < 0.8).to(torch.int32) if al else None,
+                  accum=torch.rand((B, N, D, lanes), device=dev,
+                                   generator=g) * 100 if acc else None)
+        args = (s1, s2, p2, dirs, 8.0, 24.0, 24, D, dmin, sec, False, hor)
+        ref = sk.scan_sig_plain(*args, **kw)
+        for variant in ('shared', 'global'):
+            verdict(f'scan_mgm {variant} B {B} N {N} lanes {lanes} D {D} '
+                    f'dirs {dirs} horizontal {hor} disp_min {dmin} sub {sub} '
+                    f'accum {acc} allowed {al}',
+                    zip(sk.scan_sig(*args, mgm_variant=variant, **kw), ref))
+    # n_dirs x D x lanes too large for a block's shared memory
+    s1 = adversarial_sigs(g, (1, 3, 832))
+    s2 = adversarial_sigs(g, (1, 3, 832))
+    p2 = torch.full((1, 3, 832), 32.0, device=dev)
+    args = (s1, s2, p2, v3, 8.0, 24.0, 24, 600, -30, 832, True, False)
+    variant = sk.scan_mgm_variant(600, 832, False)
+    verdict(f'scan_mgm by shape ({variant}) N 3 lanes 832 D 600 dirs {v3}',
+            zip(sk.scan_sig(*args), sk.scan_sig_plain(*args)))
+    if variant != 'global':
+        raise AssertionError('a 3 x 600 x 832 carry chose the shared '
+                             'instantiation')
+
+
+def check_adversarial_wta_dr(g, verdict):
+    """K5 against its plain version on NaN, inf and all-BIG partials
+    (the reference's NaN rule): D 1, 2, 17 and 64, one part or two, the
+    horizontal part read strided in its (W, D, H) layout."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    dev = g.device
+    for D in (1, 2, 17, 64):
+        B, H, W = 2, 19, 45
+        sv = torch.randint(0, 30, (B, H, D, W), device=dev,
+                           generator=g).float()
+        sh = torch.randint(0, 30, (B, W, D, H), device=dev,
+                           generator=g).float()
+        for kind in ('nan', 'inf', 'all BIG'):
+            a, c = sv.clone(), sh.clone()
+            if kind == 'nan':
+                a[torch.rand(a.shape, device=dev, generator=g) < 0.03] = \
+                    float('nan')
+                c[:, 4] = float('nan')
+            elif kind == 'inf':
+                a[torch.rand(a.shape, device=dev, generator=g) < 0.1] = \
+                    float('inf')
+                c[torch.rand(c.shape, device=dev, generator=g) < 0.05] = \
+                    float('-inf')
+            else:
+                a[:, :3] = mf.BIG
+                c[:] = mf.BIG
+            ct = c.permute(0, 3, 2, 1)
+            for parts in ([a, ct], [ct, a], [a], [ct]):
+                for subpix in ('vfit', 'parabola', 'none'):
+                    for dmin in (-3, 5):
+                        order = ' + '.join('S_v' if t is a else 'S_h'
+                                           for t in parts)
+                        verdict(f'wta_dr D {D} {kind} {order} {subpix} '
+                                f'disp_min {dmin}',
+                                zip(sk.wta_dr(parts, dmin, subpix),
+                                    sk.wta_dr_plain(parts, dmin, subpix)))
+
+
 def check_adversarial_sig(g, verdict):
     """The scan in signature mode (K4a) against its plain version:
     reference padding, invalid pixels, allowed candidates, lane-fold
@@ -548,13 +727,6 @@ def check_adversarial_sig(g, verdict):
     from s2p_tpu_torch.ops import sgm_kernels as sk
 
     dev = g.device
-
-    def sigs(shape, p_pad=0.0):
-        v = torch.randint(0, 1 << 24, shape, device=dev, generator=g)
-        v |= (torch.rand(shape, device=dev, generator=g) >= 0.1).long() << 24
-        v |= (torch.rand(shape, device=dev, generator=g) < p_pad).long() << 25
-        return v.to(torch.int32)
-
     # (D, N, lanes, horizontal, disp_min, segment width, kind)
     cases = [(1, 2, 61, False, 0, None, 'pad'),
              (17, 1, 61, False, -5, None, 'allowed'),
@@ -566,14 +738,14 @@ def check_adversarial_sig(g, verdict):
              (4097, 2, 7, False, -2000, None, 'allowed')]
     for D, N, lanes, hor, dmin, seg_w, kind in cases:
         B = 2
-        s1 = sigs((B, N, lanes), 0.1 if kind == 'pad' else 0.0)
+        s1 = adversarial_sigs(g, (B, N, lanes), 0.1 if kind == 'pad' else 0.0)
         pad = 0
         if hor:
             pad = max(0, -dmin, dmin + D)
             pad += (-(dmin + pad)) % 8
-            s2, sec_len = sigs((B, N + 2 * pad, lanes)), N
+            s2, sec_len = adversarial_sigs(g, (B, N + 2 * pad, lanes)), N
         else:
-            s2, sec_len = sigs((B, N, lanes + 5)), lanes + 5
+            s2, sec_len = adversarial_sigs(g, (B, N, lanes + 5)), lanes + 5
         p2 = torch.rand((B, N, lanes), device=dev, generator=g) * 40
         allowed = None
         if kind == 'allowed':
@@ -703,6 +875,12 @@ def check_sgm_kernels(stats):
                 SgmParams(mgm=True, mgm_neighbors=nb)):
             if key == want:
                 run_pass('scan_mgm', key, dirs)
+    # K4b's step floor: one cluster barrier per step of the two passes
+    floor = sum(timed(lambda: sk.cluster_sync_loop(1, n), 5)
+                for n in (H, W))
+    stats['scan_mgm']['step_floor_ms'] = floor
+    print(f'  scan_mgm step floor ({H} + {W} cluster barriers, no work): '
+          f'{floor:.4f} ms', flush=True)
 
     parts = [S['v'], S['h'].permute(0, 3, 2, 1)]
     got = sk.wta_dr(parts, dmin, 'vfit')
@@ -714,6 +892,49 @@ def check_sgm_kernels(stats):
            timed(lambda: sk.wta_dr_plain(parts, dmin, 'vfit'), 2),
            8 * vol + 12 * H * W, 4 * vol)
     del S, parts
+    torch.cuda.empty_cache()
+
+
+def check_mgm_tile():
+    """K4b at the classic tile's shape (832 x 832, 96 candidates from
+    -30): the 3-lateral vertical pass and the 2-lateral horizontal pass of
+    ``aggregate(mgm=True)`` against the plain version, bitwise, timed."""
+    import torch
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    from s2p_tpu_torch.ops.census import census_transform
+    from s2p_tpu_torch.ops.sgm import SgmParams
+
+    dev = torch.device('cuda')
+    spec = dict(SGM_TILE, h=832, w=832)
+    im1, im2 = sgm_pair(spec)
+    dmin = spec['dmin']
+    D = spec['dmax'] - dmin + 1
+    H, W = im1.shape
+    sig = [sk._pack(*census_transform(torch.as_tensor(im, device=dev), 5))
+           [None] for im in (im1, im2)]
+    p2 = torch.full((1, H, W), 32.0, dtype=torch.float32, device=dev)
+    ins = {'v': (sig[0], sig[1], p2),
+           'h': tuple(t.transpose(1, 2).contiguous()
+                      for t in (sig[0], sig[1], p2))}
+    for nb, want in ((3, 'vf'), (2, 'hf')):
+        for key, _, dirs in sk.sgm_scan_passes(
+                SgmParams(mgm=True, mgm_neighbors=nb)):
+            if key != want:
+                continue
+            o = key[0]
+            args = (*ins[o], dirs, 8.0, 24.0, 24, D, dmin, W, False, o == 'h')
+            got = sk.scan_sig(*args)
+            ref = sk.scan_sig_plain(*args)
+            ok = all(equal(a, b)[0] for a, b in zip(got, ref))
+            print(f'  scan_mgm tile {H} x {W} D {D} {key} '
+                  f'({sk.scan_mgm_variant(D, W, o == "h")}): '
+                  f'bitwise={ok}, kernel '
+                  f'{timed(lambda: sk.scan_sig(*args), 3):.3f} ms',
+                  flush=True)
+            if not ok:
+                raise AssertionError(f'scan_mgm tile {key} differs from its '
+                                     'plain version')
+            del got, ref
     torch.cuda.empty_cache()
 
 
@@ -1081,6 +1302,9 @@ def main():
                         or 'Function properties' in line):
                     print(f'  {name}: {line.strip()}')
         check_no_spill(_build.build_log('scan'), 'scan_kernel')
+        check_no_spill(_build.build_log('cost_prepass'),
+                       'cost_prepass_kernel')
+        check_no_spill(_build.build_log('scan_mgm'), 'scan_mgm_kernel')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -1095,11 +1319,12 @@ def main():
         check_kernels(specs_b, pairs, stats, BUCKET_B, tag='_b')
     with phase('flow kernels against their plain versions (D 528)'):
         check_kernels([WIDE], pairs, stats, BUCKET_WIDE, tag='_d528')
-    with phase('K2 and K3 against their plain versions: adversarial '
+    with phase('K1 to K5 against their plain versions: adversarial '
                'shapes and values'):
         check_adversarial()
     with phase('classic matcher kernels against their plain versions'):
         check_sgm_kernels(stats)
+        check_mgm_tile()
     with phase('single-tile and lane-fold kernel modes against their '
                'plain versions'):
         check_signed_prepass(pairs, stats)
@@ -1220,8 +1445,8 @@ def main():
                         'max_abs_err': st['err'], 'ms': st['ms'],
                         'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
                         'bound_by': by, 'library_ms': None,
-                        **({'bucket_ms': st['bucket_ms']}
-                           if 'bucket_ms' in st else {})})
+                        **{k: st[k] for k in ('bucket_ms', 'step_floor_ms')
+                           if k in st}})
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

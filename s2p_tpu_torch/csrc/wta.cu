@@ -33,10 +33,12 @@
 // whose S_R is all inf gives kR = 0 and offR = 0.  The TPU kernel builds
 // S_R with a log-step lane roll; here each thread reads it directly.
 //
-// K3 follows the reference's NaN rules: a NaN anywhere in S[.] makes mn
-// NaN and no index equal to it, so d = D and off = NaN; the fit's maximum
-// and clip return NaN for a NaN operand (reachable only from non-finite
-// partials, where mn is -inf).
+// K3 and K5 follow the reference's NaN rules: a NaN anywhere in S[.]
+// (or, for dR, anywhere in S_R[.]) makes mn NaN and no index equal to
+// it, so d = D, which is never interior: K3's offset is NaN (mn is not
+// below big_guard), K5's offset 0; the fit's maximum and clip return NaN
+// for a NaN operand (reachable only from non-finite partials, where mn
+// is -inf).
 //
 // The division is IEEE (no fast math).  Each part is a strided view, so
 // the horizontal partial is read in its own (W, D, H) layout without a
@@ -92,8 +94,8 @@ __device__ __forceinline__ float min_(float a, float b) {
   return fminf(a, b);
 }
 
-// kNan: K3 propagates NaN as the reference does (only reachable from
-// non-finite partials); K5 keeps fmaxf / fminf.
+// kNan: propagate NaN as the reference does (only reachable from
+// non-finite partials); without it, fmaxf / fminf.
 template <bool kNan>
 __device__ __forceinline__ float subpix_offset(float c0, float c1, float c2,
                                               int subpix, int plateau_zero) {
@@ -251,33 +253,45 @@ __global__ void wta_dr_kernel(Part a, Part c, int n_parts,
     // left reference
     float mn = sum_at(a, c, n_parts, b, y, 0, x);
     int d = 0;
+    bool nan = isnan(mn);
     for (int k = 1; k < D; ++k) {
       const float v = sum_at(a, c, n_parts, b, y, k, x);
+      nan = nan || isnan(v);
       if (v < mn) {
         mn = v;
         d = k;
       }
+    }
+    if (nan) {
+      mn = __int_as_float(0x7fc00000);
+      d = D;
     }
     float c0 = d > 0 ? sum_at(a, c, n_parts, b, y, d - 1, x) : inf;
     float c2 = d < D - 1 ? sum_at(a, c, n_parts, b, y, d + 1, x) : inf;
     float guard = mn + 1e6f;
     if (!isfinite(c0)) c0 = guard;
     if (!isfinite(c2)) c2 = guard;
-    float o = subpix_offset<false>(c0, mn, c2, subpix, 0);
+    float o = subpix_offset<true>(c0, mn, c2, subpix, 0);
     if (!(d > 0 && d < D - 1)) o = 0.f;
     disp[i] = ((float)disp_min + (float)d) + o;
     dint[i] = d;
     // right reference: S_R[k] = S[k, x - dmin - k], inf outside [0, W)
     float mnr = inf;
     int kr = 0;                          // every S_R[k] inf: k = 0
+    nan = false;
     for (int k = 0; k < D; ++k) {
       const int xs = x - disp_min - k;
       const float v =
           xs >= 0 && xs < W ? sum_at(a, c, n_parts, b, y, k, xs) : inf;
+      nan = nan || isnan(v);
       if (k == 0 || v < mnr) {
         mnr = v;
         kr = k;
       }
+    }
+    if (nan) {
+      mnr = __int_as_float(0x7fc00000);
+      kr = D;
     }
     int xs = x - disp_min - (kr - 1);
     c0 = kr > 0 && xs >= 0 && xs < W
@@ -288,7 +302,7 @@ __global__ void wta_dr_kernel(Part a, Part c, int n_parts,
     guard = mnr + 1e6f;
     if (!isfinite(c0)) c0 = guard;
     if (!isfinite(c2)) c2 = guard;
-    o = subpix_offset<false>(c0, mnr, c2, subpix, 0);
+    o = subpix_offset<true>(c0, mnr, c2, subpix, 0);
     if (!(kr > 0 && kr < D - 1)) o = 0.f;
     dr[i] = -(((float)disp_min + (float)kr) + o);
   }

@@ -66,7 +66,12 @@ _PASS_OF_DIR = {
 _SUBPIX = {'vfit': 1, 'parabola': 2}
 
 _launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0, 'wta_edge': 0,
-             'scan_sig': 0, 'scan_sig_seg': 0, 'scan_mgm': 0, 'wta_dr': 0}
+             'scan_sig': 0, 'scan_sig_seg': 0, 'scan_mgm': 0,
+             'scan_mgm_global': 0, 'wta_dr': 0}
+
+# K4b: the shared memory a block may take on the H100 (227 KB); a pass
+# whose carry needs more runs the global instantiation
+_MAX_SHARED = 232448
 
 
 def launch_counts():
@@ -92,8 +97,9 @@ _ARGTYPES = {
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
     's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 5
                     + [_F, _F, _F, _I, _P],
-    's2p_scan_mgm': [_P] * 9 + [_I] * 9 + [_U, _I, _IP, _IP]
+    's2p_scan_mgm': [_P] * 10 + [_I] * 9 + [_U, _I, _IP, _IP]
                     + [_F, _F, _F, _I, _P],
+    's2p_cluster_sync_loop': [_I, _I, _P],
     's2p_wta': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P, _P]
                + [_I] * 7 + [_F, _P],
     's2p_wta_dr': [_P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _LL, _I, _P,
@@ -409,9 +415,35 @@ def scan_sig_plain(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
                       emit_votes, D, seg_w)
 
 
+def scan_mgm_variant(D, lanes, horizontal):
+    """K4b's instantiation for a pass on the card: 'shared' where a
+    direction's carry fits a block's shared memory (a cluster of 16
+    blocks, ``ceil(lanes / 16)`` lanes each), else 'global'."""
+    lib = _build.load('scan_mgm')
+    fn = lib.s2p_scan_mgm_shared_bytes
+    fn.argtypes, fn.restype = [_I] * 3, ctypes.c_longlong
+    need = fn(D, lanes, int(bool(horizontal)))
+    return 'shared' if need <= _MAX_SHARED else 'global'
+
+
+def _mgm_part_volumes(n_dirs, sub_cost_mult):
+    """The (B, N, D, lanes) scratch volumes K4b takes for a pass."""
+    fn = _build.load('scan_mgm').s2p_scan_mgm_part_volumes
+    fn.argtypes, fn.restype = [_I, _F], ctypes.c_int
+    return fn(n_dirs, float(sub_cost_mult))
+
+
+def cluster_sync_loop(B, steps):
+    """``steps`` cluster barriers in B clusters of K4b's launch shape and
+    no other work, on the current stream: K4b's step floor."""
+    _launch('scan_mgm', 's2p_cluster_sync_loop', int(B), int(steps),
+            key='scan_mgm', kernels=0)
+
+
 def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
              sec_len, reverse, horizontal, pad=0, sub_cost_mult=0.0,
-             allowed=None, accum=None, emit_votes=True, seg_w=None):
+             allowed=None, accum=None, emit_votes=True, seg_w=None,
+             mgm_variant=None):
     """One SGM scan pass with the census cost built from signatures.
 
     Args:
@@ -424,7 +456,7 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
         p2: (B, N, lanes) float32 per-pixel P2.
         dirs: per direction (1 to 3 of them) its lateral carry offsets:
             one each runs K4a (``csrc/scan.cu``), several (averaged, MGM)
-            K4b (``csrc/scan_mgm.cu``).
+            K4b (``csrc/scan_mgm.cu``), whose offsets must be -1, 0 or +1.
         sec_len: candidate positions ``[0, sec_len)`` are in range.
         allowed: optional (B, D) int32, 1 where candidate k is searched;
             (B, lanes // seg_w, D) with ``seg_w``, one row per segment.
@@ -432,6 +464,9 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
         seg_w: the lanes are segments of this width (tiles side by side,
             the lane-fold mode): a lateral carry never crosses a segment
             edge.  One lateral per direction (K4a) only.
+        mgm_variant: K4b's instantiation on the card, None to choose by
+            shape (:func:`scan_mgm_variant`); 'shared' or 'global' forces
+            one (a 'shared' that does not fit raises).
     Returns:
         (S (B, N, D, lanes) float32, votes (B, len(dirs), N, lanes) int32
         or None)."""
@@ -458,6 +493,11 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
     dirs = tuple(tuple(int(v) for v in lats) for lats in dirs)
     if not 1 <= len(dirs) <= 3 or not all(1 <= len(l) <= 3 for l in dirs):
         raise ValueError(f'1 to 3 directions of 1 to 3 laterals, got {dirs}')
+    mgm = any(len(l) > 1 for l in dirs)
+    if mgm and any(v not in (-1, 0, 1) for l in dirs for v in l):
+        raise ValueError(f'MGM laterals must be -1, 0 or +1, got {dirs}')
+    if mgm_variant not in (None, 'shared', 'global'):
+        raise ValueError(f'mgm_variant {mgm_variant!r}')
     if seg_w is not None:
         if not 0 < seg_w <= lanes or lanes % seg_w:
             raise ValueError(f'seg_w {seg_w} must divide the {lanes} lanes')
@@ -491,22 +531,36 @@ def scan_sig(s1, s2, p2, dirs, p1, invalid_cost, nbits, D, disp_min,
             int(pad), int(sec_len), (1 << nbits) - 1, len(dirs))
     tail = (float(p1), float(invalid_cost), float(sub_cost_mult),
             int(bool(reverse)))
-    if all(len(lats) == 1 for lats in dirs):
+    if not mgm:
         lat3 = tuple(l[0] for l in dirs) + (0,) * (3 - len(dirs))
         _launch('scan', 's2p_scan_sig', *ptrs, *geom, *lat3,
                 seg_w or lanes, *tail,
                 key='scan_sig' if seg_w is None else 'scan_sig_seg',
                 kernels=len(dirs))
     else:
-        carry = torch.empty((B, 2, D, lanes), dtype=torch.float32,
-                            device=dev)
-        mins = torch.empty((B, 2, lanes), dtype=torch.float32, device=dev)
+        # one launch of a cluster per direction and tile, and one of the
+        # directions' sum where there are several (their L and the cost
+        # in ``part``); the global instantiation's carry and minima live
+        # in scratch, the shared one's in the clusters
+        nd = len(dirs)
+        variant = mgm_variant or scan_mgm_variant(D, lanes, horizontal)
+        carry = mins = None
+        if variant == 'global':
+            carry = torch.empty((B, nd, 2, D + 2, lanes), dtype=torch.float32,
+                                device=dev)
+            mins = torch.empty((B, nd, 2, lanes), dtype=torch.float32,
+                               device=dev)
+        n_part = _mgm_part_volumes(nd, sub_cost_mult)
+        part = (torch.empty((n_part, B, N, D, lanes), dtype=torch.float32,
+                            device=dev) if n_part else None)
         n_lats = (ctypes.c_int * 3)(*[len(l) for l in dirs])
         lats = (ctypes.c_int * 9)(*[v for l in dirs
                                     for v in l + (0,) * (3 - len(l))])
-        _launch('scan_mgm', 's2p_scan_mgm', *ptrs, carry.data_ptr(),
-                mins.data_ptr(), *geom, n_lats, lats, *tail,
-                kernels=len(dirs))
+        _launch('scan_mgm', 's2p_scan_mgm', *ptrs,
+                *(None if t is None else t.data_ptr()
+                  for t in (carry, mins, part)), *geom, n_lats, lats, *tail,
+                key='scan_mgm' if variant == 'shared' else 'scan_mgm_global',
+                kernels=1 if nd == 1 else 2)
     return S, votes
 
 

@@ -37,21 +37,46 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))[None]
 
 
+# (N, lanes, D, base: 'wide' (0, the rebased secondary, the last window
+# ends at its last row) or the signed disp_min of a padded secondary)
+_PREPASS_SHAPES = {
+    'wide_lanes61_d17': (48, 61, 17, 'wide'),
+    'wide_lanes36_d1': (16, 36, 1, 'wide'),
+    'narrow_neg_d1': (24, 40, 1, -3),
+    'narrow_neg_lanes61_d17_allowed_pad': (32, 61, 17, -9),
+    'narrow_neg_allowed_zeros_pad': (48, 40, 16, -5),
+}
+
+
 @pytest.mark.parametrize('case', ['wide_allowed_pad', 'wide', 'narrow_neg',
-                                  'narrow_pos_allowed'])
+                                  'narrow_pos_allowed'] + list(_PREPASS_SHAPES))
 def test_cost_prepass_matches_pallas(case):
+    """K1's plain version, also at the new kernel's edges: lane counts
+    that no 4- or 16-lane vector divides, D 1 and 17, a signed base with
+    reference padding and candidates that ``allowed`` leaves out (every
+    one, in some tiles' rows), and a window that reaches the secondary's
+    last row."""
     rng = np.random.RandomState(hash(case) % 2 ** 31)
-    N, L, D = 48, 40, 16
+    N, L, D, base = _PREPASS_SHAPES.get(case, (48, 40, 16, None))
+    if base is None:
+        base = 'wide' if case.startswith('wide') else (
+            -5 if case == 'narrow_neg' else 3)
     nbits = 24
     s1t = _sigs(rng, (N, L), p_pad=0.2 if 'pad' in case else 0.0)
+    if 'pad' in case and case in _PREPASS_SHAPES:
+        s1t[:8] |= np.uint32(1 << sp._PAD_BIT)          # all-pad rows
+        s1t[8:11] &= ~np.uint32(1 << sp._VALID_BIT)     # all-invalid rows
     allowed = None
     if 'allowed' in case:
         allowed = (np.arange(D) < 11).astype(np.int32)
-    if case.startswith('wide'):
+        if 'zeros' in case:
+            allowed = np.zeros(D, np.int32)
+            allowed[[1, 4, 5, 9]] = 1
+    if base == 'wide':
         dmin, pad, sec_len = 0, 0, N + D
         s2tp = _sigs(rng, (N + D, L))
     else:
-        dmin = -5 if case == 'narrow_neg' else 3
+        dmin = base
         G = 8
         pad = max(0, -dmin, dmin + D)
         pad += (-(dmin + pad)) % G
@@ -66,6 +91,8 @@ def test_cost_prepass_matches_pallas(case):
         allowed=None if allowed is None else torch.from_numpy(allowed)[None])
     _same(out[0].numpy(), ref)
     assert (np.asarray(ref) == 255).any() and (np.asarray(ref) < 255).any()
+    if 'pad' in case and case in _PREPASS_SHAPES:
+        assert (np.asarray(ref)[:8] == 0).all()
 
 
 # (pass, lateral offsets, reverse, overcount multiplier, accum, votes)
@@ -239,12 +266,19 @@ def test_scan_sig_matches_pallas(case):
 
 
 # (horizontal, reverse, laterals of each direction): the MGM passes of
-# sgm_pallas.aggregate with mgm_neighbors 2 and 3
+# sgm_pallas.aggregate with mgm_neighbors 2 and 3, and the new kernel's
+# edges (lanes that the cluster's 16 blocks do not divide, 1 to 3
+# directions, D 1, sub and accum together)
 _MGM_CASES = {
     'v_2lat': (False, False, ((0, 1), (1, 0), (-1, 0))),
     'v_3lat_rev': (False, True, ((0, -1, 1), (-1, 0, 1), (1, 0, -1))),
     'h_2lat_rev': (True, True, ((0, -1),)),
     'h_3lat': (True, False, ((0, 1, -1),)),
+    'v_1dir_3lat_d1_lanes30': (False, False, ((0, 1, -1),)),
+    'v_2dirs_2lat_lanes61_sub_accum': (False, True, ((0, -1), (-1, 0))),
+    'v_3dirs_3lat_lanes61_sub_accum': (False, False,
+                                       ((0, 1, -1), (1, 0, -1), (-1, 0, 1))),
+    'h_2lat_lanes30_sub_accum': (True, False, ((0, 1),)),
 }
 
 
@@ -259,22 +293,37 @@ def test_scan_mgm_matches_pallas(case):
     horizontal, reverse, dirs = _MGM_CASES[case]
     rng = np.random.RandomState(len(case) * 5 + int(reverse))
     N, W, D, dmin = 24, 32, 16, -8
+    if 'lanes30' in case:
+        W = 30
+    elif 'lanes61' in case:
+        W = 61
+    if 'd1' in case:
+        D = 1
     s1, s2j, s2p, pad, sec_len, sec_len_j = _sig_inputs(
         case, N, W, D, False, horizontal, dmin, rng)
     p2 = np.full((N, W), 32.0, np.float32)
+    sub, accum = 0.0, None
+    if 'sub_accum' in case:
+        sub = float(len(dirs) + 1)
+        accum = rng.randint(0, 3000, size=(N, D, W)).astype(np.float32)
     S_ref, v_ref = sp._scan_pass_pallas(
         jnp.asarray(s1), jnp.asarray(s2j), jnp.asarray(p2), D, dmin,
-        list(dirs), 8.0, 24.0, 24, reverse, horizontal, interpret=True)
+        list(dirs), 8.0, 24.0, 24, reverse, horizontal, interpret=True,
+        sub_cost_mult=sub,
+        accum=None if accum is None else jnp.asarray(accum))
     S, v = sk.scan_sig(_t(s1), _t(s2p), torch.from_numpy(p2)[None], dirs,
                        8.0, 24.0, 24, D, dmin, sec_len, reverse, horizontal,
-                       pad=pad)
+                       pad=pad, sub_cost_mult=sub,
+                       accum=None if accum is None
+                       else torch.from_numpy(accum)[None])
     _same(v[0].numpy(), v_ref)
     if len(dirs[0]) == 2:
         _same(S[0].numpy(), S_ref)
     else:
         np.testing.assert_allclose(S[0].numpy(), np.asarray(S_ref),
                                    rtol=1e-6, atol=0)
-    assert not np.array_equal(np.asarray(S_ref), np.round(S_ref))
+    if D > 1:
+        assert not np.array_equal(np.asarray(S_ref), np.round(S_ref))
 
 
 def test_fma32_is_one_rounding():
@@ -313,6 +362,51 @@ def test_wta_dr_matches_pallas(subpix, n_parts, dmin):
         assert (np.asarray(dR_ref)[:, :dmin] == -dmin).all()
     if subpix != 'none':
         assert (np.asarray(disp_ref) % 1 != 0).any()
+
+
+@pytest.mark.parametrize('subpix', ['vfit', 'none'])
+@pytest.mark.parametrize('n_parts', [1, 2])
+@pytest.mark.parametrize('kind', ['nan', 'inf', 'all_big'])
+@pytest.mark.parametrize('D', [1, 2, 17])
+def test_wta_dr_nonfinite_matches_pallas(D, kind, n_parts, subpix):
+    """K5's plain version on non-finite partials, the target that the
+    kernel's NaN rule is held to on the card (chip_smoke.py): a NaN in
+    S[.] (or S_R[.]) gives d = D and offset 0, +-inf minima give NaN
+    fits, all-BIG columns a plateau."""
+    rng = np.random.RandomState(D * 7 + n_parts)
+    H, W, dmin = 8, 24, -3
+    S = (rng.randint(0, 60, size=(H, D, W)) * 10).astype(np.float32)
+    if kind == 'nan':
+        S[rng.rand(H, D, W) < 0.05] = np.nan
+        S[2, :, 5] = np.nan                          # a column of NaN
+    elif kind == 'inf':
+        S[rng.rand(H, D, W) < 0.1] = np.inf
+        S[rng.rand(H, D, W) < 0.05] = -np.inf
+    else:
+        S[:, :, :7] = np.float32(BIG)
+    parts = [S] if n_parts == 1 else [S - 200.0, np.full_like(S, 200.0)]
+    disp_ref, d_ref, dR_ref = sp._wta_pallas(
+        [jnp.asarray(p) for p in parts], dmin, subpix, interpret=True)
+    disp, d, dR = sk.wta_dr([torch.from_numpy(p)[None] for p in parts],
+                            dmin, subpix)
+    _same(disp[0].numpy(), disp_ref)
+    _same(d[0].numpy(), d_ref)
+    _same(dR[0].numpy(), dR_ref)
+    if kind == 'nan':
+        assert (np.asarray(d_ref) == D).any()
+
+
+def test_scan_mgm_rejects_far_laterals():
+    """K4b's laterals are -1, 0 or +1 (a lane needs only its two
+    neighbours); the wrapper refuses any other on every device."""
+    s = torch.zeros((1, 8, 6), dtype=torch.int32)
+    p2 = torch.zeros((1, 8, 6))
+    with pytest.raises(ValueError):
+        sk.scan_sig(s, s, p2, ((0, 2),), 8.0, 24.0, 24, 4, 0, 6, False,
+                    False)
+    with pytest.raises(ValueError):
+        sk.scan_sig(s, s, p2, ((0, 1),), 8.0, 24.0, 24, 4, 0, 6, False,
+                    False, mgm_variant='smem')
 
 
 def test_wta_dr_reads_strided_parts():
