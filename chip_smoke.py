@@ -10,9 +10,10 @@ the JAX package.  Phases, each timed on a line of its own:
   2. build: the CUDA kernels, one nvcc per source in parallel, into
      s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
      lines, and a check that every instantiation of the scan kernel up to
-     4096 candidates (K2 and K4a), of the pre-pass (K1) and of the
-     averaged-MGM scan (K4b, both instantiations) has a 0-byte stack
-     frame and no spill;
+     4096 candidates (K2 and K4a), of the pre-pass (K1), of the
+     averaged-MGM scan (K4b, both instantiations) and of the WTA with the
+     right-reference map (K5, its three instantiations) has a 0-byte
+     stack frame and no spill;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -32,7 +33,9 @@ the JAX package.  Phases, each timed on a line of its own:
      on both instantiations (lanes the 16-block cluster does not divide,
      1 to 3 directions of 2 and 3 laterals, D 1, N 1, sub and accum,
      832 and 512 lanes) and a shape that only the global instantiation
-     takes, K3 and K5 on NaN, inf and all-BIG partials;
+     takes, K3 and K5 on NaN, inf and all-BIG partials, K5 also on each
+     of its instantiations (bands of 4 and 2 rows, the windowed one past
+     1024 columns) with D 1 to 528 and disp_min from -(W + D) to W - 5;
   4. kernels of the classic SGM matcher against their plain versions, on
      the 512 x 512 pair with 64 candidates from -8 (bench.py): the four
      signature-mode scan passes (K4a), one vertical pass with 3 MGM
@@ -47,6 +50,14 @@ the JAX package.  Phases, each timed on a line of its own:
      checked for shape and for the known shift of each tile, and two
      tiles of each bucket are held bitwise against the same entry run
      with device="cpu" (the plain versions);
+  5b. stage 5 on bucket A's 8 tiles after stage 4 wrote them
+     (``pipeline.disparity_to_ply_all`` with the 3D filter on, two
+     synthetic RPC cameras 0.35 px/m apart in altitude): its wall time
+     per bucket, a plausible cloud per tile, the triangulation's CUDA
+     kernels (``torch.profiler``) and time and the neighbour count's time;
+     crops of two tiles (96 x 128) card against device="cpu" (cloud.ply
+     byte for byte, or within 1e-3 m in x, y and 2e-3 m in altitude); a
+     constant disparity against the float64 cameras' altitudes (0.01 m);
   6. the classic matcher on the card: ``ops.sgm.match_pair`` on the
      512 x 512 pair and on an 800 x 800 tile (padded to 832 x 832, 96
      candidates), both with a known shift and NaN borders, once more with
@@ -123,6 +134,17 @@ SINGLE = dict(index=300, h=797, w1=803, w2=803, dmin=-40, dmax=55,
               shift=4.5, seed=300)
 SINGLE_800 = dict(index=301, h=800, w1=800, w2=800, dmin=-40, dmax=55,
                   shift=3.0, seed=301)
+# stage 5 on bucket A: two synthetic cameras 0.35 px/m apart in altitude
+# (a base-to-height ratio near 0.3 at 1 m a pixel), the secondary's
+# homography shifted so that 3 px of disparity is about 300 m; the CPU
+# comparison runs on crops of two tiles (the triangulation launches about
+# 1e5 elementwise ops, too slow on the CPU at full size); tolerances of
+# the card against the CPU (the same torch ops, expected bitwise) and of
+# the known answer against the float64 model
+S5_SHIFT = -67.0
+S5_CROP = (96, 128)
+S5_XY_TOL_M, S5_ALT_TOL_M = 1e-3, 2e-3
+S5_KNOWN_DISP, S5_KNOWN_TOL_M = 3.0, 0.01
 # lane folds: the kernel check's, and the batch entry's (8 tiles: two
 # groups and a 2-tile tail)
 KERNEL_FOLD = 2
@@ -681,42 +703,65 @@ def check_adversarial_mgm(g, verdict):
 def check_adversarial_wta_dr(g, verdict):
     """K5 against its plain version on NaN, inf and all-BIG partials
     (the reference's NaN rule): D 1, 2, 17 and 64, one part or two, the
-    horizontal part read strided in its (W, D, H) layout."""
+    horizontal part read strided in its (W, D, H) layout.  Then each
+    instantiation at its edges: a band of 4 rows (W 45 and 130, H not a
+    multiple of 4), of 2 rows (W 600) and the windowed one (W 1100), D 1
+    to 528, disp_min from -(W + D) to W - 5 (every column of S_R off the
+    image at either end), one line per shape, values and parts with every
+    refinement and disp_min."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
 
     dev = g.device
+
+    def volumes(B, H, D, W, kind):
+        a = torch.randint(0, 30, (B, H, D, W), device=dev,
+                          generator=g).float()
+        c = torch.randint(0, 30, (B, W, D, H), device=dev,
+                          generator=g).float()
+        if kind == 'nan':
+            a[torch.rand(a.shape, device=dev, generator=g) < 0.03] = \
+                float('nan')
+            c[:, 4] = float('nan')
+        elif kind == 'inf':
+            a[torch.rand(a.shape, device=dev, generator=g) < 0.1] = \
+                float('inf')
+            c[torch.rand(c.shape, device=dev, generator=g) < 0.05] = \
+                float('-inf')
+        elif kind == 'all BIG':
+            a[:, :3] = mf.BIG
+            c[:] = mf.BIG
+        return a, c.permute(0, 3, 2, 1)
+
+    def order(parts, a):
+        return ' + '.join('S_v' if t is a else 'S_h' for t in parts)
+
     for D in (1, 2, 17, 64):
-        B, H, W = 2, 19, 45
-        sv = torch.randint(0, 30, (B, H, D, W), device=dev,
-                           generator=g).float()
-        sh = torch.randint(0, 30, (B, W, D, H), device=dev,
-                           generator=g).float()
         for kind in ('nan', 'inf', 'all BIG'):
-            a, c = sv.clone(), sh.clone()
-            if kind == 'nan':
-                a[torch.rand(a.shape, device=dev, generator=g) < 0.03] = \
-                    float('nan')
-                c[:, 4] = float('nan')
-            elif kind == 'inf':
-                a[torch.rand(a.shape, device=dev, generator=g) < 0.1] = \
-                    float('inf')
-                c[torch.rand(c.shape, device=dev, generator=g) < 0.05] = \
-                    float('-inf')
-            else:
-                a[:, :3] = mf.BIG
-                c[:] = mf.BIG
-            ct = c.permute(0, 3, 2, 1)
+            a, ct = volumes(2, 19, D, 45, kind)
             for parts in ([a, ct], [ct, a], [a], [ct]):
                 for subpix in ('vfit', 'parabola', 'none'):
                     for dmin in (-3, 5):
-                        order = ' + '.join('S_v' if t is a else 'S_h'
-                                           for t in parts)
-                        verdict(f'wta_dr D {D} {kind} {order} {subpix} '
-                                f'disp_min {dmin}',
+                        verdict(f'wta_dr D {D} {kind} {order(parts, a)} '
+                                f'{subpix} disp_min {dmin}',
                                 zip(sk.wta_dr(parts, dmin, subpix),
                                     sk.wta_dr_plain(parts, dmin, subpix)))
+    for B, H, W, D in ((2, 18, 130, 17), (1, 9, 600, 64), (1, 5, 600, 1),
+                       (1, 6, 1100, 528), (2, 7, 1100, 2)):
+        for kind in ('random', 'nan', 'inf', 'all BIG'):
+            a, ct = volumes(B, H, D, W, kind)
+            for parts in ([a, ct], [ct, a], [a], [ct]):
+                pairs = []
+                for subpix in ('vfit', 'parabola', 'none'):
+                    for dmin in (-(W + D), -(W // 2), 3, W - 5):
+                        pairs += zip(sk.wta_dr(parts, dmin, subpix),
+                                     sk.wta_dr_plain(parts, dmin, subpix))
+                verdict(f'wta_dr {B} x {H} x {W} D {D} {kind} '
+                        f'{order(parts, a)}, 3 refinements x 4 disp_min',
+                        pairs)
+            del a, ct
+    torch.cuda.empty_cache()
 
 
 def check_adversarial_sig(g, verdict):
@@ -825,6 +870,239 @@ def sgm_pair(spec):
     im1[:4] = np.nan
     im2[:, -6:] = np.nan
     return im1, im2
+
+
+def stage5_camera(seed, h_term):
+    """A synthetic RPC camera near (55.4 E, 21.0 S), about 1 m a pixel,
+    columns moving ``10 * h_term`` px per metre of altitude, small cross
+    terms in every polynomial; every camera shares its rows' polynomials,
+    so two of them see a ground point on the same row."""
+    import numpy as np
+    from s2p_tpu_torch.geo.rpc import RPCModel
+    rng = np.random.RandomState(seed)
+    rows = np.random.RandomState(1000)
+    col_num = rng.uniform(-1e-3, 1e-3, 20)
+    col_num[:4] = (0.01, 1.0, 0.02, h_term)
+    col_den = rng.uniform(-1e-4, 1e-4, 20)
+    col_den[0] = 1.0
+    row_num = rows.uniform(-1e-3, 1e-3, 20)
+    row_num[:4] = (-0.02, 0.015, -1.0, 0.001)
+    row_den = rows.uniform(-1e-4, 1e-4, 20)
+    row_den[0] = 1.0
+    return RPCModel(col_num=col_num, col_den=col_den, row_num=row_num,
+                    row_den=row_den, lon_offset=55.4, lon_scale=0.05,
+                    lat_offset=-21.0, lat_scale=0.05, alt_offset=500.0,
+                    alt_scale=500.0, col_offset=5000.0, col_scale=5000.0,
+                    row_offset=5000.0, row_scale=5000.0)
+
+
+def stage5_config(root):
+    from s2p_tpu_torch.config import Config, ImageSpec
+    return Config(out_dir=root, out_crs='epsg:32740', gsd=1.0,
+                  filtering_3d_r=2.5, filtering_3d_n=8, images=(
+                      ImageSpec(img='ref.tif', rpcm=stage5_camera(1, 0.02)),
+                      ImageSpec(img='sec.tif',
+                                rpcm=stage5_camera(2, -0.015))))
+
+
+def write_stage5_inputs(root, specs):
+    """Stage 5's inputs beside each tile's stage-4 files: the two
+    homographies (translations to the tile's place in the image, the
+    secondary's by S5_SHIFT more), the tile's original mask (with a hole)
+    and the scene's pointing correction (identity).  Returns the tile
+    dicts."""
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff
+    np.savetxt(os.path.join(root, 'global_pointing_pair_1.txt'), np.eye(3))
+    tiles = []
+    for k, s in enumerate(specs):
+        tdir = os.path.join(root, f"tile_{s['index']}")
+        x0, y0 = 3000.0 + 700 * k, 4000.0 + 300 * k
+        for name, dx in (('H_ref.txt', 0.0), ('H_sec.txt', S5_SHIFT)):
+            np.savetxt(os.path.join(tdir, 'pair_1', name),
+                       [[1, 0, -x0 + dx], [0, 1, -y0], [0, 0, 1]])
+        h, w = s['h'] - 2, s['w1'] - 3
+        mask = np.full((h, w), 255, np.uint8)
+        mask[40:60, 100:140] = 0
+        geotiff.write_png(os.path.join(tdir, 'mask.png'), mask)
+        tiles.append({'dir': tdir, 'coordinates': (x0, y0, w, h)})
+    return tiles
+
+
+def crop_tile(tile, root, size):
+    """A copy of one tile's stage-5 inputs under ``root``, its rectified
+    maps cropped at the origin to ``size`` (the homographies still hold)."""
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff
+    h, w = size
+    tdir = os.path.join(root, os.path.basename(tile['dir']))
+    shutil.copytree(tile['dir'], tdir)
+    pdir = os.path.join(tdir, 'pair_1')
+    for name in ('rectified_disp.tif', 'rectified_ref.tif',
+                 'rectified_disp_confidence.tif'):
+        path = os.path.join(pdir, name)
+        geotiff.write(path, np.ascontiguousarray(geotiff.read(path)[:h, :w]),
+                      nodata=float('nan') if 'conf' not in name else None)
+    path = os.path.join(pdir, 'rectified_mask.png')
+    geotiff.write_png(path, np.ascontiguousarray(
+        geotiff.read_png(path)[:h, :w]))
+    return dict(tile, dir=tdir)
+
+
+def model_altitudes(cfg, job, rows, cols):
+    """The float64 model's answer at the given rectified pixels: the
+    two-ray solve (12 secant steps) on the host cameras."""
+    import numpy as np
+    r1, r2 = cfg.images[0].rpcm, cfg.images[1].rpcm
+
+    def apply(H, x, y):
+        m = np.linalg.inv(H)
+        z = m[2, 0] * x + m[2, 1] * y + m[2, 2]
+        return ((m[0, 0] * x + m[0, 1] * y + m[0, 2]) / z,
+                (m[1, 0] * x + m[1, 1] * y + m[1, 2]) / z)
+
+    px, py = apply(job['H1'], cols, rows)
+    qx, qy = apply(job['H2'] @ np.linalg.inv(job['A']),
+                   cols + job['disp'][rows, cols].astype(np.float64), rows)
+    h = np.zeros_like(px)
+    for _ in range(12):
+        a = r2.projection(*r1.localization(px, py, h), h)
+        b = r2.projection(*r1.localization(px, py, h + 1.0), h + 1.0)
+        ax, ay = b[0] - a[0], b[1] - a[1]
+        lam = (ax * (qx - a[0]) + ay * (qy - a[1])) / (ax * ax + ay * ay)
+        h = h + lam
+    return h
+
+
+def count_launches(fn):
+    """(CUDA kernels the profiler saw, their summed device time in ms)
+    while ``fn`` runs; (None, None) where it sees no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.count for e in events)
+    if not kernels:
+        return None, None
+    return kernels, sum(e.self_device_time_total for e in events) / 1e3
+
+
+def run_stage5(gpu_root, cpu_root, specs):
+    """Stage 5 on bucket A's 8 tiles at full size on the card, after
+    stage 4 wrote their files: synthetic cameras and homographies, the 3D
+    filter on; its wall time per bucket (twice), the triangulation's
+    launches and time and the neighbour count's time; then two tiles'
+    crops card against CPU and a constant-disparity tile against the
+    float64 model."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import triangulation
+    from s2p_tpu_torch.geo import crs, geotiff, ply
+    from s2p_tpu_torch.ops.filtering import count_3d_neighbors_batch
+
+    cfg = stage5_config(gpu_root)
+    tiles = write_stage5_inputs(gpu_root, specs)
+    for run in (1, 2):
+        t0 = time.perf_counter()
+        pipeline.disparity_to_ply_all(cfg, tiles)
+        torch.cuda.synchronize()
+        print(f'  disparity_to_ply_all (bucket A, {len(tiles)} tiles, run '
+              f'{run}): {time.perf_counter() - t0:.3f} s', flush=True)
+    for t in tiles:
+        pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
+        disp = geotiff.read(os.path.join(t['dir'], 'pair_1',
+                                         'rectified_disp.tif'))
+        frac = len(pts) / np.isfinite(disp).sum()
+        alt = pts[:, 2]
+        print(f"  {os.path.basename(t['dir'])}: {len(pts)} points "
+              f'({frac:.4f} of the finite disparities), altitude '
+              f'{np.percentile(alt, 1):.2f} .. {np.percentile(alt, 99):.2f} m',
+              flush=True)
+        if (pts.shape[1] != 7 or not np.isfinite(pts).all() or frac < 0.5
+                or not 200 < np.median(alt) < 400):
+            raise AssertionError(f"stage 5: {t['dir']}: an implausible "
+                                 'cloud')
+
+    jobs = [pipeline._ply_tile_job(cfg, t) for t in tiles]
+    out_crs = crs.CRS(cfg.out_crs)
+
+    def tri():
+        return triangulation.disp_to_xyz_batch(jobs, out_crs=out_crs)
+
+    tri()
+    t0 = time.perf_counter()
+    res = tri()
+    torch.cuda.synchronize()
+    t_tri = time.perf_counter() - t0
+    kernels, busy_ms = count_launches(tri)
+    p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+    xyzs = [r[0] for r in res]
+    count_3d_neighbors_batch(xyzs, cfg.filtering_3d_r, p)
+    t0 = time.perf_counter()
+    count_3d_neighbors_batch(xyzs, cfg.filtering_3d_r, p)
+    torch.cuda.synchronize()
+    t_cnt = time.perf_counter() - t0
+    busy = ('not measured' if busy_ms is None else
+            f'{busy_ms:.1f} ms (idle share {1 - busy_ms / 1e3 / t_tri:.3f})')
+    print(f'  disp_to_xyz_batch (bucket A, one batch of {len(jobs)}): '
+          f'{t_tri:.3f} s, CUDA kernels '
+          f"{kernels if kernels is not None else 'not measured'}, device "
+          f'busy {busy}', flush=True)
+    print(f'  count_3d_neighbors_batch (bucket A, p {p}): {t_cnt:.4f} s',
+          flush=True)
+
+    # card against CPU on crops of two tiles
+    runs = {}
+    for dev in ('cuda', 'cpu'):
+        root = os.path.join(cpu_root, f's5_{dev}')
+        os.makedirs(root)
+        shutil.copy(os.path.join(gpu_root, 'global_pointing_pair_1.txt'),
+                    root)
+        crops = [crop_tile(t, root, S5_CROP) for t in tiles[:2]]
+        pipeline.disparity_to_ply_all(stage5_config(root), crops,
+                                      device=dev)
+        runs[dev] = crops
+    for a, b in zip(runs['cuda'], runs['cpu']):
+        fa, fb = (os.path.join(t['dir'], 'cloud.ply') for t in (a, b))
+        with open(fa, 'rb') as x, open(fb, 'rb') as y:
+            same = x.read() == y.read()
+        pa, pb = ply.read_ply(fa)[0], ply.read_ply(fb)[0]
+        if pa.shape != pb.shape or not np.array_equal(pa[:, 3:], pb[:, 3:]):
+            raise AssertionError(f"stage 5 crop {a['dir']}: points, colours "
+                                 'or confidence differ from the CPU run')
+        d_xy = float(np.abs(pa[:, :2] - pb[:, :2]).max()) if len(pa) else 0.
+        d_z = float(np.abs(pa[:, 2] - pb[:, 2]).max()) if len(pa) else 0.
+        print(f"  crop {S5_CROP} of {os.path.basename(a['dir'])}: "
+              f'{len(pa)} points, cloud.ply equals the CPU run byte for '
+              f'byte: {same}; max difference xy {d_xy} m, altitude {d_z} m',
+              flush=True)
+        if d_xy > S5_XY_TOL_M or d_z > S5_ALT_TOL_M:
+            raise AssertionError('stage 5 crop: the card differs from the '
+                                 'CPU beyond the tolerance')
+
+    # a constant disparity against the float64 model's altitudes
+    job = dict(jobs[0])
+    job['disp'] = np.where(np.isfinite(job['disp']), S5_KNOWN_DISP,
+                           np.nan).astype(np.float32)
+    (xyz, err), = triangulation.disp_to_xyz_batch([job], out_crs=None)
+    rows, cols = np.mgrid[4:job['disp'].shape[0]:8, 4:job['disp'].shape[1]:8]
+    rows, cols = rows.ravel(), cols.ravel()
+    alt = xyz[rows, cols, 2]
+    fin = np.isfinite(alt)
+    ref = model_altitudes(cfg, job, rows[fin], cols[fin])
+    d = float(np.abs(alt[fin] - ref).max())
+    print(f'  constant disparity {S5_KNOWN_DISP}: {fin.sum()} sampled '
+          f'points, altitude {alt[fin].min():.3f} .. {alt[fin].max():.3f} m,'
+          f' max difference from the float64 model {d:.5f} m (tolerance '
+          f'{S5_KNOWN_TOL_M} m)', flush=True)
+    if fin.mean() < 0.5 or d > S5_KNOWN_TOL_M:
+        raise AssertionError('stage 5: the constant-disparity tile misses '
+                             "the model's altitude")
 
 
 def check_sgm_kernels(stats):
@@ -1305,6 +1583,7 @@ def main():
         check_no_spill(_build.build_log('cost_prepass'),
                        'cost_prepass_kernel')
         check_no_spill(_build.build_log('scan_mgm'), 'scan_mgm_kernel')
+        check_no_spill(_build.build_log('wta'), 'wta_dr_kernel')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -1355,6 +1634,12 @@ def main():
         with phase('stage 4 checks'):
             check_outputs(gpu_root, specs, cpu_root,
                           {s['index'] for s in cpu_specs})
+        with phase('stage 5 on bucket A (8 tiles, the 3D filter on)'):
+            sk.reset_launch_counts()
+            run_stage5(gpu_root, cpu_root, specs_a)
+            launches['stage5'] = sk.launch_counts()
+            print(f"  launches of the port's kernels: {launches['stage5']}",
+                  flush=True)
 
         with phase('classic matcher on the card'):
             sk.reset_launch_counts()

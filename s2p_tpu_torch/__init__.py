@@ -10,5 +10,9 @@ The package imports torch, numpy and scipy only.  Its entry points take
 unless the caller asks for ``device="cpu"``.
 
 Ported so far: stage 4 (stereo matching) with the default ``mgm`` matcher,
-through :func:`s2p_tpu_torch.pipeline.stereo_matching_all`.
+through :func:`s2p_tpu_torch.pipeline.stereo_matching_all`; the single-tile
+``mgm`` entry and the classic SGM census matcher (``ops/mgm_flow.py``,
+``ops/sgm.py``); and stage 5 in pair mode (triangulation, the 3D filter
+and the tile's ``cloud.ply``), through
+:func:`s2p_tpu_torch.pipeline.disparity_to_ply_all`.
 """

@@ -21,7 +21,8 @@ _ALIASES = {'3d_filtering_r': 'filtering_3d_r',
 class ImageSpec:
     """One input image: path, camera model, and optional masks."""
     img: str
-    rpc: Any = None
+    rpc: Any = None          # path / dict, as given by the user
+    rpcm: Any = None         # the loaded RPCModel (geo/rpc.py)
     clr: Optional[str] = None
     cld: Optional[str] = None
     roi: Optional[str] = None

@@ -31,7 +31,8 @@
 // (inf where that column leaves [0, W)) the same way, its neighbours c0/c2
 // taken along k of S_R, and writes dR = -((dmin + kR) + offR).  A column
 // whose S_R is all inf gives kR = 0 and offR = 0.  The TPU kernel builds
-// S_R with a log-step lane roll; here each thread reads it directly.
+// S_R with a log-step lane roll; here S_R[k, x] is read from the same
+// staged row of S as the left map's S[k, x].
 //
 // K3 and K5 follow the reference's NaN rules: a NaN anywhere in S[.]
 // (or, for dR, anywhere in S_R[.]) makes mn NaN and no index equal to
@@ -58,10 +59,23 @@
 // one thread per pixel read the transposed part one 4-byte word per
 // 32-byte sector and re-read both parts at d - 1 and d + 1.
 //
-// K5 bound: bytes as K3.  One thread per pixel with x fastest: part0
-// reads coalesce; the transposed part1 reads one 4-byte word per 32-byte
-// sector.  K5 reads both volumes a second time for S_R (mostly from L2:
-// neighbouring threads read neighbouring diagonals).
+// K5 bound: bytes (two f32 volumes read once, three maps written).  S_R
+// needs no second pass over device memory: at candidate k, S_R[k, x] =
+// S[k, x - dmin - k] lies in the same row and candidate as S[k, .], so
+// a block that owns whole rows (a band: 4 rows up to 512 columns, 2 rows
+// up to 1024) reduces both maps from one staged copy.  A chunk of 4
+// candidates of the band's rows is copied into shared memory with
+// cp.async, both parts, the horizontal one along y (a warp reads 32 / 4
+// runs of 4 contiguous words), into two buffers, so the next chunk is in
+// flight while this one is consumed; 512 threads then advance the sweep
+// above for 4 left and 4 right pixels each.  (16-byte copies and a third
+// buffer were both slower on the H100: the copies are not the limit.)  Past 1024 columns a band
+// does not fit: the windowed instantiation gives a block 128 columns of
+// 4 rows and stages, per chunk, a second window of the 131 columns its
+// pixels' diagonals cross at those candidates (read twice overall, the
+// second time mostly from L2).  Before, one thread per pixel read the
+// transposed part one 4-byte word per 32-byte sector, re-read both
+// parts at d +- 1 and read them a second time for S_R.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,14 +85,6 @@ struct Part {
   const float* p;
   long long sb, sy, sk, sx;
 };
-
-__device__ __forceinline__ float sum_at(const Part& a, const Part& c,
-                                        int n_parts, int b, int y, int k,
-                                        int x) {
-  float v = a.p[b * a.sb + y * a.sy + k * a.sk + x * a.sx];
-  if (n_parts == 2) v = v + c.p[b * c.sb + y * c.sy + k * c.sk + x * c.sx];
-  return v;
-}
 
 // fmaxf / fminf, or (kNan) the reference's maximum / clip, which return
 // NaN where an operand is NaN
@@ -113,6 +119,48 @@ __device__ __forceinline__ float subpix_offset(float c0, float c1, float c2,
   return o;
 }
 
+// The sweep of one pixel's WTA over its candidates, in order (K3, K5).  When
+// a new strict minimum appears at k (or k is the first candidate), c0 is
+// the value at k - 1 and c2 waits for k + 1, so no candidate is read
+// twice; ties keep the lowest index.
+struct Sweep {
+  float mn, c0, c2, prev;
+  int d;
+  bool pend, nan;
+
+  __device__ __forceinline__ void init() {
+    const float inf = __int_as_float(0x7f800000);
+    mn = c0 = c2 = prev = inf;
+    d = 0;
+    pend = nan = false;
+  }
+  __device__ __forceinline__ void step(float v, int k) {
+    const bool newmin = k == 0 || v < mn;
+    if (pend) c2 = v;
+    pend = newmin;
+    c0 = newmin ? prev : c0;
+    c2 = newmin ? __int_as_float(0x7f800000) : c2;
+    mn = newmin ? v : mn;
+    d = newmin ? k : d;
+    nan = nan || isnan(v);
+    prev = v;
+  }
+  // (d, offset): a NaN among the candidates gives d = D and offset 0
+  __device__ __forceinline__ float finish(int D, int subpix, int& k) const {
+    float m = mn, lo = c0, hi = c2;
+    k = d;
+    if (nan) {
+      m = __int_as_float(0x7fc00000);
+      k = D;
+    }
+    const float guard = m + 1e6f;
+    if (!isfinite(lo)) lo = guard;
+    if (!isfinite(hi)) hi = guard;
+    const float o = subpix_offset<true>(lo, m, hi, subpix, 0);
+    return k > 0 && k < D - 1 ? o : 0.f;
+  }
+};
+
 constexpr int kTX = 32;                  // x-positions per tile
 constexpr int kTY = 32;                  // rows per tile
 constexpr int kRows = kTY / 8;           // rows per thread
@@ -132,15 +180,9 @@ wta_tile_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
   const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
   const int b = blockIdx.z;
   const int x = x0 + tx;
-  float mn[kRows], c0[kRows], c2[kRows], prev[kRows];
-  int d[kRows];
-  bool pend[kRows], nan[kRows];
+  Sweep sw[kRows];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    mn[i] = c0[i] = c2[i] = prev[i] = inf;
-    d[i] = 0;
-    pend[i] = nan[i] = false;
-  }
+  for (int i = 0; i < kRows; ++i) sw[i].init();
 
   // a staged part's (kc, 32 x, 32 y) slab: a warp reads 32 rows of one
   // x; every load is issued before the first store
@@ -201,17 +243,7 @@ wta_tile_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
         float v = kStage0 ? sh[0][kk][tx][yl] : va[i][kk];
         if (n_parts == 2)
           v = v + (kStage1 ? sh[kStage0 ? 1 : 0][kk][tx][yl] : vc[i][kk]);
-        // branch-free: a new strict minimum (or the first candidate)
-        // takes c0 from k - 1 and leaves c2 pending until k + 1
-        const bool newmin = (kk == 0 && k0 == 0) || v < mn[i];
-        if (pend[i]) c2[i] = v;
-        pend[i] = newmin;
-        c0[i] = newmin ? prev[i] : c0[i];
-        c2[i] = newmin ? inf : c2[i];
-        mn[i] = newmin ? v : mn[i];
-        d[i] = newmin ? k0 + kk : d[i];
-        nan[i] = nan[i] || isnan(v);
-        prev[i] = v;
+        sw[i].step(v, k0 + kk);
       }
     }
   }
@@ -219,9 +251,9 @@ wta_tile_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
   for (int i = 0; i < kRows; ++i) {
     const int y = y0 + ty + 8 * i;
     if (x >= W || y >= H) continue;
-    float m = mn[i], lo = c0[i], hi = c2[i];
-    int k = d[i];
-    if (nan[i]) {
+    float m = sw[i].mn, lo = sw[i].c0, hi = sw[i].c2;
+    int k = sw[i].d;
+    if (sw[i].nan) {
       m = __int_as_float(0x7fc00000);
       k = D;
     }
@@ -238,73 +270,176 @@ wta_tile_kernel(Part a, Part c, int n_parts, float* __restrict__ off,
   }
 }
 
-// K5: one pixel of the left map and one of the right-reference map.
-__global__ void wta_dr_kernel(Part a, Part c, int n_parts,
-                              float* __restrict__ disp, int* __restrict__ dint,
-                              float* __restrict__ dr, int B, int H, int D,
-                              int W, int disp_min, int subpix) {
-  const long long total = (long long)B * H * W;
-  const float inf = __int_as_float(0x7f800000);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int x = (int)(i % W);
-    const int y = (int)((i / W) % H);
-    const int b = (int)(i / ((long long)W * H));
-    // left reference
-    float mn = sum_at(a, c, n_parts, b, y, 0, x);
-    int d = 0;
-    bool nan = isnan(mn);
-    for (int k = 1; k < D; ++k) {
-      const float v = sum_at(a, c, n_parts, b, y, k, x);
-      nan = nan || isnan(v);
-      if (v < mn) {
-        mn = v;
-        d = k;
+constexpr int kNT5 = 512;   // threads of a K5 block
+constexpr int kKC5 = 4;     // candidates per staged chunk
+constexpr int kTX5 = 128;   // columns of a windowed block
+
+// One 4-byte asynchronous copy into shared memory; zeros where ``in`` is
+// false (nothing is read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage columns c0 .. c0 + n - 1 of one part, rows y0 .. y0 + kR - 1 and
+// candidates k0 .. k0 + kKC5 - 1, into buf[kk][r][i] (row stride SW),
+// zero outside the volume.  A part read along y (the horizontal partial,
+// whose rows are contiguous along y) gives a thread one row and a warp
+// 32 / kR columns of kR contiguous words; one read along x gives a thread
+// one column.
+template <int kR>
+__device__ __forceinline__ void stage5(float* buf, const Part& p,
+                                       bool along_y, int b, int y0, int k0,
+                                       int c0, int n, int H, int D, int W,
+                                       int SW) {
+  const float* const pb = p.p + b * p.sb;
+  const int sy = (int)p.sy, sk = (int)p.sk, sx = (int)p.sx;
+  const int t = threadIdx.x;
+  if (along_y) {
+    const int r = t % kR;
+    const int y = y0 + r;
+    for (int i = t / kR; i < n; i += kNT5 / kR) {
+      const int x = c0 + i;
+      const bool xin = x >= 0 && x < W && y < H;
+#pragma unroll
+      for (int kk = 0; kk < kKC5; ++kk) {
+        const bool in = xin && k0 + kk < D;
+        cp_async4(buf + (kk * kR + r) * SW + i,
+                  in ? pb + (y * sy + x * sx + (k0 + kk) * sk) : pb, in);
       }
     }
-    if (nan) {
-      mn = __int_as_float(0x7fc00000);
-      d = D;
+  } else {
+    for (int i = t; i < n; i += kNT5) {
+      const int x = c0 + i;
+      const bool xin = x >= 0 && x < W;
+#pragma unroll
+      for (int kk = 0; kk < kKC5; ++kk)
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const bool in = xin && y0 + r < H && k0 + kk < D;
+          cp_async4(buf + (kk * kR + r) * SW + i,
+                    in ? pb + ((y0 + r) * sy + x * sx + (k0 + kk) * sk) : pb,
+                    in);
+        }
     }
-    float c0 = d > 0 ? sum_at(a, c, n_parts, b, y, d - 1, x) : inf;
-    float c2 = d < D - 1 ? sum_at(a, c, n_parts, b, y, d + 1, x) : inf;
-    float guard = mn + 1e6f;
-    if (!isfinite(c0)) c0 = guard;
-    if (!isfinite(c2)) c2 = guard;
-    float o = subpix_offset<true>(c0, mn, c2, subpix, 0);
-    if (!(d > 0 && d < D - 1)) o = 0.f;
-    disp[i] = ((float)disp_min + (float)d) + o;
-    dint[i] = d;
-    // right reference: S_R[k] = S[k, x - dmin - k], inf outside [0, W)
-    float mnr = inf;
-    int kr = 0;                          // every S_R[k] inf: k = 0
-    nan = false;
-    for (int k = 0; k < D; ++k) {
-      const int xs = x - disp_min - k;
-      const float v =
-          xs >= 0 && xs < W ? sum_at(a, c, n_parts, b, y, k, xs) : inf;
-      nan = nan || isnan(v);
-      if (k == 0 || v < mnr) {
-        mnr = v;
-        kr = k;
+  }
+}
+
+// K5.  kBand: a block owns kR rows across the full width (W <= kPPT *
+// kNT5 / kR); each chunk of kKC5 candidates of those rows is staged once
+// (both parts, cp.async, two buffers so the next chunk is in flight
+// while this one is consumed), and each thread advances both reductions
+// of its kPPT pixels from shared memory: the left one at its column x,
+// the right one at S[k, x - dmin - k] (inf outside [0, W)).  Otherwise
+// (windowed): a block owns kTX5 columns of kR rows (kPPT = 1) and stages
+// a second window per chunk for the right map, the kTX5 + kKC5 - 1
+// columns its diagonals cross at those candidates.
+template <bool kBand, int kR, int kPPT>
+__global__ void __launch_bounds__(kNT5, 1)
+wta_dr_kernel(Part a, Part c, int n_parts, int along0, int along1,
+              float* __restrict__ disp, int* __restrict__ dint,
+              float* __restrict__ dr, int H, int D, int W, int disp_min,
+              int subpix, int SW) {
+  extern __shared__ float smem[];
+  constexpr int kWin = kBand ? 1 : 2;       // windows staged per part
+  const int slab = kKC5 * kR * SW;          // one window of one part
+  const int stage_size = n_parts * kWin * slab;
+  const int t = threadIdx.x;
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * kR;
+  const int x0 = kBand ? 0 : blockIdx.x * kTX5;
+  const int tw = kBand ? W : kTX5;          // columns of the block
+  const int wr = kTX5 + kKC5 - 1;           // columns of the right window
+
+  // this thread's pixels: row r, column x0 + xl
+  int rb[kPPT], xl[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    int p = t + kNT5 * j;
+    p = p < kR * tw ? p : kR * tw - 1;
+    const int r = p / tw;
+    rb[j] = r * SW;
+    xl[j] = p - r * tw;
+  }
+  Sweep L[kPPT], R[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    L[j].init();
+    R[j].init();
+  }
+
+  // one part's windows of the chunk at k0 (the part is named, not
+  // selected at run time, so no kernel parameter is copied to the stack)
+  auto stage_part = [&](float* w, const Part& p, bool ay, int k0) {
+    stage5<kR>(w, p, ay, b, y0, k0, x0, tw, H, D, W, SW);
+    if (!kBand)
+      stage5<kR>(w + slab, p, ay, b, y0, k0,
+                 x0 - disp_min - k0 - (kKC5 - 1), wr, H, D, W, SW);
+  };
+  auto stage = [&](int k0, int buf) {
+    float* s = smem + buf * stage_size;
+    stage_part(s, a, along0 != 0, k0);
+    if (n_parts == 2) stage_part(s + kWin * slab, c, along1 != 0, k0);
+  };
+
+  const int n_chunks = (D + kKC5 - 1) / kKC5;
+  stage(0, 0);
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) stage((ch + 1) * kKC5, (ch + 1) & 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const float* s0 = smem + (ch & 1) * stage_size;
+    const float* s1 = s0 + kWin * slab;
+    const int k0 = ch * kKC5;
+#pragma unroll
+    for (int kk = 0; kk < kKC5; ++kk) {
+      const int k = k0 + kk;
+      if (k >= D) break;
+      const int ko = kk * kR * SW;
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) {
+        const int ol = rb[j] + ko + xl[j];
+        float v = s0[ol];
+        if (n_parts == 2) v = v + s1[ol];
+        L[j].step(v, k);
+        // the right map's column in S, and where it was staged
+        const int xs = x0 + xl[j] - disp_min - k;
+        const bool in = (unsigned)xs < (unsigned)W;
+        const int orr =
+            kBand ? rb[j] + ko + min(max(xs, 0), W - 1)
+                  : slab + rb[j] + ko + xl[j] + (kKC5 - 1 - kk);
+        float vr = s0[orr];
+        if (n_parts == 2) vr = vr + s1[orr];
+        R[j].step(in ? vr : __int_as_float(0x7f800000), k);
       }
     }
-    if (nan) {
-      mnr = __int_as_float(0x7fc00000);
-      kr = D;
-    }
-    int xs = x - disp_min - (kr - 1);
-    c0 = kr > 0 && xs >= 0 && xs < W
-             ? sum_at(a, c, n_parts, b, y, kr - 1, xs) : inf;
-    xs = x - disp_min - (kr + 1);
-    c2 = kr < D - 1 && xs >= 0 && xs < W
-             ? sum_at(a, c, n_parts, b, y, kr + 1, xs) : inf;
-    guard = mnr + 1e6f;
-    if (!isfinite(c0)) c0 = guard;
-    if (!isfinite(c2)) c2 = guard;
-    o = subpix_offset<true>(c0, mnr, c2, subpix, 0);
-    if (!(kr > 0 && kr < D - 1)) o = 0.f;
-    dr[i] = -(((float)disp_min + (float)kr) + o);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int y = y0 + rb[j] / SW;
+    const int x = x0 + xl[j];
+    if (t + kNT5 * j >= kR * tw || x >= W || y >= H) continue;
+    const long long px = ((long long)b * H + y) * W + x;
+    int k;
+    const float o = L[j].finish(D, subpix, k);
+    disp[px] = ((float)disp_min + (float)k) + o;
+    dint[px] = k;
+    const float orr = R[j].finish(D, subpix, k);
+    dr[px] = -(((float)disp_min + (float)k) + orr);
   }
 }
 
@@ -363,17 +498,46 @@ extern "C" int s2p_wta_dr(const void* p0, long long s0b, long long s0y,
                           long long s1x, int n_parts, void* disp, void* dint,
                           void* dr, int B, int H, int D, int W, int disp_min,
                           int subpix, void* stream) {
-  const long long total = (long long)B * H * W;
   if (n_parts < 1 || n_parts > 2) return (int)cudaErrorInvalidValue;
-  if (total > 0 && D > 0) {
-    const int threads = 256;
-    long long blocks = (total + threads - 1) / threads;
-    if (blocks > (1LL << 30)) blocks = 1LL << 30;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 0 && H > 0 && W > 0 && D > 0) {
     Part a{(const float*)p0, s0b, s0y, s0k, s0x};
     Part c{(const float*)(n_parts == 2 ? p1 : p0), s1b, s1y, s1k, s1x};
-    wta_dr_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        a, c, n_parts, (float*)disp, (int*)dint, (float*)dr, B, H, D, W,
-        disp_min, subpix);
+    // 32-bit offsets inside one tile (non-negative strides)
+    for (const Part* p : {&a, &c}) {
+      if (p->sy < 0 || p->sk < 0 || p->sx < 0 ||
+          (H - 1) * p->sy + (D - 1) * p->sk + (W - 1) * p->sx >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    }
+    const int along0 = s0y < s0x;
+    const int along1 = n_parts == 2 && s1y < s1x;
+    const cudaStream_t st = (cudaStream_t)stream;
+    // a band of 4 rows up to 512 columns, of 2 rows up to 1024 (4 pixels
+    // a thread); past that the windowed instantiation.  A row of the
+    // staged slab is padded to 8 mod 32 words: a warp staging kR rows of
+    // 32 / kR columns writes 32 banks.
+    const auto pad = [](int n) { return (n + 31) / 32 * 32 + 8; };
+    const auto run = [&](auto kernel, int rows, int win, dim3 grid,
+                         int SW) {
+      const size_t bytes =
+          (size_t)2 * n_parts * win * kKC5 * rows * SW * sizeof(float);
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, kNT5, bytes, st>>>(a, c, n_parts, along0, along1,
+                                        (float*)disp, (int*)dint, (float*)dr,
+                                        H, D, W, disp_min, subpix, SW);
+      return (int)cudaGetLastError();
+    };
+    if (W <= 512)
+      return run(wta_dr_kernel<true, 4, 4>, 4, 1,
+                 dim3(1, (H + 3) / 4, B), pad(W));
+    if (W <= 1024)
+      return run(wta_dr_kernel<true, 2, 4>, 2, 1,
+                 dim3(1, (H + 1) / 2, B), pad(W));
+    return run(wta_dr_kernel<false, 4, 1>, 4, 2,
+               dim3((W + kTX5 - 1) / kTX5, (H + 3) / 4, B),
+               pad(kTX5 + kKC5 - 1));
   }
   return (int)cudaGetLastError();
 }

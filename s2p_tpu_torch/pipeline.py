@@ -1,23 +1,31 @@
-"""Pipeline stages of the port.  Ported so far: stage 4 with ``mgm``.
+"""Pipeline stages of the port.  Ported so far: stage 4 with ``mgm``
+and stage 5 in pair mode.
 
-Counterpart of ``stereo_matching_all`` in ``s2p_tpu/pipeline.py``.  The
-per-tile file contract is the JAX package's, so either package can run
-stage 4 on the other's stage-3 files: each ``<tile>/pair_<i>/`` holds
-``rectified_ref.tif``, ``rectified_sec.tif`` and ``disp_min_max.txt``,
-and stage 4 writes ``rectified_disp.tif``, ``rectified_mask.png`` and
-``rectified_disp_confidence.tif`` beside them.
+Counterparts of ``stereo_matching_all`` and ``disparity_to_ply_all`` in
+``s2p_tpu/pipeline.py``.  The per-tile file contract is the JAX
+package's, so either package can run a stage on the other's files: each
+``<tile>/pair_<i>/`` holds ``rectified_ref.tif``, ``rectified_sec.tif``
+and ``disp_min_max.txt``, stage 4 writes ``rectified_disp.tif``,
+``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them,
+and stage 5 reads those with ``H_ref.txt``, ``H_sec.txt``, the tile's
+``mask.png`` and the scene's ``global_pointing_pair_1.txt`` and writes
+the tile's ``cloud.ply``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 
 import numpy as np
 
 from .config import Config
-from .core import masking, matching
+from .core import masking, matching, triangulation
 from .device import resolve
+from .geo import crs as crsmod
 from .geo import geotiff
+from .geo import ply as plymod
+from .ops.filtering import count_3d_neighbors_batch, filter_xyz
 from .ops.mgm_flow import mgm_binary_match_batch
 
 
@@ -112,3 +120,121 @@ def stereo_matching_all(cfg: Config, tiles_pairs, device=None):
                           conf.astype(np.float32))
             if cfg.clean_intermediate:
                 _clean_after_matching(cfg, j['out_dir'])
+
+
+# --------------------------------------------------------------------- #
+# Stage 5: triangulation (pair mode)
+# --------------------------------------------------------------------- #
+
+def linear_stretching_and_quantization_8bit(img, p=1):
+    """Percentile-stretched uint8 quantization (reference common.py)."""
+    a, b = np.nanpercentile(img, (p, 100 - p))
+    return np.round(255 * (np.clip(img, a, b) - a) / max(b - a, 1e-9)) \
+        .astype(np.uint8)
+
+
+def _tile_colors(cfg: Config, tile):
+    """Colours for the point cloud: the 8-bit stretched rectified
+    reference.  A ``clr`` image needs stage 3's homography warp, which is
+    not ported yet."""
+    if cfg.images[0].clr:
+        raise NotImplementedError(
+            'clr images need the homography warp of stage 3 (ROADMAP M7); '
+            'the port colours the cloud from the rectified reference')
+    img = geotiff.read(os.path.join(tile['dir'], 'pair_1',
+                                    'rectified_ref.tif'))
+    return linear_stretching_and_quantization_8bit(img)[None]
+
+
+def _ply_tile_job(cfg: Config, tile):
+    """Host prep of one tile's triangulation inputs (stage 5, pair mode)."""
+    out_dir = tile['dir']
+    x, y, w, h = tile['coordinates']
+    pdir = os.path.join(out_dir, 'pair_1')
+    pointing_file = os.path.join(cfg.out_dir, 'global_pointing_pair_1.txt')
+    extra = os.path.join(pdir, 'rectified_disp_confidence.tif')
+    return dict(
+        rpc1=cfg.images[0].rpcm, rpc2=cfg.images[1].rpcm,
+        H1=np.loadtxt(os.path.join(pdir, 'H_ref.txt')),
+        H2=np.loadtxt(os.path.join(pdir, 'H_sec.txt')),
+        disp=geotiff.read(os.path.join(pdir, 'rectified_disp.tif')),
+        mask_rect=geotiff.read_png(os.path.join(pdir, 'rectified_mask.png')),
+        mask_orig=geotiff.read_png(os.path.join(out_dir, 'mask.png')),
+        img_bbx=(x, x + w, y, y + h),
+        A=np.loadtxt(pointing_file),
+        confidence=geotiff.read(extra) if os.path.exists(extra) else None,
+    )
+
+
+def _ply_tile_finish(cfg: Config, tile, job, xyz, err, count=None):
+    """Host post of one tile: 3D filter, colours, PLY write."""
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        filter_xyz(xyz, cfg.filtering_3d_r, cfg.filtering_3d_n, cfg.gsd,
+                   count=count)
+    colors = _tile_colors(cfg, tile)
+    proj_com = 'CRS {}'.format(cfg.out_crs)
+    _write_tile_cloud(os.path.join(tile['dir'], 'cloud.ply'), xyz, colors,
+                      proj_com, job['confidence'])
+    if cfg.clean_intermediate:
+        pdir = os.path.join(tile['dir'], 'pair_1')
+        # after the colours are computed, as the reference does
+        _remove(os.path.join(pdir, 'H_ref.txt'),
+                os.path.join(pdir, 'H_sec.txt'),
+                os.path.join(pdir, 'rectified_disp.tif'),
+                os.path.join(pdir, 'rectified_mask.png'),
+                os.path.join(pdir, 'rectified_ref.tif'),
+                os.path.join(tile['dir'], 'mask.png'))
+
+
+def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
+                         device=None):
+    """Stage 5, pair mode, for every tile: each shape bucket triangulates
+    as one batch on the device
+    (:func:`s2p_tpu_torch.core.triangulation.disp_to_xyz_batch`), the 3D
+    filter's neighbour counts of all tiles run as one batch too, and the
+    host finish (filter, colours, PLY) fans out on a thread pool of
+    ``nb_workers`` threads (default min(8, tiles)), ``timeout`` seconds
+    for each.  A tile whose stage-4 files are missing is skipped.
+    ``device`` None runs on CUDA and raises without it; "cpu" runs
+    there."""
+    dev = resolve(device)
+    jobs = []
+    for tile in tiles:
+        try:
+            jobs.append(_ply_tile_job(cfg, tile))
+        except (OSError, ValueError):
+            jobs.append(None)    # missing tile outputs tolerated
+    live = [(t, j) for t, j in zip(tiles, jobs) if j is not None]
+    if not live:
+        return
+    results = triangulation.disp_to_xyz_batch(
+        [j for _, j in live], out_crs=crsmod.CRS(cfg.out_crs), device=dev)
+    counts = [None] * len(results)
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+        counts = count_3d_neighbors_batch([r[0] for r in results],
+                                          cfg.filtering_3d_r, p, dev)
+    with concurrent.futures.ThreadPoolExecutor(
+            nb_workers or min(8, len(live))) as pool:
+        futures = [pool.submit(_ply_tile_finish, cfg, t, j, xyz, err, cnt)
+                   for (t, j), (xyz, err), cnt in zip(live, results, counts)]
+        for f in futures:
+            f.result(timeout=timeout)
+
+
+def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):
+    """Flatten an xyz grid into a PLY cloud, dropping NaN points
+    (reference triangulation.py)."""
+    pts = xyz.reshape(-1, 3)
+    valid = np.all(np.isfinite(pts), axis=1)
+    col_list = None
+    if colors is not None:
+        col_list = colors.transpose(1, 2, 0).reshape(-1, colors.shape[0])[valid]
+    extra = extra_names = None
+    if confidence is not None:
+        extra = confidence.reshape(-1)[valid].astype(np.float32)
+        extra_names = ['confidence']
+    plymod.write_ply(path, pts[valid], colors=col_list, extra=extra,
+                     extra_names=extra_names,
+                     comments=['created by S2P-TPU',
+                               'projection: {}'.format(proj_com)])

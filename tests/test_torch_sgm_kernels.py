@@ -340,12 +340,22 @@ def test_fma32_is_one_rounding():
     assert (got != c + a * third).any()
 
 
-@pytest.mark.parametrize('subpix,n_parts,dmin', [
+# (subpix, parts, disp_min, W): W 40 takes K5's 4-row band, 600 its
+# 2-row band and 1100 the windowed instantiation; |disp_min| past W puts
+# every column of S_R off the image
+_WTA_DR_CASES = [pytest.param(s, n, d, 40, id=f'{s}-{n}-{d}') for s, n, d in (
     ('vfit', 2, -8), ('vfit', 1, 3), ('parabola', 2, 3), ('parabola', 1, -8),
-    ('none', 2, -8)])
-def test_wta_dr_matches_pallas(subpix, n_parts, dmin):
-    rng = np.random.RandomState(17 + n_parts + dmin)
-    H, D, W = 16, 16, 40
+    ('none', 2, -8))] + [
+    pytest.param(s, n, d, W, id=f'{s}-{n}-{d}-W{W}') for s, n, d, W in (
+        ('vfit', 2, -300, 600), ('parabola', 1, 605, 600),
+        ('vfit', 2, -8, 1100), ('vfit', 1, -1116, 1100),
+        ('none', 2, 1103, 1100), ('parabola', 2, 530, 1100))]
+
+
+@pytest.mark.parametrize('subpix,n_parts,dmin,W', _WTA_DR_CASES)
+def test_wta_dr_matches_pallas(subpix, n_parts, dmin, W):
+    rng = np.random.RandomState((17 + n_parts + dmin) % 2**31)
+    H, D = (16, 16) if W == 40 else (8, 16)
     S = (rng.randint(0, 60, size=(H, D, W)) * 10).astype(np.float32)  # ties
     S[2, :, 9] = S[2, 0, 9]                           # a flat column
     S += rng.randint(0, 3, size=(H, D, W)).astype(np.float32) * 0.25
@@ -360,21 +370,34 @@ def test_wta_dr_matches_pallas(subpix, n_parts, dmin):
     if dmin > 0:
         # columns x < dmin see no S_R candidate: kR = 0, dR = -dmin
         assert (np.asarray(dR_ref)[:, :dmin] == -dmin).all()
+    if dmin < -(W + D - 2) or dmin >= W:
+        assert (np.asarray(dR_ref) == -dmin).all()
     if subpix != 'none':
         assert (np.asarray(disp_ref) % 1 != 0).any()
 
 
-@pytest.mark.parametrize('subpix', ['vfit', 'none'])
-@pytest.mark.parametrize('n_parts', [1, 2])
-@pytest.mark.parametrize('kind', ['nan', 'inf', 'all_big'])
-@pytest.mark.parametrize('D', [1, 2, 17])
-def test_wta_dr_nonfinite_matches_pallas(D, kind, n_parts, subpix):
+# (D, kind, parts, subpix, W, disp_min): every combination at W 24 and
+# disp_min -3, then K5's wider instantiations with S_R off the image
+_WTA_DR_NONFINITE = [
+    pytest.param(D, k, n, s, 24, -3, id=f'{D}-{k}-{n}-{s}')
+    for D in (1, 2, 17) for k in ('nan', 'inf', 'all_big') for n in (1, 2)
+    for s in ('vfit', 'none')] + [
+    pytest.param(D, k, n, s, W, dmin, id=f'{D}-{k}-{n}-{s}-W{W}-{dmin}')
+    for D, k, n, s, W, dmin in (
+        (17, 'nan', 2, 'vfit', 600, -610), (2, 'inf', 1, 'vfit', 600, 300),
+        (17, 'all_big', 2, 'none', 1100, -550),
+        (17, 'nan', 1, 'vfit', 1100, 1099),
+        (1, 'inf', 2, 'vfit', 1100, -1200))]
+
+
+@pytest.mark.parametrize('D,kind,n_parts,subpix,W,dmin', _WTA_DR_NONFINITE)
+def test_wta_dr_nonfinite_matches_pallas(D, kind, n_parts, subpix, W, dmin):
     """K5's plain version on non-finite partials, the target that the
     kernel's NaN rule is held to on the card (chip_smoke.py): a NaN in
     S[.] (or S_R[.]) gives d = D and offset 0, +-inf minima give NaN
     fits, all-BIG columns a plateau."""
-    rng = np.random.RandomState(D * 7 + n_parts)
-    H, W, dmin = 8, 24, -3
+    rng = np.random.RandomState(D * 7 + n_parts + (W != 24) * abs(W + dmin))
+    H = 8
     S = (rng.randint(0, 60, size=(H, D, W)) * 10).astype(np.float32)
     if kind == 'nan':
         S[rng.rand(H, D, W) < 0.05] = np.nan

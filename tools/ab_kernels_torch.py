@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""A/B timing of versions of the port's cost pre-pass (K1) and averaged-MGM
-scan (K4b) in one process, on the same inputs.
+"""A/B timing of versions of the port's cost pre-pass (K1), averaged-MGM
+scan (K4b) and WTA with the right-reference map (K5) in one process, on
+the same inputs.
 
 Usage, from the repo root on a machine with one CUDA card and nvcc:
 
     git show <commit>:s2p_tpu_torch/csrc/cost_prepass.cu > out/k1_old.cu
     git show <commit>:s2p_tpu_torch/csrc/scan_mgm.cu > out/k4b_old.cu
+    git show <commit>:s2p_tpu_torch/csrc/wta.cu > out/k5_old.cu
     python3 tools/ab_kernels_torch.py --k1 out/k1_old.cu --k4b out/k4b_old.cu
+    python3 tools/ab_kernels_torch.py --k5 out/k5_old.cu
 
-``--k1`` and ``--k4b`` each take one or more sources; the package's own
-``csrc/cost_prepass.cu`` and ``csrc/scan_mgm.cu`` are appended as the last
-version.  Every source is built with the port's nvcc flags into
+``--k1``, ``--k4b`` and ``--k5`` each take zero or more sources, and only
+the kernels named run; the package's own ``csrc/cost_prepass.cu``,
+``csrc/scan_mgm.cu`` and ``csrc/wta.cu`` are appended as the last version.
+Every source is built with the port's nvcc flags into
 out/ab_kernels_build/ and its C entry (``s2p_cost_prepass``,
-``s2p_scan_mgm``; the signatures stay fixed for this) runs on the same
-random signatures:
+``s2p_scan_mgm``, ``s2p_wta_dr``; the signatures stay fixed for this) runs
+on the same random inputs:
 
   * K1 at the flow's shapes, per side: bucket A (8 x 512 positions x 448
     lanes, 80 candidates, base 0), bucket B (2 x 896 x 832, 96), one tile
@@ -24,7 +28,11 @@ random signatures:
     pass with 3 directions of 3 laterals and a horizontal pass with one
     direction of 2.  A version that exports ``s2p_scan_mgm_part_volumes``
     (this package's) runs its shared-memory instantiation and takes its
-    directions' scratch; an earlier one takes a carry scratch.
+    directions' scratch; an earlier one takes a carry scratch;
+  * K5 at the classic matcher's summed partials: S_v contiguous and S_h
+    read in its (W, D, H) layout, at the 512 x 512 pair (64 candidates
+    from -8), the 832 x 832 tile (96 from -30) and a 256 x 1600 strip (64
+    from -20, past the widest band: the windowed instantiation).
 
 Each case runs its versions forward then backward (v0 .. vn, vn .. v0;
 median of 5 CUDA-event runs each, behind a device-side spin), and every
@@ -53,6 +61,9 @@ K1_CASES = (('bucket A', 8, 512, 448, 80, 0), ('bucket B', 2, 896, 832, 96, 0),
             ('D 528', 1, 896, 64, 528, 0),
             ('signed base', 1, 800, 800, 96, -40))
 # (name, N, lanes, D, disp_min, horizontal, laterals of each direction)
+# (name, H, W, D, disp_min)
+K5_CASES = (('pair', 512, 512, 64, -8), ('tile', 832, 832, 96, -30),
+            ('strip 1600', 256, 1600, 64, -20))
 K4B_CASES = (
     ('pair vf', 512, 512, 64, -8, False, ((0, 1, -1), (1, 0, -1), (-1, 0, 1))),
     ('pair hf', 512, 512, 64, -8, True, ((0, 1),)),
@@ -77,7 +88,8 @@ def build(srcs, out):
             if 'registers' in line or 'spill' in line:
                 print(f'  {k}: {line.strip()}')
         lib = ctypes.CDLL(os.path.join(out, f'lib{k}.so'))
-        for fn in ('s2p_cost_prepass', 's2p_cluster_sync_loop'):
+        for fn in ('s2p_cost_prepass', 's2p_cluster_sync_loop',
+                   's2p_wta_dr'):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = sk._ARGTYPES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
@@ -204,10 +216,34 @@ def run_k4b(libs, g):
               flush=True)
 
 
+def run_k5(libs, g):
+    labels = list(libs)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, H, W, D, dmin in K5_CASES:
+        sv = torch.rand((1, H, D, W), device='cuda', generator=g) * 1000
+        sh = (torch.rand((1, W, D, H), device='cuda', generator=g) * 1000) \
+            .permute(0, 3, 2, 1)
+        disp = torch.empty((1, H, W), device='cuda')
+        d = torch.empty((1, H, W), dtype=torch.int32, device='cuda')
+        dR = torch.empty((1, H, W), device='cuda')
+
+        def make_run(k):
+            return lambda: libs[k].s2p_wta_dr(
+                sv.data_ptr(), *sv.stride(), sh.data_ptr(), *sh.stride(), 2,
+                disp.data_ptr(), d.data_ptr(), dR.data_ptr(), 1, H, D, W,
+                dmin, 1, stream)
+
+        ab(f'K5 {name}', labels, make_run, [disp, d, dR])
+        print(f'  K5 {name} bound: '
+              f'{(8 * sv.numel() + 12 * H * W) / 3.35e12 * 1e3:.4f} ms '
+              '(bytes at 3.35 TB/s)', flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--k1', nargs='*', default=[])
-    ap.add_argument('--k4b', nargs='*', default=[])
+    ap.add_argument('--k1', nargs='*')
+    ap.add_argument('--k4b', nargs='*')
+    ap.add_argument('--k5', nargs='*')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('ab_kernels_torch: CUDA is not available', file=sys.stderr)
@@ -217,16 +253,21 @@ def main():
                          text=True).stdout.strip(), flush=True)
     csrc = os.path.join(ROOT, 's2p_tpu_torch', 'csrc')
     out = os.path.join(ROOT, 'out', 'ab_kernels_build')
-    srcs = {f'k1_v{i}': p for i, p in enumerate(args.k1)}
-    srcs['k1_new'] = os.path.join(csrc, 'cost_prepass.cu')
-    srcs.update({f'k4b_v{i}': p for i, p in enumerate(args.k4b)})
-    srcs['k4b_new'] = os.path.join(csrc, 'scan_mgm.cu')
+    runs = (('k1', args.k1, 'cost_prepass.cu', run_k1),
+            ('k4b', args.k4b, 'scan_mgm.cu', run_k4b),
+            ('k5', args.k5, 'wta.cu', run_k5))
+    srcs = {}
+    for key, old, own, _ in runs:
+        if old is not None:
+            srcs.update({f'{key}_v{i}': p for i, p in enumerate(old)})
+            srcs[f'{key}_new'] = os.path.join(csrc, own)
     libs = build(srcs, out)
     for k, p in srcs.items():
         print(f'  {k}: {os.path.relpath(p, ROOT)}', flush=True)
     g = torch.Generator(device='cuda').manual_seed(0)
-    run_k1({k: v for k, v in libs.items() if k.startswith('k1_')}, g)
-    run_k4b({k: v for k, v in libs.items() if k.startswith('k4b_')}, g)
+    for key, old, _, fn in runs:
+        if old is not None:
+            fn({k: v for k, v in libs.items() if k.startswith(key + '_')}, g)
     return 0
 
 
