@@ -11,9 +11,9 @@ the JAX package.  Phases, each timed on a line of its own:
      s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
      lines, and a check that every instantiation of the scan kernel up to
      4096 candidates (K2 and K4a), of the pre-pass (K1), of the
-     averaged-MGM scan (K4b, both instantiations) and of the WTA with the
-     right-reference map (K5, its three instantiations) has a 0-byte
-     stack frame and no spill;
+     averaged-MGM scan (K4b, both instantiations), of the WTA with the
+     right-reference map (K5, its three instantiations) and of the warp
+     (W1, orders 1, 3 and 5) has a 0-byte stack frame and no spill;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -68,6 +68,20 @@ the JAX package.  Phases, each timed on a line of its own:
   8. stage 4 at 528 candidates: one 60 x 890 tile through
      ``stereo_matching_all``, its known shift, and its files byte for
      byte against the CPU run;
+ 8b. (run right after phase 8) stages 2 -> 3 -> 4 -> 5 of one scene on
+     the card: two 2000 x 2800 images (image 2 rendered from image 1
+     through stage 5's cameras at a constant altitude, with a pointing
+     error across the epipolar lines), an ROI of 2400 x 1600 px in 6
+     tiles of 800 with their neighbour halos and stage-1 files, the
+     default config; ``global_pointing_correction``,
+     ``rectification_all``, ``stereo_matching_all`` and
+     ``disparity_to_ply_all``, each timed, the launches over the four;
+     stages 2 and 3 again with device="cpu", their files byte for byte;
+     the matches' rectified rows within 0.1 px, stage 4's disparities
+     inside each tile's range, the cloud's altitudes near the scene's;
+     stage 3's parts one by one with their shares of its time; W1 at the
+     scene's group and tile, bitwise against and timed beside its plain
+     version, with its bound, and its order 1 beside grid_sample;
   9. (run right after phase 4) the single-tile and lane-fold modes of
      the kernels against their plain versions: the pre-pass at a signed base (-40, padded
      secondary) on an 800 x 800 tile with 96 candidates, the WTA's
@@ -76,6 +90,14 @@ the JAX package.  Phases, each timed on a line of its own:
      (4 groups of 2 tiles, 448 x 1184 lanes vertical, 592 x 896
      horizontal, segment width 592), timed against the same scans over
      the 8 tiles unfolded and held bitwise against them;
+ 9b. (run right after phase 9) W1, the homography warp, against its
+     plain version, bitwise and NaN-aware, one line per case: orders 1,
+     3 and 5, each with a clean source and one with NaN along its borders
+     and a NaN block (order 5 through its NaN mask), batches of 1, 2 and
+     3 homographies, an output larger than its source, a 1 x 1 output,
+     homographies whose z crosses 0 inside the output, and 65 jobs
+     through ``ops.homography.warp_jobs_batched`` (two launches); then the
+     plain version on the card against the plain version on the CPU;
  10. the single-tile entry on the card: ``ops.mgm_flow.mgm_binary_match``
      on a 797 x 803 tile (range -40..55, the padded route) and an
      800 x 800 tile (the aligned route), each bitwise against
@@ -90,11 +112,12 @@ the JAX package.  Phases, each timed on a line of its own:
      phase that drives its path (5 for the flow's kernels, 6 for the
      classic matcher's, 8 for the scan at 528 candidates, 10 for the
      pre-pass at a signed base and the WTA's edge modes, 11 for the
-     folded scan), its error against the plain version, its time, the
-     plain version's time and the least time the card could take (bytes
-     over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100 SXM data
-     sheet); the scan's entries also carry ``bucket_ms``, both sides of
-     the bucket as the flow launches them, and K4b's ``step_floor_ms``;
+     folded scan, 8b for W1), its error against the plain version, its
+     time, the plain version's time and the least time the card could
+     take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100
+     SXM data sheet); the scan's entries also carry ``bucket_ms``, both
+     sides of the bucket as the flow launches them, K4b's
+     ``step_floor_ms`` and W1's ``group_ms`` (the scene's group of 6);
  13. the last line: {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -149,6 +172,19 @@ S5_KNOWN_DISP, S5_KNOWN_TOL_M = 3.0, 0.01
 # groups and a 2-tile tail)
 KERNEL_FOLD = 2
 BATCH_FOLD = 3
+# stages 2 -> 3 -> 4 -> 5 of one scene: two 2000 x 2800 images seen by
+# stage 5's cameras (shared row polynomials, 0.35 px/m apart), image 2
+# rendered from image 1 through both cameras at the constant altitude
+# SCENE_H0 with a pointing error of SCENE_POINTING px across the epipolar
+# lines; an ROI of 2400 x 1600 px in 6 tiles of 800; the cloud's
+# altitudes are held to SCENE_H0 (median and 90th percentile of the
+# absolute error, in metres: 1 px of disparity is about 2.9 m)
+SCENE = dict(h=2000, w=2800, roi=(200, 200, 2400, 1600), tile=800,
+             seed=500)
+SCENE_H0 = 300.0
+SCENE_POINTING = 0.7
+SCENE_ALT_TOL_M = (1.0, 3.0)
+SCENE_ROW_TOL_PX = 0.1
 
 
 @contextmanager
@@ -1551,6 +1587,420 @@ def fold_args(specs, b1, b2):
             [s['dmax'] - s['dmin'] + 1 for s in specs], mf.MgmVariant())
 
 
+def check_warp():
+    """W1 against its plain version on the card, bitwise and NaN-aware,
+    one line per case; then the plain version on the card against the
+    plain version on the CPU."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.ops import homography as hom
+    from s2p_tpu_torch.ops import interp
+
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(41)
+
+    def source(h, w, nan):
+        img = (rng.rand(h, w) * 255).astype(np.float32)
+        if nan:     # NaN along every border and a block inside
+            img[0], img[-1], img[:, 0], img[:, -1] = (np.nan,) * 4
+            img[h // 3:h // 3 + 3, w // 2:w // 2 + 4] = np.nan
+        return img
+
+    def hinvs(n, z_cross=False):
+        out = []
+        for _ in range(n):
+            A = np.eye(3)
+            A[:2, :2] += rng.normal(0, 0.05, (2, 2))
+            A[:2, 2] = rng.uniform(-5, 5, 2)
+            hv = np.linalg.inv(A)
+            if z_cross:     # z = 1 - 0.05 x: 0 at column 20
+                hv[2] = (-0.05, 0.0, 1.0)
+            out.append(hv)
+        return np.stack(out).astype(np.float32)
+
+    def inputs(img, order, nan):
+        if order == 5:
+            coeffs, mask = hom._spline5_inputs(img)
+        else:
+            coeffs, mask = (img if nan else np.nan_to_num(img)), None
+        return (torch.from_numpy(coeffs).to(dev),
+                None if mask is None else torch.from_numpy(mask).to(dev))
+
+    def case(label, img, hv, ow, oh, order, nan):
+        c, m = inputs(img, order, nan)
+        h = torch.from_numpy(hv).to(dev)
+        got = interp.warp_homography(c, h, ow, oh, order, m)
+        ref = torch.stack([interp.warp_homography_plain(c, h[k], ow, oh,
+                                                        order, m)
+                           for k in range(len(h))])
+        torch.cuda.synchronize()
+        ok, err = equal(got, ref)
+        print(f'  W1 {label}: order {order}, {len(hv)} x {oh} x {ow} from '
+              f'{img.shape[0]} x {img.shape[1]}, NaN source {nan}: '
+              f'bitwise={ok} max_abs_err={err} '
+              f'(NaN outputs {int(torch.isnan(got).sum())})', flush=True)
+        if not ok:
+            raise AssertionError(f'W1 {label} (order {order}) differs from '
+                                 f'its plain version: {err}')
+
+    for order in (1, 3, 5):
+        for nan in (False, True):
+            case('3 jobs', source(61, 77, nan), hinvs(3), 70, 50, order, nan)
+            case('larger output', source(40, 50, nan), hinvs(2), 170, 130,
+                 order, nan)
+            case('z crosses 0', source(61, 77, nan), hinvs(2, True), 60, 40,
+                 order, nan)
+        case('1 job', source(61, 77, True), hinvs(1), 83, 67, order, True)
+        case('1 x 1 output', source(61, 77, True), hinvs(2), 1, 1, order,
+             True)
+
+    # 65 jobs on one source and bucket: two launches (64 + 1)
+    img = source(300, 340, True)
+    Hs = [np.linalg.inv(hv) for hv in hinvs(65)]
+    before = interp.launch_counts()['warp']
+    got = hom.warp_jobs_batched([(img, H, 250 + k % 3, 200) for k, H in
+                                 enumerate(Hs)])
+    launched = interp.launch_counts()['warp'] - before
+    c, m = inputs(img, 5, True)
+    for k, H in enumerate(Hs):
+        hv = torch.from_numpy(hom._inverse_f32(H)).to(dev)
+        ref = interp.warp_homography_plain(c, hv, 250 + k % 3, 200, 5, m)
+        ok, err = equal(torch.from_numpy(got[k]), ref.cpu())
+        if not ok:
+            raise AssertionError(f'W1 65 jobs: job {k} differs from its '
+                                 f'plain version: {err}')
+    print(f'  W1 65 jobs through warp_jobs_batched: {launched} launches, '
+          'every job bitwise equal to its plain version', flush=True)
+    if launched != 2:
+        raise AssertionError(f'65 jobs took {launched} launches, not 2')
+
+    # the plain version on the card against the plain version on the CPU
+    img = source(200, 230, True)
+    coeffs, mask = hom._spline5_inputs(img)
+    hv = hinvs(1)[0]
+    outs = [interp.warp_homography_plain(
+        torch.from_numpy(coeffs).to(d), torch.from_numpy(hv).to(d), 150,
+        120, 5, torch.from_numpy(mask).to(d)).cpu() for d in (dev, 'cpu')]
+    ok, err = equal(*outs)
+    print(f'  plain warp, order 5 with a NaN mask, 120 x 150: card against '
+          f'CPU bitwise={ok} max_abs_err={err}', flush=True)
+    if not ok:
+        raise AssertionError('the plain warp differs between the card and '
+                             'the CPU')
+
+
+def scene_tiles(root):
+    """The scene's tiles in the tiling's layout, each with the relative
+    directories of its 3 x 3 neighbourhood inside the ROI."""
+    rx, ry, rw, rh = SCENE['roi']
+    t = SCENE['tile']
+
+    def rel(x, y):
+        return os.path.join('tiles', f'row_{y:07d}_height_{t}',
+                            f'col_{x:07d}_width_{t}')
+    tiles = []
+    for y in range(ry, ry + rh, t):
+        for x in range(rx, rx + rw, t):
+            nbrs = [os.path.join('../../..', rel(x2, y2))
+                    for y2 in (y - t, y, y + t) for x2 in (x - t, x, x + t)
+                    if rx <= x2 < rx + rw and ry <= y2 < ry + rh]
+            tiles.append({'dir': os.path.join(root, rel(x, y)),
+                          'coordinates': (x, y, t, t),
+                          'neighborhood_dirs': nbrs})
+    return tiles
+
+
+def render_scene(root):
+    """The scene's images and stage-1 files under ``root``; returns the
+    config (the default one, with the two cameras) and the tiles.
+
+    Image 1 is smooth noise.  Image 2 shows, at each pixel, the ground
+    point at SCENE_H0 that camera 2 sees SCENE_POINTING px above it (the
+    pointing error), as camera 1 sees it: the map from image 2 to image 1
+    is computed in float64 on a grid every 16 px and interpolated between
+    (the map is smooth to about 1e-6 px over 16 px), and image 1 is
+    sampled there by a cubic spline.  Per tile, the stage-1 files: 200
+    SIFT-like matches of ground points at SCENE_H0 through both cameras
+    (image 2's rows moved by the pointing error), the pointing correction
+    and the mean secondary keypoint; and the tile's mask.png."""
+    import numpy as np
+    from scipy import ndimage
+    from s2p_tpu_torch.config import Config, ImageSpec
+    from s2p_tpu_torch.core import rpc_geom
+    from s2p_tpu_torch.geo import crs, geotiff
+
+    cam1, cam2 = stage5_camera(1, 0.02), stage5_camera(2, -0.015)
+    h, w = SCENE['h'], SCENE['w']
+    rng = np.random.RandomState(SCENE['seed'])
+    img1 = ndimage.uniform_filter(rng.rand(h, w).astype(np.float32) * 200,
+                                  3)
+    step = 16
+    gy, gx = np.mgrid[0:h + step:step, 0:w + step:step].astype(np.float64)
+    lon, lat = cam2.localization(gx.ravel(), gy.ravel() - SCENE_POINTING,
+                                 SCENE_H0)
+    c1, r1 = cam1.projection(lon, lat, SCENE_H0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) / step
+    cmap = ndimage.map_coordinates(c1.reshape(gx.shape), [yy, xx], order=1)
+    rmap = ndimage.map_coordinates(r1.reshape(gx.shape), [yy, xx], order=1)
+    del yy, xx
+    img2 = ndimage.map_coordinates(img1, [rmap, cmap], order=3,
+                                   mode='nearest').astype(np.float32)
+    os.makedirs(root)
+    paths = [os.path.join(root, f'img_{k}.tif') for k in (1, 2)]
+    for path, img in zip(paths, (img1, img2)):
+        geotiff.write(path, img)
+
+    tiles = scene_tiles(root)
+    A = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, -SCENE_POINTING],
+                  [0.0, 0.0, 1.0]])
+    for k, t in enumerate(tiles):
+        x, y, tw, th = t['coordinates']
+        pdir = os.path.join(t['dir'], 'pair_1')
+        os.makedirs(pdir)
+        r = np.random.RandomState(SCENE['seed'] + 1 + k)
+        cols, rows = x + r.rand(200) * tw, y + r.rand(200) * th
+        lon, lat = cam1.localization(cols, rows, SCENE_H0)
+        c2, r2 = cam2.projection(lon, lat, SCENE_H0)
+        m = np.column_stack([cols, rows, c2, r2 + SCENE_POINTING])
+        np.savetxt(os.path.join(pdir, 'sift_matches.txt'), m, fmt='%9.3f')
+        np.savetxt(os.path.join(pdir, 'pointing.txt'), A, fmt='%6.3f')
+        np.savetxt(os.path.join(pdir, 'center_keypts_sec.txt'),
+                   np.mean(m[:, 2:], 0), fmt='%9.3f')
+        geotiff.write_png(os.path.join(t['dir'], 'mask.png'),
+                          np.full((th, tw), 255, np.uint8))
+    zone = rpc_geom.utm_zone(cam1, *SCENE['roi'])
+    cfg = Config(out_dir=root, images=(ImageSpec(img=paths[0], rpcm=cam1),
+                                       ImageSpec(img=paths[1], rpcm=cam2)),
+                 out_crs=f'epsg:{crs.epsg_code_from_utm_zone(zone)}',
+                 gsd=rpc_geom.gsd_from_rpc(cam1))
+    return cfg, tiles
+
+
+def scene_stage3_shares(cfg, tiles, t_stage3):
+    """Stage 3's parts run again one by one on the card: the input TIFF
+    reads, the per-tile geometry, the prefilter, the warps and the TIFF
+    writes, each with its share of stage 3's wall time."""
+    import functools
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.geo import geotiff
+    from s2p_tpu_torch.ops import homography as hom
+
+    parts = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    imgs = part('TIFF reads of the two images', lambda: [
+        geotiff.read(im.img).astype('float32') for im in cfg.images])
+    geoms = part('geometry of the tiles (thread pool)', lambda:
+                 pipeline._fan_out(
+                     functools.partial(pipeline._rectification_geometry,
+                                       cfg), [(t, 1) for t in tiles], None,
+                     600))
+    part('quintic prefilter of the two images (scipy)',
+         lambda: [hom._spline5_inputs(im) for im in imgs])
+    jobs = [(imgs[k], g[f'H{k + 1}'], g['w'], g['h'])
+            for g in geoms for k in (0, 1)]
+    rects = part('prefilter, upload, W1 and download (warp_jobs_batched)',
+                 lambda: hom.warp_jobs_batched(jobs))
+    part('TIFF writes of the rectified pairs (thread pool)',
+         lambda: pipeline._fan_out(
+             pipeline._write_rectified,
+             [(g, rects[2 * k], rects[2 * k + 1])
+              for k, g in enumerate(geoms)], None, 600))
+    for name, t in parts.items():
+        print(f'  stage 3 part: {name}: {t:.3f} s '
+              f'({t / t_stage3:.3f} of the stage)', flush=True)
+
+
+def time_scene_warp(cfg, tiles, stats):
+    """W1 at the main path's shapes: the reference image's group of the
+    scene's tiles (one launch) and one tile's warp, bitwise against the
+    plain version on the card and timed beside it, with the bound; and
+    torch's grid_sample (bilinear, align_corners=True) beside W1's
+    order 1 at the tile's shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from s2p_tpu_torch.geo import geotiff
+    from s2p_tpu_torch.ops import homography as hom
+    from s2p_tpu_torch.ops import interp
+
+    dev = torch.device('cuda')
+    img = geotiff.read(cfg.images[0].img).astype(np.float32)
+    coeffs, mask = hom._spline5_inputs(img)
+    c = torch.from_numpy(coeffs).to(dev)
+    m = None if mask is None else torch.from_numpy(mask).to(dev)
+    hvs, shapes = [], []
+    for t in tiles:
+        pdir = os.path.join(t['dir'], 'pair_1')
+        hvs.append(hom._inverse_f32(np.loadtxt(os.path.join(pdir,
+                                                            'H_ref.txt'))))
+        shapes.append(geotiff.read(os.path.join(pdir,
+                                                'rectified_ref.tif')).shape)
+    oh = -(-max(s[0] for s in shapes) // 64) * 64
+    ow = -(-max(s[1] for s in shapes) // 128) * 128
+    group = torch.from_numpy(np.stack(hvs)).to(dev)
+    one = group[:1]
+
+    def kernel(h):
+        return interp.warp_homography(c, h, ow, oh, 5, m)
+
+    def plain():
+        return interp.warp_homography_plain(c, one[0], ow, oh, 5, m)
+
+    got = kernel(group)
+    ref = torch.stack([interp.warp_homography_plain(c, h, ow, oh, 5, m)
+                       for h in group])
+    ok, err = equal(got, ref)
+    if not ok:
+        raise AssertionError(f'W1 at the scene group differs from its plain '
+                             f'version: {err}')
+    n_inside = int(torch.isfinite(kernel(one)).sum())
+    ms_group = timed(lambda: kernel(group), 10)
+    ms = timed(lambda: kernel(one), 10)
+    plain_ms = timed(plain, 2)
+    nbytes = c.numel() * 4 * (1 if m is None else 2) + 36 + oh * ow * 4
+    ops = interp.warp_ops(5, m is not None, n_inside, oh * ow)
+    t_bound, by = bound(nbytes, ops)
+    print(f'  W1 order 5 at the scene: group of {len(hvs)} tiles, '
+          f'{oh} x {ow} each, bitwise={ok}: {ms_group:.4f} ms a group, '
+          f'{ms:.4f} ms a warp ({n_inside} of {oh * ow} pixels inside); '
+          f'plain {plain_ms:.3f} ms a warp; bound {t_bound:.4f} ms a warp '
+          f'({by}: {ops:.4g} f32 operations, {nbytes} bytes)', flush=True)
+    stats['warp'] = dict(err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+                         ops=ops, group_ms=ms_group)
+
+    # order 1 beside torch's bilinear grid_sample on the same grid
+    src = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    hv = one[0]
+    ys = torch.arange(oh, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(ow, dtype=torch.float32, device=dev)[None, :]
+    z = hv[2, 0] * xs + hv[2, 1] * ys + hv[2, 2]
+    sx = (hv[0, 0] * xs + hv[0, 1] * ys + hv[0, 2]) / z
+    sy = (hv[1, 0] * xs + hv[1, 1] * ys + hv[1, 2]) / z
+    H, W = img.shape
+    grid = torch.stack([sx / (W - 1) * 2 - 1, sy / (H - 1) * 2 - 1],
+                       dim=-1)[None]
+    inp = src[None, None]
+    lib = F.grid_sample(inp, grid, mode='bilinear', align_corners=True)[0, 0]
+    w1 = interp.warp_homography(src, hv, ow, oh, 1)
+    fin = torch.isfinite(w1)
+    d = (lib[fin] - w1[fin]).abs().max().item()
+    ms1 = timed(lambda: interp.warp_homography(src, hv, ow, oh, 1), 10)
+    lib_ms = timed(lambda: F.grid_sample(inp, grid, mode='bilinear',
+                                         align_corners=True), 10)
+    print(f'  W1 order 1 at {oh} x {ow}: {ms1:.4f} ms; grid_sample '
+          f'(bilinear, align_corners=True, zeros outside) {lib_ms:.4f} ms; '
+          f'max difference inside {d:.3g}', flush=True)
+
+
+def run_scene(root, cpu_root, stats, launches):
+    """Stages 2 -> 3 -> 4 -> 5 of the scene on the card, each timed, the
+    launch counts of the port's kernels over the four; then the checks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.geo import geotiff, ply
+    from s2p_tpu_torch.ops import interp
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    from s2p_tpu_torch.ops.homography import points_apply_homography
+
+    t0 = time.perf_counter()
+    cfg, tiles = render_scene(root)
+    print(f"  scene: two {SCENE['h']} x {SCENE['w']} images, "
+          f'{len(tiles)} tiles, rendered in {time.perf_counter() - t0:.3f} '
+          's', flush=True)
+    shutil.copytree(os.path.join(root, 'tiles'),
+                    os.path.join(cpu_root, 'tiles'))
+    pairs = [(t, 1) for t in tiles]
+    walls = {}
+    sk.reset_launch_counts()
+    interp.reset_launch_counts()
+    for name, fn in (
+            ('stage 2', lambda: pipeline.global_pointing_correction(cfg,
+                                                                   tiles)),
+            ('stage 3', lambda: pipeline.rectification_all(cfg, pairs)),
+            ('stage 4', lambda: pipeline.stereo_matching_all(cfg, pairs)),
+            ('stage 5', lambda: pipeline.disparity_to_ply_all(cfg, tiles))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        print(f'  {name}: {walls[name]:.3f} s', flush=True)
+    launches['scene'] = {**sk.launch_counts(), **interp.launch_counts()}
+    print(f"  launches over stages 2 to 5: {launches['scene']}", flush=True)
+
+    # stage 3 on the CPU: the same files byte for byte
+    cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
+    cpu_tiles = scene_tiles(cpu_root)
+    t0 = time.perf_counter()
+    pipeline.global_pointing_correction(cpu_cfg, cpu_tiles)
+    pipeline.rectification_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
+                               device='cpu')
+    print(f'  stages 2 and 3 with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    names = ('H_ref.txt', 'H_sec.txt', 'disp_min_max.txt',
+             'rectified_ref.tif', 'rectified_sec.tif')
+    files = [('global_pointing_pair_1.txt', root, cpu_root)] + [
+        (os.path.join('pair_1', n), a['dir'], b['dir'])
+        for a, b in zip(tiles, cpu_tiles) for n in names]
+    for name, a, b in files:
+        with open(os.path.join(a, name), 'rb') as f1, \
+                open(os.path.join(b, name), 'rb') as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f'stage 3: {a}/{name} differs from the '
+                                     'CPU run')
+    print(f'  stage 2 and 3 files equal the CPU run byte for byte: '
+          f'{len(files)} files', flush=True)
+
+    worst_row, alts = 0.0, []
+    for t in tiles:
+        pdir = os.path.join(t['dir'], 'pair_1')
+        m = np.loadtxt(os.path.join(pdir, 'sift_matches.txt'))
+        H1 = np.loadtxt(os.path.join(pdir, 'H_ref.txt'))
+        H2 = np.loadtxt(os.path.join(pdir, 'H_sec.txt'))
+        dy = np.abs(points_apply_homography(H1, m[:, :2])[:, 1]
+                    - points_apply_homography(H2, m[:, 2:])[:, 1])
+        worst_row = max(worst_row, float(dy.max()))
+        lo, hi = np.loadtxt(os.path.join(pdir, 'disp_min_max.txt'))
+        disp = geotiff.read(os.path.join(pdir, 'rectified_disp.tif'))
+        fin = np.isfinite(disp)
+        if fin.mean() < 0.5 or disp[fin].min() < lo or disp[fin].max() > hi:
+            raise AssertionError(f"stage 4: {t['dir']}: finite share "
+                                 f'{fin.mean():.3f}, disparities outside '
+                                 f'[{lo}, {hi}]')
+        pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
+        err = np.abs(pts[:, 2] - SCENE_H0)
+        alts.append(err)
+        print(f"  {os.path.relpath(t['dir'], root)}: range [{lo}, {hi}], "
+              f'disparity {np.percentile(disp[fin], 1):.3f} .. '
+              f'{np.percentile(disp[fin], 99):.3f} ({fin.mean():.4f} '
+              f'finite), {len(pts)} points, |altitude - {SCENE_H0}| median '
+              f'{np.median(err):.3f} m, 90th percentile '
+              f'{np.percentile(err, 90):.3f} m', flush=True)
+    err = np.concatenate(alts)
+    med, p90 = float(np.median(err)), float(np.percentile(err, 90))
+    print(f'  matches: rectified rows agree within {worst_row:.4f} px '
+          f'(tolerance {SCENE_ROW_TOL_PX}); cloud: {len(err)} points, '
+          f'|altitude - {SCENE_H0}| median {med:.3f} m, 90th percentile '
+          f'{p90:.3f} m (tolerances {SCENE_ALT_TOL_M})', flush=True)
+    if worst_row > SCENE_ROW_TOL_PX:
+        raise AssertionError('stage 3: the matches do not fall on the same '
+                             'rectified rows')
+    if med > SCENE_ALT_TOL_M[0] or p90 > SCENE_ALT_TOL_M[1]:
+        raise AssertionError('stage 5: the cloud misses the altitude of the '
+                             'scene')
+    scene_stage3_shares(cfg, tiles, walls['stage 3'])
+    time_scene_warp(cfg, tiles, stats)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1584,6 +2034,7 @@ def main():
                        'cost_prepass_kernel')
         check_no_spill(_build.build_log('scan_mgm'), 'scan_mgm_kernel')
         check_no_spill(_build.build_log('wta'), 'wta_dr_kernel')
+        check_no_spill(_build.build_log('warp'), 'warp_kernel')
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -1608,6 +2059,8 @@ def main():
                'plain versions'):
         check_signed_prepass(pairs, stats)
         check_fold_kernels(specs_a, pairs, stats)
+    with phase('W1 (the homography warp) against its plain version'):
+        check_warp()
 
     launches = {}
     tmp = tempfile.mkdtemp(prefix='s2p_chip_smoke_')
@@ -1661,6 +2114,9 @@ def main():
             print(f"  launches: {launches['wide']}", flush=True)
             pipeline.stereo_matching_all(cfg, [wide_cpu], device='cpu')
             check_outputs(gpu_root, [WIDE], cpu_root, {WIDE['index']})
+        with phase('stages 2 -> 3 -> 4 -> 5 of one scene on the card'):
+            run_scene(os.path.join(tmp, 'scene'),
+                      os.path.join(tmp, 'scene_cpu'), stats, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1715,6 +2171,9 @@ def main():
                      'wta_edge'),
         'scan_sig_seg': (f'{csrc}/scan.cu', f'{pallas}:81', 'fold',
                          'scan_sig_seg'),
+        # W1 replaces a jitted jnp program, not a Pallas kernel
+        'warp': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:145', 'scene',
+                 'warp'),
     }
     missing = [name for name, (_, _, run, key) in table.items()
                if launches[run][key] == 0]
@@ -1730,8 +2189,8 @@ def main():
                         'max_abs_err': st['err'], 'ms': st['ms'],
                         'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
                         'bound_by': by, 'library_ms': None,
-                        **{k: st[k] for k in ('bucket_ms', 'step_floor_ms')
-                           if k in st}})
+                        **{k: st[k] for k in ('bucket_ms', 'step_floor_ms',
+                                              'group_ms') if k in st}})
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,13 +1,17 @@
 """TIFF and PNG raster IO in numpy and zlib alone.
 
-Stage 4 reads the rectified pair as TIFF and writes the disparity and
-confidence maps as float32 TIFF and the validity mask as an 8-bit grey
-PNG.  The port's machines have no PIL, rasterio or GDAL, so this module
+Stage 3 reads the input images (and an exogenous DEM's window) and
+writes the rectified pair as float32 TIFF; stage 4 reads that pair and
+writes the disparity and confidence maps as float32 TIFF and the
+validity mask as an 8-bit grey PNG.  The port's machines have no PIL, rasterio or GDAL, so this module
 carries the subset it needs:
 
-  * TIFF read: classic TIFF, first IFD, uncompressed strips of chunky
-    samples, any integer or float sample type (the layout both packages
-    write);
+  * TIFF read (the JAX package's pure-Python reader, without its native
+    windowed decoder): classic TIFF and BigTIFF, first IFD, strips or
+    tiles, chunky or planar samples, any integer or float sample type,
+    compression none, deflate, PackBits or LZW, the horizontal and the
+    floating-point predictor, windowed reads, the profile (geo transform,
+    EPSG CRS, nodata, RPC tag);
   * TIFF write: one band in uncompressed strips, with the GDAL nodata
     tag -- byte for byte what ``s2p_tpu.geo.geotiff.write`` writes for a
     2-D array;
@@ -17,6 +21,7 @@ carries the subset it needs:
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 import zlib
 
@@ -26,9 +31,12 @@ _T_WIDTH, _T_HEIGHT = 256, 257
 _T_BPS, _T_COMPRESSION, _T_PHOTO = 258, 259, 262
 _T_STRIP_OFFSETS, _T_SPP, _T_ROWS_PER_STRIP, _T_STRIP_COUNTS = 273, 277, 278, 279
 _T_PLANAR, _T_PREDICTOR = 284, 317
-_T_TILE_OFFSETS = 324
+_T_TILE_W, _T_TILE_H, _T_TILE_OFFSETS, _T_TILE_COUNTS = 322, 323, 324, 325
 _T_SAMPLE_FORMAT = 339
+_T_PIXEL_SCALE, _T_TIEPOINT = 33550, 33922
+_T_GEO_KEYS = 34735
 _T_GDAL_NODATA = 42113
+_T_RPC = 50844
 
 _TYPE_FMT = {1: 'B', 2: 'c', 3: 'H', 4: 'I', 5: 'II', 6: 'b', 7: 'B',
              8: 'h', 9: 'i', 10: 'ii', 11: 'f', 12: 'd', 16: 'Q', 17: 'q'}
@@ -36,69 +44,294 @@ _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
               10: 8, 11: 4, 12: 8, 16: 8, 17: 8}
 
 
-def _tags(data):
-    """(byte order, {tag: value}) of the first IFD of a classic TIFF."""
-    if data[:2] == b'II':
-        en = '<'
-    elif data[:2] == b'MM':
-        en = '>'
-    else:
-        raise ValueError('not a TIFF file')
-    if struct.unpack(en + 'H', data[2:4])[0] != 42:
-        raise NotImplementedError('only classic TIFF is supported')
-    off, = struct.unpack(en + 'I', data[4:8])
-    n, = struct.unpack(en + 'H', data[off:off + 2])
-    tags = {}
-    for i in range(n):
-        e = data[off + 2 + 12 * i:off + 14 + 12 * i]
-        tag, typ, cnt = struct.unpack(en + 'HHI', e[:8])
-        if typ not in _TYPE_FMT:
+@dataclasses.dataclass
+class Profile:
+    """Raster metadata, the moral equivalent of a rasterio profile."""
+    width: int
+    height: int
+    count: int = 1
+    dtype: str = 'float32'
+    crs: object = None           # geo.crs.CRS or None
+    transform: tuple = None      # (a, b, c, d, e, f): x = c + a*col + b*row
+    nodata: float = None
+    rpc_tag: tuple = None
+
+    @property
+    def shape(self):
+        return (self.height, self.width)
+
+
+def _as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+class _Tiff:
+    """TIFF container parser (classic and BigTIFF, first IFD only)."""
+
+    def __init__(self, path):
+        with open(path, 'rb') as f:
+            self.data = d = f.read()
+        if d[:2] == b'II':
+            self.en = '<'
+        elif d[:2] == b'MM':
+            self.en = '>'
+        else:
+            raise ValueError(f'{path} is not a TIFF file')
+        magic, = struct.unpack(self.en + 'H', d[2:4])
+        self.big = magic == 43
+        if self.big:
+            off, = struct.unpack(self.en + 'Q', d[8:16])
+        else:
+            off, = struct.unpack(self.en + 'I', d[4:8])
+        self.tags = self._parse_ifd(off)
+
+    def _parse_ifd(self, off):
+        d, en = self.data, self.en
+        if self.big:
+            n, = struct.unpack(en + 'Q', d[off:off + 8])
+            off += 8
+            esz, cnt_fmt, inline = 20, 'Q', 8
+        else:
+            n, = struct.unpack(en + 'H', d[off:off + 2])
+            off += 2
+            esz, cnt_fmt, inline = 12, 'I', 4
+        tags = {}
+        for i in range(n):
+            e = d[off + i * esz: off + (i + 1) * esz]
+            tag, typ = struct.unpack(en + 'HH', e[:4])
+            cnt, = struct.unpack(en + cnt_fmt,
+                                 e[4:4 + struct.calcsize(cnt_fmt)])
+            if typ not in _TYPE_FMT:
+                continue
+            size = _TYPE_SIZE[typ] * cnt
+            payload = e[12:20] if self.big else e[8:12]
+            if size <= inline:
+                raw = payload[:size]
+            else:
+                p, = struct.unpack(en + ('Q' if self.big else 'I'), payload)
+                raw = d[p:p + size]
+            tags[tag] = self._decode(typ, cnt, raw)
+        return tags
+
+    def _decode(self, typ, cnt, raw):
+        if typ == 2:                                   # ASCII
+            return raw.split(b'\0')[0].decode('latin1')
+        vals = struct.unpack(self.en + _TYPE_FMT[typ] * cnt, raw)
+        if typ in (5, 10):                             # rationals
+            return tuple(vals[i] / max(vals[i + 1], 1)
+                         for i in range(0, len(vals), 2))
+        return vals[0] if cnt == 1 else vals
+
+    def dtype(self):
+        bps = _as_tuple(self.tags.get(_T_BPS, 1))[0]
+        sf = _as_tuple(self.tags.get(_T_SAMPLE_FORMAT, 1))[0]
+        kind = {1: 'u', 2: 'i', 3: 'f'}.get(sf, 'u')
+        return np.dtype(f'{self.en}{kind}{bps // 8}')
+
+    def decompress(self, raw, out_size):
+        comp = self.tags.get(_T_COMPRESSION, 1)
+        if comp == 1:
+            return raw
+        if comp in (8, 32946):                         # deflate
+            return zlib.decompress(raw)
+        if comp == 32773:
+            return _packbits_decode(raw, out_size)
+        if comp == 5:
+            return _lzw_decode(raw, out_size)
+        raise NotImplementedError(f'TIFF compression {comp} not supported')
+
+    def read_array(self):
+        """The whole raster as (h, w, samples)."""
+        t = self.tags
+        w, h = t[_T_WIDTH], t[_T_HEIGHT]
+        spp = t.get(_T_SPP, 1)
+        dt = self.dtype()
+        planar = t.get(_T_PLANAR, 1)
+        pred = t.get(_T_PREDICTOR, 1)
+        nplanes = spp if planar == 2 else 1
+        cpp = 1 if planar == 2 else spp
+        if _T_TILE_OFFSETS in t:
+            cw, ch = t[_T_TILE_W], t[_T_TILE_H]
+            offs, cnts = _as_tuple(t[_T_TILE_OFFSETS]), \
+                _as_tuple(t[_T_TILE_COUNTS])
+            grid = [(y0, x0) for y0 in range(0, h, ch)
+                    for x0 in range(0, w, cw)]
+        else:
+            cw, ch = w, t.get(_T_ROWS_PER_STRIP, h)
+            offs, cnts = _as_tuple(t[_T_STRIP_OFFSETS]), \
+                _as_tuple(t[_T_STRIP_COUNTS])
+            grid = [(y0, 0) for y0 in range(0, h, ch)]
+        out = np.zeros((h, w, spp), dtype=dt.newbyteorder('='))
+        k = 0
+        for plane in range(nplanes):
+            for y0, x0 in grid:
+                hh, ww = min(ch, h - y0), min(cw, w - x0)
+                # a strip holds only its own rows; a tile is always whole
+                rows = hh if _T_TILE_OFFSETS not in t else ch
+                raw = self.data[offs[k]:offs[k] + cnts[k]]
+                buf = self.decompress(raw, rows * cw * cpp * dt.itemsize)
+                a = np.frombuffer(buf, dtype=dt, count=rows * cw * cpp)
+                a = _unpredict(a.reshape(rows, cw, cpp), pred)
+                if planar == 2:
+                    out[y0:y0 + hh, x0:x0 + ww, plane] = a[:hh, :ww, 0]
+                else:
+                    out[y0:y0 + hh, x0:x0 + ww] = a[:hh, :ww]
+                k += 1
+        return out
+
+
+def _unpredict(a, pred):
+    """Undo the TIFF predictor: 2 horizontal differences, 3 the
+    floating-point predictor (each row's bytes split into planes, most
+    significant first, then differenced).  The JAX package's reader
+    reverses the planes' byte order once more for predictor 3, which
+    decodes such files wrongly; this one does not."""
+    if pred == 2:
+        return np.cumsum(a, axis=1, dtype=a.dtype)
+    if pred == 3:
+        h, w, c = a.shape
+        raw = a.view(np.uint8).reshape(h, w * c * a.itemsize)
+        raw = np.cumsum(raw, axis=1, dtype=np.uint8)
+        raw = raw.reshape(h, a.itemsize, w * c)
+        raw = raw.transpose(0, 2, 1).copy()   # big-endian order
+        return raw.view(f'>f{a.itemsize}').astype(a.dtype).reshape(h, w, c)
+    return a
+
+
+def _packbits_decode(raw, out_size):
+    out = bytearray()
+    i, n = 0, len(raw)
+    while i < n and len(out) < out_size:
+        b = raw[i]
+        i += 1
+        if b < 128:
+            out += raw[i:i + b + 1]
+            i += b + 1
+        elif b > 128:
+            out += raw[i:i + 1] * (257 - b)
+            i += 1
+    return bytes(out)
+
+
+def _lzw_decode(raw, out_size):
+    """TIFF-flavour LZW (MSB-first codes, early change)."""
+    out = bytearray()
+    table = prev = None
+    bitpos, nbits = 0, 9
+    total_bits = len(raw) * 8
+
+    def read_code():
+        nonlocal bitpos
+        if bitpos + nbits > total_bits:
+            return 257                                 # end of information
+        byte0 = bitpos >> 3
+        val = int.from_bytes(raw[byte0:byte0 + 4].ljust(4, b'\0'), 'big')
+        val = (val >> (32 - nbits - (bitpos & 7))) & ((1 << nbits) - 1)
+        bitpos += nbits
+        return val
+
+    while len(out) < out_size:
+        code = read_code()
+        if code == 256:                                # clear
+            table = [bytes([i]) for i in range(256)] + [b'', b'']
+            nbits, prev = 9, None
             continue
-        size = _TYPE_SIZE[typ] * cnt
-        if size <= 4:
-            raw = e[8:8 + size]
+        if code == 257:
+            break
+        if table is None:
+            raise ValueError('LZW stream does not start with a clear code')
+        if prev is None:
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            table.append(prev + entry[:1])
         else:
-            p, = struct.unpack(en + 'I', e[8:12])
-            raw = data[p:p + size]
-        if typ == 2:
-            val = raw.split(b'\0')[0].decode('latin1')
-        else:
-            v = struct.unpack(en + _TYPE_FMT[typ] * cnt, raw)
-            if typ in (5, 10):
-                v = tuple(v[j] / max(v[j + 1], 1) for j in range(0, len(v), 2))
-            val = v[0] if len(v) == 1 else v
-        tags[tag] = val
-    return en, tags
+            entry = prev + prev[:1]
+            table.append(entry)
+        out += entry
+        prev = entry
+        if len(table) >= (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+    return bytes(out)
 
 
-def _first(v):
-    return v[0] if isinstance(v, tuple) else v
+def read_profile(path) -> Profile:
+    """Size, sample type, geo transform, CRS, nodata and RPC tag."""
+    t = _Tiff(path)
+    tags = t.tags
+    transform = None
+    if _T_PIXEL_SCALE in tags and _T_TIEPOINT in tags:
+        sx, sy = tags[_T_PIXEL_SCALE][0], tags[_T_PIXEL_SCALE][1]
+        tp = tags[_T_TIEPOINT]
+        # tiepoint: raster (i, j, k) -> model (X, Y, Z)
+        i, j, X, Y = tp[0], tp[1], tp[3], tp[4]
+        transform = (sx, 0.0, X - i * sx, 0.0, -sy, Y + j * sy)
+    nodata = None
+    if _T_GDAL_NODATA in tags:
+        try:
+            nodata = float(tags[_T_GDAL_NODATA])
+        except ValueError:
+            pass
+    return Profile(width=tags[_T_WIDTH], height=tags[_T_HEIGHT],
+                   count=tags.get(_T_SPP, 1),
+                   dtype=str(np.dtype(t.dtype().newbyteorder('='))),
+                   crs=_crs_from_geokeys(tags), transform=transform,
+                   nodata=nodata, rpc_tag=tags.get(_T_RPC))
 
 
-def read(path):
-    """A TIFF as an (h, w) or (h, w, bands) array."""
-    with open(path, 'rb') as f:
-        data = f.read()
-    en, t = _tags(data)
-    w, h = t[_T_WIDTH], t[_T_HEIGHT]
-    spp = t.get(_T_SPP, 1)
-    if (t.get(_T_COMPRESSION, 1), t.get(_T_PLANAR, 1),
-            t.get(_T_PREDICTOR, 1)) != (1, 1, 1) or _T_TILE_OFFSETS in t:
-        raise NotImplementedError(f'{path}: only uncompressed chunky strips '
-                                  'are supported')
-    kind = {1: 'u', 2: 'i', 3: 'f'}[_first(t.get(_T_SAMPLE_FORMAT, 1))]
-    dt = np.dtype(f'{en}{kind}{_first(t.get(_T_BPS, 1)) // 8}')
-    rps = t.get(_T_ROWS_PER_STRIP, h)
-    offs, cnts = t[_T_STRIP_OFFSETS], t[_T_STRIP_COUNTS]
-    offs = offs if isinstance(offs, tuple) else (offs,)
-    cnts = cnts if isinstance(cnts, tuple) else (cnts,)
-    out = np.zeros((h, w, spp), dtype=dt.newbyteorder('='))
-    for k, (o, c) in enumerate(zip(offs, cnts)):
-        y0 = k * rps
-        hh = min(rps, h - y0)
-        out[y0:y0 + hh] = np.frombuffer(data[o:o + c], dtype=dt,
-                                        count=hh * w * spp).reshape(hh, w, spp)
-    return out[:, :, 0] if spp == 1 else out
+def _crs_from_geokeys(tags):
+    """The EPSG CRS named by the GeoKey directory, or None."""
+    from . import crs as crsmod
+    gk = tags.get(_T_GEO_KEYS)
+    if not gk:
+        return None
+    gk = _as_tuple(gk)
+    epsg = None
+    for i in range(4, len(gk), 4):
+        key, loc, _, val = gk[i:i + 4]
+        if key == 3072 and loc == 0:                   # ProjectedCSType
+            epsg = val
+        elif key == 2048 and loc == 0 and epsg is None:  # GeographicType
+            epsg = val
+    if epsg and epsg != 32767:
+        try:
+            return crsmod.CRS.from_epsg(epsg)
+        except Exception:
+            return None
+    return None
+
+
+def read(path, window=None, boundless=False, fill_value=0):
+    """A TIFF as an (h, w) or (h, w, bands) array.
+
+    ``window`` is an optional (x, y, w, h) pixel window, clipped to the
+    raster unless ``boundless``, in which case the area outside it is
+    ``fill_value``.  The whole raster is decoded, then cut."""
+    arr = _Tiff(path).read_array()
+    if arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    if window is None:
+        return arr
+    x, y, w, h = [int(v) for v in window]
+    H, W = arr.shape[:2]
+    x0, y0 = max(x, 0), max(y, 0)
+    x1, y1 = min(x + w, W), min(y + h, H)
+    if not boundless:
+        return arr[y0:y1, x0:x1]
+    out = np.full((h, w) + arr.shape[2:], fill_value, dtype=arr.dtype)
+    if x0 < x1 and y0 < y1:
+        out[y0 - y:y1 - y, x0 - x:x1 - x] = arr[y0:y1, x0:x1]
+    return out
+
+
+def read_with_nans(path):
+    """Read, with the nodata value replaced by NaN."""
+    prof = read_profile(path)
+    arr = read(path)
+    if prof.nodata is not None and not np.isnan(prof.nodata):
+        arr = arr.astype(np.float32) if arr.dtype.kind != 'f' else arr
+        arr[arr == prof.nodata] = np.nan
+    return arr
 
 
 def _pack_tag(tag, typ, values, heap, heap_base):

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take raw
 device pointers, plain integer sizes and a ``cudaStream_t``, and return
 ``cudaGetLastError()``.  Each source becomes its own shared library,
 compiled for Hopper (``sm_90a``) with FMA contraction off (the scan's f32
-sums around ``BIG = 1e9`` round differently when a multiply and an add
-are fused) and without fast math (the subpixel division must round
-correctly).  The libraries include no PyTorch or Python header, so a
+sums around ``BIG = 1e9`` and the warp's spline weights round differently
+when a multiply and an add are fused) and without fast math (the
+subpixel and the warp's divisions must round correctly).  The libraries include no PyTorch or Python header, so a
 build takes seconds and needs nothing but ``nvcc``.
 
 The build runs at first use, all sources at once, into
@@ -25,7 +25,9 @@ import shutil
 import subprocess
 import time
 
-SOURCES = ('cost_prepass', 'scan', 'scan_mgm', 'wta')
+import torch
+
+SOURCES = ('cost_prepass', 'scan', 'scan_mgm', 'wta', 'warp')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
@@ -105,3 +107,18 @@ def load(name):
         libs, _ = build()
         _libs[name] = ctypes.CDLL(libs[name])
     return _libs[name]
+
+
+def call(lib_name, fn_name, argtypes, *args):
+    """Call the C launcher ``fn_name`` of one library on the current
+    stream; raises with the CUDA error's name if it returns non-zero."""
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        err = getattr(lib, f's2p_{lib_name}_error')
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f'{fn_name} launch failed: CUDA error {rc} '
+                           f'({err(rc).decode()})')

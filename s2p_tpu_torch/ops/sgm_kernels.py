@@ -111,16 +111,7 @@ def _launch(lib_name, fn_name, *args, key=None, kernels=1):
     """Call one C launcher on the current stream; ``kernels`` is the
     number of kernel launches it makes, counted under ``key`` (default
     the library's name)."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _ARGTYPES[fn_name]
-    fn.restype = ctypes.c_int
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        err = getattr(lib, f's2p_{lib_name}_error')
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f'{fn_name} launch failed: CUDA error {rc} '
-                           f'({err(rc).decode()})')
+    _build.call(lib_name, fn_name, _ARGTYPES[fn_name], *args)
     _launches[key or lib_name] += kernels
 
 

@@ -1,32 +1,57 @@
-"""Pipeline stages of the port.  Ported so far: stage 4 with ``mgm``
-and stage 5 in pair mode.
+"""Pipeline stages of the port.  Ported so far: stage 2 (the global
+pointing fit), stage 3 (rectification), stage 4 with ``mgm`` and stage 5
+in pair mode.
 
-Counterparts of ``stereo_matching_all`` and ``disparity_to_ply_all`` in
+Counterparts of ``global_pointing_correction``, ``rectification_all``,
+``stereo_matching_all`` and ``disparity_to_ply_all`` in
 ``s2p_tpu/pipeline.py``.  The per-tile file contract is the JAX
-package's, so either package can run a stage on the other's files: each
-``<tile>/pair_<i>/`` holds ``rectified_ref.tif``, ``rectified_sec.tif``
-and ``disp_min_max.txt``, stage 4 writes ``rectified_disp.tif``,
+package's, so either package can run a stage on the other's files:
+stage 1 leaves ``pointing.txt``, ``center_keypts_sec.txt`` and
+``sift_matches.txt`` in each ``<tile>/pair_<i>/``; stage 2 writes the
+scene's ``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
+``H_sec.txt``, ``disp_min_max.txt``, ``rectified_ref.tif`` and
+``rectified_sec.tif``; stage 4 writes ``rectified_disp.tif``,
 ``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them,
-and stage 5 reads those with ``H_ref.txt``, ``H_sec.txt``, the tile's
-``mask.png`` and the scene's ``global_pointing_pair_1.txt`` and writes
-the tile's ``cloud.ply``.
+and stage 5 reads those with the homographies, the tile's ``mask.png``
+and the scene's ``global_pointing_pair_1.txt`` and writes the tile's
+``cloud.ply``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import os
 
 import numpy as np
 
 from .config import Config
-from .core import masking, matching, triangulation
+from .core import masking, matching, pointing, rectification, triangulation
 from .device import resolve
 from .geo import crs as crsmod
 from .geo import geotiff
 from .geo import ply as plymod
 from .ops.filtering import count_3d_neighbors_batch, filter_xyz
+from .ops.homography import warp_jobs_batched
 from .ops.mgm_flow import mgm_binary_match_batch
+
+
+@functools.lru_cache(maxsize=8)
+def _image(path):
+    """A full input image as float32, decoded once per path."""
+    return geotiff.read(path).astype(np.float32)
+
+
+def _fan_out(fn, items, nb_workers, timeout):
+    """``fn(*item)`` for each item on a thread pool of ``nb_workers``
+    threads (default min(8, items)), ``timeout`` seconds for each; the
+    results in order, or the first exception."""
+    if not items:
+        return []
+    with concurrent.futures.ThreadPoolExecutor(
+            nb_workers or min(8, len(items))) as pool:
+        futures = [pool.submit(fn, *item) for item in items]
+        return [f.result(timeout=timeout) for f in futures]
 
 
 def _remove(*paths):
@@ -34,6 +59,131 @@ def _remove(*paths):
         if os.path.exists(p):
             os.remove(p)
 
+
+# --------------------------------------------------------------------- #
+# Stage 2: global pointing correction
+# --------------------------------------------------------------------- #
+
+def global_pointing_correction(cfg: Config, tiles):
+    """Stage 2: fit one pointing correction per secondary image to the
+    tiles' local corrections and write ``global_pointing_pair_<i>.txt``.
+    Host numpy only (a tiny SVD solve)."""
+    for i in range(1, len(cfg.images)):
+        corrections = []
+        for t in tiles:
+            d = os.path.join(t['dir'], f'pair_{i}')
+            pf = os.path.join(d, 'pointing.txt')
+            cf_ = os.path.join(d, 'center_keypts_sec.txt')
+            if os.path.isfile(pf) and os.path.isfile(cf_):
+                corrections.append((np.loadtxt(pf), np.loadtxt(cf_)))
+        out = os.path.join(cfg.out_dir, f'global_pointing_pair_{i}.txt')
+        np.savetxt(out, pointing.global_from_local(corrections), fmt='%12.6f')
+        if cfg.clean_intermediate:
+            for t in tiles:
+                _remove(os.path.join(t['dir'], f'pair_{i}',
+                                     'center_keypts_sec.txt'))
+
+
+# --------------------------------------------------------------------- #
+# Stage 3: rectification
+# --------------------------------------------------------------------- #
+
+def _rectification_inputs(cfg: Config, tile, i):
+    """A tile's pointing correction (its own, else the scene's) and its
+    SIFT matches with those of its neighbours that fall inside an ellipse
+    of semi-axes (3w/4, 3h/4) about the tile's centre."""
+    out_dir = os.path.join(tile['dir'], f'pair_{i}')
+    x, y, w, h = tile['coordinates']
+    pointing_file = os.path.join(cfg.out_dir, f'global_pointing_pair_{i}.txt')
+    try:
+        A = np.loadtxt(os.path.join(out_dir, 'pointing.txt'))
+    except OSError:
+        A = np.loadtxt(pointing_file)
+    try:
+        m = np.loadtxt(os.path.join(out_dir, 'sift_matches.txt'))
+        if m.ndim == 1:
+            m = m.reshape(-1, 4)
+    except OSError:
+        m = None
+
+    cur_dir = os.path.realpath(out_dir)
+    for n in tile['neighborhood_dirs']:
+        nei_dir = os.path.join(tile['dir'], n, f'pair_{i}')
+        if not os.path.exists(nei_dir) or os.path.realpath(nei_dir) == cur_dir:
+            continue
+        try:
+            m_n = np.loadtxt(os.path.join(nei_dir, 'sift_matches.txt'))
+        except OSError:
+            continue
+        if m_n.ndim == 1:
+            m_n = m_n.reshape(-1, 4)
+        keep = np.linalg.norm(
+            [(m_n[:, 0] - (x + w / 2)) / w,
+             (m_n[:, 1] - (y + h / 2)) / h], axis=0) < 3 / 4
+        m_n = m_n[keep]
+        m = m_n if m is None else np.concatenate([m, m_n])
+    return A, m
+
+
+def _rectification_geometry(cfg: Config, tile, i):
+    """One tile's homographies, disparity range and output size, written
+    to ``H_ref.txt``, ``H_sec.txt`` and ``disp_min_max.txt``."""
+    out_dir = os.path.join(tile['dir'], f'pair_{i}')
+    x, y, w, h = tile['coordinates']
+    img1, img2 = cfg.images[0], cfg.images[i]
+    A, m = _rectification_inputs(cfg, tile, i)
+    H1, H2, disp_min, disp_max, out_w, out_h = \
+        rectification.rectify_pair_geometry(
+            cfg, img1.rpcm, img2.rpcm, x, y, w, h, A=A,
+            sift_matches=m, method=cfg.rectification_method,
+            hmargin=cfg.horizontal_margin, vmargin=cfg.vertical_margin)
+    np.savetxt(os.path.join(out_dir, 'H_ref.txt'), H1, fmt='%12.6f')
+    np.savetxt(os.path.join(out_dir, 'H_sec.txt'), H2, fmt='%12.6f')
+    np.savetxt(os.path.join(out_dir, 'disp_min_max.txt'),
+               [disp_min, disp_max], fmt='%3.1f')
+    return dict(out_dir=out_dir, img1=img1.img, img2=img2.img,
+                H1=H1, H2=H2, w=out_w, h=out_h)
+
+
+def _write_rectified(g, rect1, rect2):
+    geotiff.write(os.path.join(g['out_dir'], 'rectified_ref.tif'), rect1)
+    geotiff.write(os.path.join(g['out_dir'], 'rectified_sec.tif'), rect2)
+
+
+def rectification_pair(cfg: Config, tile, i, device=None):
+    """Stage 3 for one tile pair: :func:`rectification_all` of one item."""
+    rectification_all(cfg, [(tile, i)], device=device)
+
+
+def rectification_all(cfg: Config, tiles_pairs, timeout=600,
+                      nb_workers=None, device=None):
+    """Stage 3 for every (tile, pair index) in ``tiles_pairs``.
+
+    The per-tile geometry (homographies, disparity ranges; host numpy in
+    float64) fans out on a thread pool of ``nb_workers`` threads, then the
+    dense warps of all tiles run through
+    :func:`s2p_tpu_torch.ops.homography.warp_jobs_batched`: one prefilter
+    and one upload per input image, one W1 launch per group of up to 64
+    tiles sharing an image and an output bucket.  The TIFF writes fan out
+    again.  ``timeout`` seconds for each tile's step.  ``device`` None
+    runs the warps on CUDA and raises without it; "cpu" runs their plain
+    version."""
+    dev = resolve(device)
+    geoms = _fan_out(functools.partial(_rectification_geometry, cfg),
+                     list(tiles_pairs), nb_workers, timeout)
+    jobs = []
+    for g in geoms:
+        jobs.append((_image(g['img1']), g['H1'], g['w'], g['h']))
+        jobs.append((_image(g['img2']), g['H2'], g['w'], g['h']))
+    rects = warp_jobs_batched(jobs, device=dev)
+    _fan_out(_write_rectified,
+             [(g, rects[2 * k], rects[2 * k + 1]) for k, g in enumerate(geoms)],
+             nb_workers, timeout)
+
+
+# --------------------------------------------------------------------- #
+# Stage 4: stereo matching
+# --------------------------------------------------------------------- #
 
 def _clean_after_matching(cfg: Config, out_dir):
     """The rectified secondary and the range file are dead after matching;
@@ -43,6 +193,7 @@ def _clean_after_matching(cfg: Config, out_dir):
         _remove(os.path.join(out_dir, 'rectified_ref.tif'))
     _remove(os.path.join(out_dir, 'rectified_sec.tif'),
             os.path.join(out_dir, 'disp_min_max.txt'))
+
 
 
 def stereo_matching_all(cfg: Config, tiles_pairs, device=None):
@@ -133,14 +284,25 @@ def linear_stretching_and_quantization_8bit(img, p=1):
         .astype(np.uint8)
 
 
-def _tile_colors(cfg: Config, tile):
-    """Colours for the point cloud: the 8-bit stretched rectified
-    reference.  A ``clr`` image needs stage 3's homography warp, which is
-    not ported yet."""
-    if cfg.images[0].clr:
-        raise NotImplementedError(
-            'clr images need the homography warp of stage 3 (ROADMAP M7); '
-            'the port colours the cloud from the rectified reference')
+def _clr_colors(cfg: Config, jobs, device):
+    """Each tile's colours from the ``clr`` image: its bands warped into
+    the tile's rectified frame by the reference homography (order 5, one
+    prefilter per band for all tiles) and used raw, NaN as 0: float
+    colours in the PLY, as the reference writes them."""
+    clr = _image(cfg.images[0].clr)    # (h, w) or (h, w, bands)
+    bands = [clr] if clr.ndim == 2 else \
+        [np.ascontiguousarray(clr[:, :, b]) for b in range(clr.shape[2])]
+    warps = [(b, j['H1'], j['disp'].shape[1], j['disp'].shape[0])
+             for j in jobs for b in bands]
+    warped = warp_jobs_batched(warps, device=device)
+    n = len(bands)
+    return [np.nan_to_num(np.stack(warped[k * n:(k + 1) * n]))
+            .astype(np.float32) for k in range(len(jobs))]
+
+
+def _tile_colors(tile):
+    """Colours for the point cloud without a ``clr`` image: the 8-bit
+    stretched rectified reference."""
     img = geotiff.read(os.path.join(tile['dir'], 'pair_1',
                                     'rectified_ref.tif'))
     return linear_stretching_and_quantization_8bit(img)[None]
@@ -166,12 +328,13 @@ def _ply_tile_job(cfg: Config, tile):
     )
 
 
-def _ply_tile_finish(cfg: Config, tile, job, xyz, err, count=None):
+def _ply_tile_finish(cfg: Config, tile, job, xyz, count, colors):
     """Host post of one tile: 3D filter, colours, PLY write."""
     if cfg.filtering_3d_r and cfg.filtering_3d_n:
         filter_xyz(xyz, cfg.filtering_3d_r, cfg.filtering_3d_n, cfg.gsd,
                    count=count)
-    colors = _tile_colors(cfg, tile)
+    if colors is None:
+        colors = _tile_colors(tile)
     proj_com = 'CRS {}'.format(cfg.out_crs)
     _write_tile_cloud(os.path.join(tile['dir'], 'cloud.ply'), xyz, colors,
                       proj_com, job['confidence'])
@@ -191,8 +354,9 @@ def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
     """Stage 5, pair mode, for every tile: each shape bucket triangulates
     as one batch on the device
     (:func:`s2p_tpu_torch.core.triangulation.disp_to_xyz_batch`), the 3D
-    filter's neighbour counts of all tiles run as one batch too, and the
-    host finish (filter, colours, PLY) fans out on a thread pool of
+    filter's neighbour counts of all tiles run as one batch too, a
+    ``clr`` image's warps of all tiles run as one batch per band (W1),
+    and the host finish (filter, colours, PLY) fans out on a thread pool of
     ``nb_workers`` threads (default min(8, tiles)), ``timeout`` seconds
     for each.  A tile whose stage-4 files are missing is skipped.
     ``device`` None runs on CUDA and raises without it; "cpu" runs
@@ -214,12 +378,12 @@ def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
         p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
         counts = count_3d_neighbors_batch([r[0] for r in results],
                                           cfg.filtering_3d_r, p, dev)
-    with concurrent.futures.ThreadPoolExecutor(
-            nb_workers or min(8, len(live))) as pool:
-        futures = [pool.submit(_ply_tile_finish, cfg, t, j, xyz, err, cnt)
-                   for (t, j), (xyz, err), cnt in zip(live, results, counts)]
-        for f in futures:
-            f.result(timeout=timeout)
+    colors = [None] * len(live)
+    if cfg.images[0].clr:
+        colors = _clr_colors(cfg, [j for _, j in live], dev)
+    _fan_out(functools.partial(_ply_tile_finish, cfg),
+             [(t, j, xyz, cnt, col) for (t, j), (xyz, _), cnt, col
+              in zip(live, results, counts, colors)], nb_workers, timeout)
 
 
 def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):

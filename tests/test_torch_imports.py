@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,6 +76,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s2p_tpu_torch import device, pipeline
     from s2p_tpu_torch.config import Config
     from s2p_tpu_torch.core.matching import compute_disparity_map
+    from s2p_tpu_torch.ops import homography
     from s2p_tpu_torch.ops.mgm_flow import (mgm_binary_match,
                                             mgm_binary_match_batch)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -87,6 +89,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         mgm_binary_match(a[0], a[0], 0, 3)
     with pytest.raises(RuntimeError, match='CUDA'):
         compute_disparity_map(Config(), a[0], a[0], 0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.rectification_all(Config(), [])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.rectification_pair(Config(), {}, 1)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        homography.warp_jobs_batched([(a[0], np.eye(3), 4, 4)])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        homography.image_apply_homography(a[0], np.eye(3), 4, 4)
     with pytest.raises(RuntimeError, match='CUDA'):
         device.resolve('cuda')
     assert device.resolve('cpu') == torch.device('cpu')

@@ -185,7 +185,6 @@ def test_tiff_io_matches_jax(tmp_path, dtype):
     with open(ours, 'rb') as a, open(ref, 'rb') as b:
         assert a.read() == b.read()
     _same(tgeotiff.read(ours), arr)
-    # the stage-4 reader takes the uncompressed strips both packages write
+    # the reader also takes the JAX package's deflated tiles
     jgeotiff.write(ref, arr, compress='deflate', tiled=True)
-    with pytest.raises(NotImplementedError):
-        tgeotiff.read(ref)
+    _same(tgeotiff.read(ref), arr)

@@ -33,13 +33,13 @@ _FILES = ('H_ref.txt', 'H_sec.txt', 'rectified_disp.tif',
           'rectified_disp_confidence.tif')
 
 
-def _scene(root, rpc1, rpc2):
+def _scene(root, rpc1, rpc2, specs=SPECS):
     """Stage-4 outputs of three tiles (two padded shapes) and the scene's
     pointing correction, written with the JAX package's writers."""
     os.makedirs(root)
     np.savetxt(os.path.join(root, 'global_pointing_pair_1.txt'), np.eye(3))
     tiles = []
-    for seed, h, w, x0, y0 in SPECS:
+    for seed, h, w, x0, y0 in specs:
         job = tile_job(seed, h, w, x0, y0, rpc1, rpc2)
         rng = np.random.RandomState(seed + 50)
         tdir = os.path.join(root, f'tile_{seed}')
@@ -121,13 +121,45 @@ def test_disparity_to_ply_all_matches_jax(tmp_path, filt, clean):
     assert removed == (5 * len(tiles) if clean else 0)
 
 
-def test_clr_image_raises_naming_m7(tmp_path):
-    _, _, t1, t2 = cameras(same_rows=False)
-    root = str(tmp_path / 'scene')
-    tiles = _scene(root, t1, t2)
-    _, tcfg = _configs(root, False, False, clr='clr.tif')
-    with pytest.raises(NotImplementedError, match='M7'):
-        tpipe.disparity_to_ply_all(tcfg, tiles, device='cpu')
+# tiles near the images' origin, so that a small clr image covers them
+CLR_SPECS = ((0, 60, 70, 100, 120), (1, 50, 64, 200, 150),
+             (2, 40, 100, 60, 220))
+
+
+def test_clr_cloud_matches_jax(tmp_path):
+    """With a 3-band clr image the cloud's colours are the bands warped
+    into each tile's rectified frame (order 5), float and raw: the port's
+    plain warp against the JAX package's jitted one, within the warp's
+    tolerance (test_torch_interp.py)."""
+    from test_torch_interp import WARP_JIT_TOL
+    j1, j2, t1, t2 = cameras(same_rows=False)
+    base = str(tmp_path / 'scene')
+    tiles = _scene(base, t1, t2, CLR_SPECS)
+    rng = np.random.RandomState(9)
+    clr = (rng.rand(400, 420, 3) * 255).astype(np.float32)
+    clr_path = os.path.join(base, 'clr.tif')
+    jgeotiff.write(clr_path, clr)
+    jroot, troot = str(tmp_path / 'jax'), str(tmp_path / 'torch')
+    jtiles, ttiles = _copy(base, jroot, tiles), _copy(base, troot, tiles)
+    jcfg, _ = _configs(jroot, False, True, clr=clr_path.replace(base, jroot))
+    _, tcfg = _configs(troot, False, True, clr=clr_path.replace(base, troot))
+    jpipe.disparity_to_ply_all(jcfg, jtiles)
+    tpipe.disparity_to_ply_all(tcfg, ttiles, device='cpu')
+    for jt, tt in zip(jtiles, ttiles):
+        (jp, jc), (tp, tc) = (tply.read_ply(os.path.join(t['dir'],
+                                                         'cloud.ply'))
+                              for t in (jt, tt))
+        assert jc == tc and jp.shape == tp.shape and len(tp) > 1000
+        # x y z red green blue confidence: float colours from the warp
+        assert tp.shape[1] == 7
+        d_col = np.abs(jp[:, 3:6] - tp[:, 3:6]).max()
+        assert 0 < d_col <= WARP_JIT_TOL
+        assert np.array_equal(jp[:, 6], tp[:, 6])
+        # the coordinates do not depend on the colours: this far from the
+        # cameras' centre their polynomials are extrapolated and the
+        # float32 solve moves by decimetres between XLA's rounding and
+        # torch's, so test_disparity_to_ply_all_matches_jax holds them,
+        # at the centre
 
 
 def test_stage5_entry_points_raise_without_cuda(tmp_path, monkeypatch):
