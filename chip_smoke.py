@@ -68,20 +68,31 @@ the JAX package.  Phases, each timed on a line of its own:
   8. stage 4 at 528 candidates: one 60 x 890 tile through
      ``stereo_matching_all``, its known shift, and its files byte for
      byte against the CPU run;
- 8b. (run right after phase 8) stages 2 -> 3 -> 4 -> 5 of one scene on
-     the card: two 2000 x 2800 images (image 2 rendered from image 1
+ 8b. (run right after phase 8) stages 1 -> 2 -> 3 -> 4 -> 5 of one scene
+     on the card: two 2000 x 2800 images (image 2 rendered from image 1
      through stage 5's cameras at a constant altitude, with a pointing
      error across the epipolar lines), an ROI of 2400 x 1600 px in 6
-     tiles of 800 with their neighbour halos and stage-1 files, the
-     default config; ``global_pointing_correction``,
-     ``rectification_all``, ``stereo_matching_all`` and
-     ``disparity_to_ply_all``, each timed, the launches over the four;
-     stages 2 and 3 again with device="cpu", their files byte for byte;
-     the matches' rectified rows within 0.1 px, stage 4's disparities
-     inside each tile's range, the cloud's altitudes near the scene's;
-     stage 3's parts one by one with their shares of its time; W1 at the
-     scene's group and tile, bitwise against and timed beside its plain
-     version, with its bound, and its order 1 beside grid_sample;
+     tiles of 800 with their neighbour halos and masks, the default
+     config; ``pointing_correction_all`` (SIFT detection, match, RANSAC
+     and the per-tile fit, from the two images alone),
+     ``global_pointing_correction``, ``rectification_all``,
+     ``stereo_matching_all`` and ``disparity_to_ply_all``, each timed, the
+     launches over the five; stage 1's parts run again one by one
+     (detection with its pyramid, orientation and descriptor waves, the
+     match wave, RANSAC, the per-tile fit) with the keypoints and matches
+     of each tile, and once more under the profiler (CUDA kernels and
+     their device time); each tile's pointing.txt against the rendered
+     error (0.1 px); stage 1 of two tiles again with device="cpu":
+     pointing.txt byte for byte (or within 0.01 px, reported) and both
+     tiles' keypoints against the card's by the CPU tests' set criterion;
+     stages 2 and 3 again with device="cpu" on the card's stage-1 files,
+     their files byte for byte; the scene's true correspondences'
+     rectified rows within 0.1 px (and stage 1's SIFT matches' rows
+     reported), stage 4's disparities inside each tile's range, the cloud's
+     altitudes near the scene's; stage 3's parts one by one with their
+     shares of its time; W1 at the scene's group and tile, bitwise
+     against and timed beside its plain version, with its bound, and its
+     order 1 beside grid_sample;
   9. (run right after phase 4) the single-tile and lane-fold modes of
      the kernels against their plain versions: the pre-pass at a signed base (-40, padded
      secondary) on an 800 x 800 tile with 96 candidates, the WTA's
@@ -172,7 +183,7 @@ S5_KNOWN_DISP, S5_KNOWN_TOL_M = 3.0, 0.01
 # groups and a 2-tile tail)
 KERNEL_FOLD = 2
 BATCH_FOLD = 3
-# stages 2 -> 3 -> 4 -> 5 of one scene: two 2000 x 2800 images seen by
+# stages 1 -> 2 -> 3 -> 4 -> 5 of one scene: two 2000 x 2800 images seen by
 # stage 5's cameras (shared row polynomials, 0.35 px/m apart), image 2
 # rendered from image 1 through both cameras at the constant altitude
 # SCENE_H0 with a pointing error of SCENE_POINTING px across the epipolar
@@ -185,6 +196,17 @@ SCENE_H0 = 300.0
 SCENE_POINTING = 0.7
 SCENE_ALT_TOL_M = (1.0, 3.0)
 SCENE_ROW_TOL_PX = 0.1
+# stage 1: each tile's translation against the rendered pointing error
+# (px); the card's pointing.txt against the CPU's (px, where the bytes
+# differ); the keypoints of two tiles, card against CPU, by the set
+# criterion of tests/test_torch_sift.py (a share of the card's keypoints
+# within a distance in (x, y, scale, orientation) of a CPU keypoint, the
+# counts within a share, and of those keypoints' descriptor entries a
+# share equal, a share within 1 and none further than a maximum)
+SCENE_POINTING_TOL_PX = 0.1
+STAGE1_CPU_TOL_PX = 0.01
+KP_DIST, KP_SHARE, COUNT_SHARE = 1e-2, 0.995, 0.01
+DESC_EQ_SHARE, DESC_1_SHARE, DESC_MAX = 0.995, 0.9999, 4
 
 
 @contextmanager
@@ -1055,7 +1077,7 @@ def run_stage5(gpu_root, cpu_root, specs):
                                          'rectified_disp.tif'))
         frac = len(pts) / np.isfinite(disp).sum()
         alt = pts[:, 2]
-        print(f"  {os.path.basename(t['dir'])}: {len(pts)} points "
+        print(f"  {tile_name(t)}: {len(pts)} points "
               f'({frac:.4f} of the finite disparities), altitude '
               f'{np.percentile(alt, 1):.2f} .. {np.percentile(alt, 99):.2f} m',
               flush=True)
@@ -1113,7 +1135,7 @@ def run_stage5(gpu_root, cpu_root, specs):
                                  'or confidence differ from the CPU run')
         d_xy = float(np.abs(pa[:, :2] - pb[:, :2]).max()) if len(pa) else 0.
         d_z = float(np.abs(pa[:, 2] - pb[:, 2]).max()) if len(pa) else 0.
-        print(f"  crop {S5_CROP} of {os.path.basename(a['dir'])}: "
+        print(f"  crop {S5_CROP} of {tile_name(a)}: "
               f'{len(pa)} points, cloud.ply equals the CPU run byte for '
               f'byte: {same}; max difference xy {d_xy} m, altitude {d_z} m',
               flush=True)
@@ -1711,7 +1733,7 @@ def scene_tiles(root):
 
 
 def render_scene(root):
-    """The scene's images and stage-1 files under ``root``; returns the
+    """The scene's images and the tiles' masks under ``root``; returns the
     config (the default one, with the two cameras) and the tiles.
 
     Image 1 is smooth noise.  Image 2 shows, at each pixel, the ground
@@ -1719,10 +1741,8 @@ def render_scene(root):
     pointing error), as camera 1 sees it: the map from image 2 to image 1
     is computed in float64 on a grid every 16 px and interpolated between
     (the map is smooth to about 1e-6 px over 16 px), and image 1 is
-    sampled there by a cubic spline.  Per tile, the stage-1 files: 200
-    SIFT-like matches of ground points at SCENE_H0 through both cameras
-    (image 2's rows moved by the pointing error), the pointing correction
-    and the mean secondary keypoint; and the tile's mask.png."""
+    sampled there by a cubic spline.  Per tile, its directory and
+    mask.png; stage 1 writes the rest."""
     import numpy as np
     from scipy import ndimage
     from s2p_tpu_torch.config import Config, ImageSpec
@@ -1751,21 +1771,9 @@ def render_scene(root):
         geotiff.write(path, img)
 
     tiles = scene_tiles(root)
-    A = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, -SCENE_POINTING],
-                  [0.0, 0.0, 1.0]])
-    for k, t in enumerate(tiles):
-        x, y, tw, th = t['coordinates']
-        pdir = os.path.join(t['dir'], 'pair_1')
-        os.makedirs(pdir)
-        r = np.random.RandomState(SCENE['seed'] + 1 + k)
-        cols, rows = x + r.rand(200) * tw, y + r.rand(200) * th
-        lon, lat = cam1.localization(cols, rows, SCENE_H0)
-        c2, r2 = cam2.projection(lon, lat, SCENE_H0)
-        m = np.column_stack([cols, rows, c2, r2 + SCENE_POINTING])
-        np.savetxt(os.path.join(pdir, 'sift_matches.txt'), m, fmt='%9.3f')
-        np.savetxt(os.path.join(pdir, 'pointing.txt'), A, fmt='%6.3f')
-        np.savetxt(os.path.join(pdir, 'center_keypts_sec.txt'),
-                   np.mean(m[:, 2:], 0), fmt='%9.3f')
+    for t in tiles:
+        _, _, tw, th = t['coordinates']
+        os.makedirs(os.path.join(t['dir'], 'pair_1'))
         geotiff.write_png(os.path.join(t['dir'], 'mask.png'),
                           np.full((th, tw), 255, np.uint8))
     zone = rpc_geom.utm_zone(cam1, *SCENE['roi'])
@@ -1776,13 +1784,171 @@ def render_scene(root):
     return cfg, tiles
 
 
+def true_matches(cfg, tile, k, n=200):
+    """``n`` correspondences of the scene in a tile: ground points at
+    SCENE_H0 seen by both cameras, image 2's rows moved by the pointing
+    error (seeded per tile)."""
+    import numpy as np
+    x, y, w, h = tile['coordinates']
+    cam1, cam2 = cfg.images[0].rpcm, cfg.images[1].rpcm
+    r = np.random.RandomState(SCENE['seed'] + 1 + k)
+    cols, rows = x + r.rand(n) * w, y + r.rand(n) * h
+    lon, lat = cam1.localization(cols, rows, SCENE_H0)
+    c2, r2 = cam2.projection(lon, lat, SCENE_H0)
+    return np.column_stack([cols, rows, c2, r2 + SCENE_POINTING])
+
+
+def tile_name(tile):
+    """A scene tile's row and column directories."""
+    return '/'.join(tile['dir'].split(os.sep)[-2:])
+
+
+def stage1_crops(cfg, tile):
+    """The two crops stage 1 detects on for a tile, with their origins:
+    the tile in image 1 and its corresponding ROI in image 2 (the RPCs
+    over the config's altitude range), both clipped to the images."""
+    import numpy as np
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import rpc_geom
+    from s2p_tpu_torch.ops import sift
+
+    j = pipeline._pointing_jobs(cfg, [(tile, 1)])[0]
+    x, y, w, h = tile['coordinates']
+    x2, y2, w2, h2 = rpc_geom.corresponding_roi(j['rpc1'], j['rpc2'], x, y,
+                                                w, h, **j['alt_kwargs'])
+    crops, offsets = [], []
+    for img, roi in ((j['im1'], (x, y, w, h)), (j['im2'], (x2, y2, w2, h2))):
+        cx, cy, cw, ch = sift._clip_roi(img, *roi)
+        crops.append(np.ascontiguousarray(img[cy:cy + ch, cx:cx + cw],
+                                          dtype=np.float32))
+        offsets.append((cx, cy))
+    return crops, offsets
+
+
+def check_keypoint_sets(name, got, want):
+    """The set criterion of tests/test_torch_sift.py, ``got`` (the card's
+    keypoint rows) against ``want`` (the CPU's); prints the figures."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    d, idx = cKDTree(want[:, :4]).query(got[:, :4], k=1)
+    close = d < KP_DIST
+    diff = np.abs(got[close, 4:] - want[idx[close], 4:])
+    eq, le1 = float((diff == 0).mean()), float((diff <= 1).mean())
+    mx = float(diff.max()) if diff.size else 0.0
+    rows = float((np.abs(got[close] - want[idx[close]]).max(axis=1)
+                  == 0).mean())
+    print(f'  {name}: {len(got)} keypoints on the card, {len(want)} on the '
+          f'CPU; {close.mean():.5f} within {KP_DIST} of a CPU keypoint '
+          f'({rows:.5f} equal rows); descriptor entries equal {eq:.6f}, '
+          f'within 1 {le1:.6f}, at most {mx:g} apart', flush=True)
+    if (abs(len(got) - len(want)) > COUNT_SHARE * len(want)
+            or close.mean() < KP_SHARE or eq < DESC_EQ_SHARE
+            or le1 < DESC_1_SHARE or mx > DESC_MAX):
+        raise AssertionError(f'stage 1: {name}: the card\'s keypoints miss '
+                             'the CPU\'s set criterion')
+
+
+def check_scene_stage1(cfg, tiles, cpu_root, t_stage1):
+    """Stage 1's checks and parts: each tile's translation against the
+    rendered pointing error; the parts run again one by one, then under
+    the profiler; two tiles again with device="cpu" (pointing.txt, and
+    the keypoints of their crops by the set criterion)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import pointing
+    from s2p_tpu_torch.ops import sift, sift_device
+
+    worst = 0.0
+    for t in tiles:
+        A = np.loadtxt(os.path.join(t['dir'], 'pair_1', 'pointing.txt'))
+        m = np.loadtxt(os.path.join(t['dir'], 'pair_1', 'sift_matches.txt'))
+        err = max(abs(A[0, 2]), abs(A[1, 2] + SCENE_POINTING))
+        worst = max(worst, err)
+        print(f"  stage 1: {tile_name(t)}: {len(m)} matches, "
+              f'translation ({A[0, 2]:.3f}, {A[1, 2]:.3f}) px against (0, '
+              f'{-SCENE_POINTING}): off by {err:.3f} px', flush=True)
+    if worst > SCENE_POINTING_TOL_PX:
+        raise AssertionError(f'stage 1 misses the rendered pointing error '
+                             f'by {worst:.3f} px')
+
+    pairs = [(t, 1) for t in tiles]
+    jobs = pipeline._pointing_jobs(cfg, pairs)
+    st = {}
+    t0 = time.perf_counter()
+    matches = sift.matches_on_rpc_roi_batch(jobs, stats=st)
+    t_sift = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (t, _), m in zip(pairs, matches):
+        pointing.local_translation(cfg.images[0].rpcm, cfg.images[1].rpcm,
+                                   *t['coordinates'], m, cfg.n_gcp_per_axis,
+                                   **pipeline._alt_kwargs(cfg))
+    t_fit = time.perf_counter() - t0
+    print(f'  stage 1 again, part by part: SIFT {t_sift:.3f} s, the '
+          f'per-tile fit {t_fit:.3f} s (stage 1 took {t_stage1:.3f} s)',
+          flush=True)
+    for name in ('detection', 'pyramid', 'orientation', 'descriptor',
+                 'match', 'ransac'):
+        indent = '    ' if name in ('pyramid', 'orientation',
+                                    'descriptor') else '  '
+        print(f'  {indent}stage 1 part: {name}: {st[name]:.3f} s '
+              f'({st[name] / t_stage1:.3f} of the stage)', flush=True)
+    print(f'    stage 1 part: per-tile fit: {t_fit:.3f} s '
+          f'({t_fit / t_stage1:.3f} of the stage)', flush=True)
+    for k, (t, m) in enumerate(zip(tiles, matches)):
+        print(f"  stage 1: {tile_name(t)}: keypoints "
+              f"{st['keypoints'][k]}, {len(m)} matches", flush=True)
+    t0 = time.perf_counter()
+    kernels, dev_ms = count_launches(
+        lambda: sift.matches_on_rpc_roi_batch(jobs))
+    print(f'  stage 1 SIFT under the profiler: {kernels} CUDA kernels, '
+          f'{dev_ms} ms of device time, {time.perf_counter() - t0:.3f} s '
+          'of wall time', flush=True)
+
+    # two tiles with device="cpu"
+    cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
+    cpu_tiles = scene_tiles(cpu_root)[:2]
+    for t in cpu_tiles:
+        os.makedirs(os.path.join(t['dir'], 'pair_1'))
+    t0 = time.perf_counter()
+    pipeline.pointing_correction_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
+                                     device='cpu')
+    print(f'  stage 1 of two tiles with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    for a, b in zip(tiles, cpu_tiles):
+        pa, pb = (os.path.join(t['dir'], 'pair_1', 'pointing.txt')
+                  for t in (a, b))
+        with open(pa, 'rb') as f1, open(pb, 'rb') as f2:
+            same = f1.read() == f2.read()
+        d = float(np.abs(np.loadtxt(pa) - np.loadtxt(pb)).max())
+        print(f"  stage 1: {tile_name(a)}: pointing.txt card "
+              f'against CPU: byte for byte {same}, largest difference '
+              f'{d:.3f} px', flush=True)
+        if not same and d > STAGE1_CPU_TOL_PX:
+            raise AssertionError('stage 1: pointing.txt differs from the '
+                                 'CPU run')
+    for t in tiles[:2]:
+        crops, offsets = stage1_crops(cfg, t)
+        ths = [0.0133] * len(crops)
+        got = sift_device.keypoints_from_arrays(crops, ths, offsets)
+        want = sift_device.keypoints_from_arrays(crops, ths, offsets,
+                                                 device='cpu')
+        for k, (g, w) in enumerate(zip(got, want)):
+            check_keypoint_sets(f"{tile_name(t)} image "
+                                f'{k + 1} ({crops[k].shape[0]} x '
+                                f'{crops[k].shape[1]} crop)', g, w)
+    torch.cuda.synchronize()
+
+
 def scene_stage3_shares(cfg, tiles, t_stage3):
     """Stage 3's parts run again one by one on the card: the input TIFF
     reads, the per-tile geometry, the prefilter, the warps and the TIFF
     writes, each with its share of stage 3's wall time."""
     import functools
     import torch
-    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch import pipeline, runner
     from s2p_tpu_torch.geo import geotiff
     from s2p_tpu_torch.ops import homography as hom
 
@@ -1798,10 +1964,9 @@ def scene_stage3_shares(cfg, tiles, t_stage3):
     imgs = part('TIFF reads of the two images', lambda: [
         geotiff.read(im.img).astype('float32') for im in cfg.images])
     geoms = part('geometry of the tiles (thread pool)', lambda:
-                 pipeline._fan_out(
+                 runner.launch_calls(
                      functools.partial(pipeline._rectification_geometry,
-                                       cfg), [(t, 1) for t in tiles], None,
-                     600))
+                                       cfg), [(t, 1) for t in tiles]))
     part('quintic prefilter of the two images (scipy)',
          lambda: [hom._spline5_inputs(im) for im in imgs])
     jobs = [(imgs[k], g[f'H{k + 1}'], g['w'], g['h'])
@@ -1809,10 +1974,10 @@ def scene_stage3_shares(cfg, tiles, t_stage3):
     rects = part('prefilter, upload, W1 and download (warp_jobs_batched)',
                  lambda: hom.warp_jobs_batched(jobs))
     part('TIFF writes of the rectified pairs (thread pool)',
-         lambda: pipeline._fan_out(
+         lambda: runner.launch_calls(
              pipeline._write_rectified,
              [(g, rects[2 * k], rects[2 * k + 1])
-              for k, g in enumerate(geoms)], None, 600))
+              for k, g in enumerate(geoms)], tilewise=False))
     for name, t in parts.items():
         print(f'  stage 3 part: {name}: {t:.3f} s '
               f'({t / t_stage3:.3f} of the stage)', flush=True)
@@ -1901,8 +2066,9 @@ def time_scene_warp(cfg, tiles, stats):
 
 
 def run_scene(root, cpu_root, stats, launches):
-    """Stages 2 -> 3 -> 4 -> 5 of the scene on the card, each timed, the
-    launch counts of the port's kernels over the four; then the checks."""
+    """Stages 1 -> 2 -> 3 -> 4 -> 5 of the scene on the card, each timed,
+    the launch counts of the port's kernels over the five; then the
+    checks."""
     import dataclasses
     import numpy as np
     import torch
@@ -1917,25 +2083,33 @@ def run_scene(root, cpu_root, stats, launches):
     print(f"  scene: two {SCENE['h']} x {SCENE['w']} images, "
           f'{len(tiles)} tiles, rendered in {time.perf_counter() - t0:.3f} '
           's', flush=True)
-    shutil.copytree(os.path.join(root, 'tiles'),
-                    os.path.join(cpu_root, 'tiles'))
     pairs = [(t, 1) for t in tiles]
     walls = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        print(f'  {name}: {walls[name]:.3f} s', flush=True)
+
     sk.reset_launch_counts()
     interp.reset_launch_counts()
+    run('stage 1', lambda: pipeline.pointing_correction_all(cfg, pairs))
+    # the card's stage-1 files, for the CPU's stages 2 and 3
+    shutil.copytree(os.path.join(root, 'tiles'),
+                    os.path.join(cpu_root, 'tiles'))
     for name, fn in (
             ('stage 2', lambda: pipeline.global_pointing_correction(cfg,
                                                                    tiles)),
             ('stage 3', lambda: pipeline.rectification_all(cfg, pairs)),
             ('stage 4', lambda: pipeline.stereo_matching_all(cfg, pairs)),
             ('stage 5', lambda: pipeline.disparity_to_ply_all(cfg, tiles))):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        print(f'  {name}: {walls[name]:.3f} s', flush=True)
+        run(name, fn)
     launches['scene'] = {**sk.launch_counts(), **interp.launch_counts()}
-    print(f"  launches over stages 2 to 5: {launches['scene']}", flush=True)
+    print(f"  launches over stages 1 to 5: {launches['scene']}", flush=True)
+    check_scene_stage1(cfg, tiles, os.path.join(cpu_root, 'stage1'),
+                       walls['stage 1'])
 
     # stage 3 on the CPU: the same files byte for byte
     cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
@@ -1960,15 +2134,19 @@ def run_scene(root, cpu_root, stats, launches):
     print(f'  stage 2 and 3 files equal the CPU run byte for byte: '
           f'{len(files)} files', flush=True)
 
-    worst_row, alts = 0.0, []
-    for t in tiles:
+    worst_row, alts, sift_rows = 0.0, [], []
+    for k, t in enumerate(tiles):
         pdir = os.path.join(t['dir'], 'pair_1')
-        m = np.loadtxt(os.path.join(pdir, 'sift_matches.txt'))
         H1 = np.loadtxt(os.path.join(pdir, 'H_ref.txt'))
         H2 = np.loadtxt(os.path.join(pdir, 'H_sec.txt'))
-        dy = np.abs(points_apply_homography(H1, m[:, :2])[:, 1]
-                    - points_apply_homography(H2, m[:, 2:])[:, 1])
-        worst_row = max(worst_row, float(dy.max()))
+
+        def rows_apart(m):
+            return np.abs(points_apply_homography(H1, m[:, :2])[:, 1]
+                          - points_apply_homography(H2, m[:, 2:])[:, 1])
+        worst_row = max(worst_row, float(rows_apart(
+            true_matches(cfg, t, k)).max()))
+        sift_rows.append(rows_apart(
+            np.loadtxt(os.path.join(pdir, 'sift_matches.txt'))))
         lo, hi = np.loadtxt(os.path.join(pdir, 'disp_min_max.txt'))
         disp = geotiff.read(os.path.join(pdir, 'rectified_disp.tif'))
         fin = np.isfinite(disp)
@@ -1987,7 +2165,12 @@ def run_scene(root, cpu_root, stats, launches):
               f'{np.percentile(err, 90):.3f} m', flush=True)
     err = np.concatenate(alts)
     med, p90 = float(np.median(err)), float(np.percentile(err, 90))
-    print(f'  matches: rectified rows agree within {worst_row:.4f} px '
+    sift_rows = np.concatenate(sift_rows)
+    print(f'  stage 1\'s SIFT matches: rectified rows apart by median '
+          f'{np.median(sift_rows):.4f} px, 90th percentile '
+          f'{np.percentile(sift_rows, 90):.4f} px, at most '
+          f'{sift_rows.max():.4f} px ({len(sift_rows)} matches)', flush=True)
+    print(f'  true matches: rectified rows agree within {worst_row:.4f} px '
           f'(tolerance {SCENE_ROW_TOL_PX}); cloud: {len(err)} points, '
           f'|altitude - {SCENE_H0}| median {med:.3f} m, 90th percentile '
           f'{p90:.3f} m (tolerances {SCENE_ALT_TOL_M})', flush=True)
@@ -2114,7 +2297,7 @@ def main():
             print(f"  launches: {launches['wide']}", flush=True)
             pipeline.stereo_matching_all(cfg, [wide_cpu], device='cpu')
             check_outputs(gpu_root, [WIDE], cpu_root, {WIDE['index']})
-        with phase('stages 2 -> 3 -> 4 -> 5 of one scene on the card'):
+        with phase('stages 1 -> 2 -> 3 -> 4 -> 5 of one scene on the card'):
             run_scene(os.path.join(tmp, 'scene'),
                       os.path.join(tmp, 'scene_cpu'), stats, launches)
     finally:

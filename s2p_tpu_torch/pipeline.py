@@ -1,12 +1,13 @@
-"""Pipeline stages of the port.  Ported so far: stage 2 (the global
-pointing fit), stage 3 (rectification), stage 4 with ``mgm`` and stage 5
-in pair mode.
+"""Pipeline stages of the port.  Ported so far: stage 1 (SIFT pointing,
+on the device route), stage 2 (the global pointing fit), stage 3
+(rectification), stage 4 with ``mgm`` and stage 5 in pair mode.
 
-Counterparts of ``global_pointing_correction``, ``rectification_all``,
+Counterparts of ``pointing_correction_all``,
+``global_pointing_correction``, ``rectification_all``,
 ``stereo_matching_all`` and ``disparity_to_ply_all`` in
 ``s2p_tpu/pipeline.py``.  The per-tile file contract is the JAX
 package's, so either package can run a stage on the other's files:
-stage 1 leaves ``pointing.txt``, ``center_keypts_sec.txt`` and
+stage 1 writes ``pointing.txt``, ``center_keypts_sec.txt`` and
 ``sift_matches.txt`` in each ``<tile>/pair_<i>/``; stage 2 writes the
 scene's ``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
 ``H_sec.txt``, ``disp_min_max.txt``, ``rectified_ref.tif`` and
@@ -19,12 +20,12 @@ and the scene's ``global_pointing_pair_1.txt`` and writes the tile's
 
 from __future__ import annotations
 
-import concurrent.futures
 import functools
 import os
 
 import numpy as np
 
+from . import runner
 from .config import Config
 from .core import masking, matching, pointing, rectification, triangulation
 from .device import resolve
@@ -34,6 +35,7 @@ from .geo import ply as plymod
 from .ops.filtering import count_3d_neighbors_batch, filter_xyz
 from .ops.homography import warp_jobs_batched
 from .ops.mgm_flow import mgm_binary_match_batch
+from .ops import sift as sift_ops
 
 
 @functools.lru_cache(maxsize=8)
@@ -42,22 +44,112 @@ def _image(path):
     return geotiff.read(path).astype(np.float32)
 
 
-def _fan_out(fn, items, nb_workers, timeout):
-    """``fn(*item)`` for each item on a thread pool of ``nb_workers``
-    threads (default min(8, items)), ``timeout`` seconds for each; the
-    results in order, or the first exception."""
-    if not items:
-        return []
-    with concurrent.futures.ThreadPoolExecutor(
-            nb_workers or min(8, len(items))) as pool:
-        futures = [pool.submit(fn, *item) for item in items]
-        return [f.result(timeout=timeout) for f in futures]
-
-
 def _remove(*paths):
     for p in paths:
         if os.path.exists(p):
             os.remove(p)
+
+
+def _alt_kwargs(cfg: Config):
+    return dict(exogenous_dem=cfg.exogenous_dem,
+                exogenous_dem_geoid_mode=cfg.exogenous_dem_geoid_mode,
+                use_srtm=cfg.use_srtm,
+                rpc_alt_range_scale_factor=cfg.rpc_alt_range_scale_factor)
+
+
+# --------------------------------------------------------------------- #
+# Stage 1: pointing correction
+# --------------------------------------------------------------------- #
+
+def _check_sift_device(cfg: Config):
+    if cfg.sift_device == 'host':
+        raise NotImplementedError(
+            "sift_device 'host' (the scipy SIFT route) is not ported yet "
+            "(ROADMAP M12); the port runs SIFT's device route ('auto' or "
+            "'device')")
+
+
+def _sift_method(cfg: Config):
+    return 'relative' if cfg.relative_sift_match_thresh else 'absolute'
+
+
+def pointing_correction(cfg: Config, tile, i, device=None):
+    """Stage 1 for one tile pair: SIFT matches between the tile of the
+    reference image and its counterpart in image ``i``, the median
+    translation across the epipolar lines, and the tile's files."""
+    _check_sift_device(cfg)
+    x, y, w, h = tile['coordinates']
+    img1, img2 = cfg.images[0], cfg.images[i]
+    A, m = pointing.compute_correction(
+        _image(img1.img), _image(img2.img), img1.rpcm, img2.rpcm, x, y, w, h,
+        _sift_method(cfg), cfg.sift_match_thresh, cfg.max_pointing_error,
+        cfg.n_gcp_per_axis, device=device, **_alt_kwargs(cfg))
+    _write_pointing_outputs(cfg, tile, i, A, m)
+
+
+def _write_pointing_outputs(cfg: Config, tile, i, A, m):
+    """A tile pair's stage-1 files: ``pointing.txt`` (the correction),
+    ``sift_matches.txt`` and ``center_keypts_sec.txt`` (the mean
+    secondary keypoint), each only where there is something to write.
+    The JAX package also draws ``sift_matches_pointing.png`` under
+    ``cfg.debug`` with PIL, which the port does not import: that file is
+    not written (ROADMAP M12)."""
+    out_dir = os.path.join(tile['dir'], f'pair_{i}')
+    if A is not None:
+        np.savetxt(os.path.join(out_dir, 'pointing.txt'), A, fmt='%6.3f')
+    if m is not None:
+        np.savetxt(os.path.join(out_dir, 'sift_matches.txt'), m, fmt='%9.3f')
+        np.savetxt(os.path.join(out_dir, 'center_keypts_sec.txt'),
+                   np.mean(m[:, 2:], 0), fmt='%9.3f')
+
+
+def _pointing_jobs(cfg: Config, tiles_pairs):
+    """The jobs of :func:`s2p_tpu_torch.ops.sift.matches_on_rpc_roi_batch`
+    for stage 1's tile pairs."""
+    jobs = []
+    for tile, i in tiles_pairs:
+        x, y, w, h = tile['coordinates']
+        img1, img2 = cfg.images[0], cfg.images[i]
+        jobs.append(dict(im1=_image(img1.img), im2=_image(img2.img),
+                         rpc1=img1.rpcm, rpc2=img2.rpcm,
+                         x=x, y=y, w=w, h=h, method=_sift_method(cfg),
+                         sift_thresh=cfg.sift_match_thresh,
+                         epipolar_threshold=cfg.max_pointing_error,
+                         alt_kwargs=_alt_kwargs(cfg)))
+    return jobs
+
+
+def pointing_correction_all(cfg: Config, tiles_pairs, timeout=600,
+                            nb_workers=None, device=None):
+    """Stage 1 for every (tile, pair index) in ``tiles_pairs``.
+
+    All tile pairs' SIFT detections run as one wave on the device and all
+    matches as another
+    (:func:`s2p_tpu_torch.ops.sift.matches_on_rpc_roi_batch`); the
+    per-tile median-translation fit and file writes then fan out on
+    :func:`runner.launch_calls` with ``nb_workers`` threads, ``timeout``
+    seconds for each from its own start.  Per-tile outputs equal
+    :func:`pointing_correction`'s.  ``cfg.sift_device`` 'host' raises
+    (not ported); 'auto' and 'device' run SIFT's device route.
+    ``device`` None runs on CUDA and raises without it; "cpu" runs
+    there."""
+    _check_sift_device(cfg)
+    dev = resolve(device)
+    jobs = _pointing_jobs(cfg, tiles_pairs)
+    matches = sift_ops.matches_on_rpc_roi_batch(jobs, device=dev)
+
+    def finish(item, m):
+        tile, i = item
+        x, y, w, h = tile['coordinates']
+        A = None
+        if m is not None:
+            A = pointing.local_translation(
+                cfg.images[0].rpcm, cfg.images[i].rpcm, x, y, w, h, m,
+                cfg.n_gcp_per_axis, **_alt_kwargs(cfg))
+        _write_pointing_outputs(cfg, tile, i, A, m)
+
+    runner.launch_calls(finish, list(zip(tiles_pairs, matches)),
+                        nb_workers, tilewise=False, timeout=timeout)
 
 
 # --------------------------------------------------------------------- #
@@ -160,25 +252,29 @@ def rectification_all(cfg: Config, tiles_pairs, timeout=600,
     """Stage 3 for every (tile, pair index) in ``tiles_pairs``.
 
     The per-tile geometry (homographies, disparity ranges; host numpy in
-    float64) fans out on a thread pool of ``nb_workers`` threads, then the
-    dense warps of all tiles run through
+    float64) fans out on :func:`runner.launch_calls` with ``nb_workers``
+    threads, each tile's output in its ``stdout.log``, then the dense
+    warps of all tiles run through
     :func:`s2p_tpu_torch.ops.homography.warp_jobs_batched`: one prefilter
     and one upload per input image, one W1 launch per group of up to 64
     tiles sharing an image and an output bucket.  The TIFF writes fan out
-    again.  ``timeout`` seconds for each tile's step.  ``device`` None
-    runs the warps on CUDA and raises without it; "cpu" runs their plain
-    version."""
+    again.  Each tile's step has ``timeout`` seconds from its own start;
+    past it the stage raises :class:`runner.TimeoutError_`.  ``device``
+    None runs the warps on CUDA and raises without it; "cpu" runs their
+    plain version."""
     dev = resolve(device)
-    geoms = _fan_out(functools.partial(_rectification_geometry, cfg),
-                     list(tiles_pairs), nb_workers, timeout)
+    geoms = runner.launch_calls(
+        functools.partial(_rectification_geometry, cfg), list(tiles_pairs),
+        nb_workers, timeout=timeout, debug=cfg.debug)
     jobs = []
     for g in geoms:
         jobs.append((_image(g['img1']), g['H1'], g['w'], g['h']))
         jobs.append((_image(g['img2']), g['H2'], g['w'], g['h']))
     rects = warp_jobs_batched(jobs, device=dev)
-    _fan_out(_write_rectified,
-             [(g, rects[2 * k], rects[2 * k + 1]) for k, g in enumerate(geoms)],
-             nb_workers, timeout)
+    runner.launch_calls(
+        _write_rectified,
+        [(g, rects[2 * k], rects[2 * k + 1]) for k, g in enumerate(geoms)],
+        nb_workers, tilewise=False, timeout=timeout)
 
 
 # --------------------------------------------------------------------- #
@@ -196,15 +292,17 @@ def _clean_after_matching(cfg: Config, out_dir):
 
 
 
-def stereo_matching_all(cfg: Config, tiles_pairs, device=None):
+def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
     """Stage 4 for every (tile, pair index) in ``tiles_pairs``.
 
     Tiles are bucketed by padded shape: H and W up to multiples of 64, the
     candidate count up to a multiple of 16.  Each bucket runs as one
     batch through :func:`mgm_binary_match_batch` with per-tile disparity
     bases and true extents, so each tile's output equals its unpadded
-    run.  ``device`` None runs on CUDA and raises without it; "cpu" runs
-    the kernels' plain versions."""
+    run.  ``timeout`` is the JAX package's parameter, which only its
+    per-tile matchers use; the ``mgm`` batch here, like the JAX package's,
+    runs without a deadline.  ``device`` None runs on CUDA and raises
+    without it; "cpu" runs the kernels' plain versions."""
     algo = cfg.matching_algorithm
     if algo != 'mgm':
         raise NotImplementedError(
@@ -357,8 +455,9 @@ def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
     filter's neighbour counts of all tiles run as one batch too, a
     ``clr`` image's warps of all tiles run as one batch per band (W1),
     and the host finish (filter, colours, PLY) fans out on a thread pool of
-    ``nb_workers`` threads (default min(8, tiles)), ``timeout`` seconds
-    for each.  A tile whose stage-4 files are missing is skipped.
+    ``nb_workers`` threads (default min(8, tiles)) through
+    :func:`runner.launch_calls`, ``timeout`` seconds for each from its own
+    start.  A tile whose stage-4 files are missing is skipped.
     ``device`` None runs on CUDA and raises without it; "cpu" runs
     there."""
     dev = resolve(device)
@@ -381,9 +480,11 @@ def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
     colors = [None] * len(live)
     if cfg.images[0].clr:
         colors = _clr_colors(cfg, [j for _, j in live], dev)
-    _fan_out(functools.partial(_ply_tile_finish, cfg),
-             [(t, j, xyz, cnt, col) for (t, j), (xyz, _), cnt, col
-              in zip(live, results, counts, colors)], nb_workers, timeout)
+    runner.launch_calls(
+        functools.partial(_ply_tile_finish, cfg),
+        [(t, j, xyz, cnt, col) for (t, j), (xyz, _), cnt, col
+         in zip(live, results, counts, colors)], nb_workers,
+        tilewise=False, timeout=timeout)
 
 
 def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):

@@ -76,7 +76,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s2p_tpu_torch import device, pipeline
     from s2p_tpu_torch.config import Config
     from s2p_tpu_torch.core.matching import compute_disparity_map
-    from s2p_tpu_torch.ops import homography
+    from s2p_tpu_torch.ops import homography, sift, sift_device
     from s2p_tpu_torch.ops.mgm_flow import (mgm_binary_match,
                                             mgm_binary_match_batch)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -97,6 +97,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         homography.warp_jobs_batched([(a[0], np.eye(3), 4, 4)])
     with pytest.raises(RuntimeError, match='CUDA'):
         homography.image_apply_homography(a[0], np.eye(3), 4, 4)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.pointing_correction_all(Config(), [])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sift_device.keypoints_from_arrays([a[0]], [0.0133])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sift.matches_on_rpc_roi_batch([])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sift.keypoints_match(np.ones((2, 132)), np.ones((2, 132)))
     with pytest.raises(RuntimeError, match='CUDA'):
         device.resolve('cuda')
     assert device.resolve('cpu') == torch.device('cpu')
