@@ -46,7 +46,8 @@ the JAX package.  Phases, each timed on a line of its own:
   5. stage 4: synthetic rectified tiles in two buckets (A: 8 tiles padded
      to 448 x 512 with 80 candidates; B: 2 tiles at the default tile size,
      padded to 832 x 896 with 96 candidates) through
-     ``pipeline.stereo_matching_all`` on the card; the files it writes are
+     ``pipeline.stereo_matching_all`` on the card, one call per bucket
+     (the launches of each counted apart); the files it writes are
      checked for shape and for the known shift of each tile, and two
      tiles of each bucket are held bitwise against the same entry run
      with device="cpu" (the plain versions);
@@ -68,31 +69,43 @@ the JAX package.  Phases, each timed on a line of its own:
   8. stage 4 at 528 candidates: one 60 x 890 tile through
      ``stereo_matching_all``, its known shift, and its files byte for
      byte against the CPU run;
- 8b. (run right after phase 8) stages 1 -> 2 -> 3 -> 4 -> 5 of one scene
-     on the card: two 2000 x 2800 images (image 2 rendered from image 1
-     through stage 5's cameras at a constant altitude, with a pointing
-     error across the epipolar lines), an ROI of 2400 x 1600 px in 6
-     tiles of 800 with their neighbour halos and masks, the default
-     config; ``pointing_correction_all`` (SIFT detection, match, RANSAC
-     and the per-tile fit, from the two images alone),
-     ``global_pointing_correction``, ``rectification_all``,
-     ``stereo_matching_all`` and ``disparity_to_ply_all``, each timed, the
-     launches over the five; stage 1's parts run again one by one
-     (detection with its pyramid, orientation and descriptor waves, the
-     match wave, RANSAC, the per-tile fit) with the keypoints and matches
-     of each tile, and once more under the profiler (CUDA kernels and
-     their device time); each tile's pointing.txt against the rendered
-     error (0.1 px); stage 1 of two tiles again with device="cpu":
-     pointing.txt byte for byte (or within 0.01 px, reported) and both
-     tiles' keypoints against the card's by the CPU tests' set criterion;
-     stages 2 and 3 again with device="cpu" on the card's stage-1 files,
-     their files byte for byte; the scene's true correspondences'
-     rectified rows within 0.1 px (and stage 1's SIFT matches' rows
-     reported), stage 4's disparities inside each tile's range, the cloud's
-     altitudes near the scene's; stage 3's parts one by one with their
-     shares of its time; W1 at the scene's group and tile, bitwise
-     against and timed beside its plain version, with its bound, and its
-     order 1 beside grid_sample;
+ 8b. (run right after phase 8) one scene through the entry, stages 1 to
+     7 on the card: two 2000 x 2800 GeoTIFFs with their cameras in the
+     RPC tag (image 2 rendered from image 1 through stage 5's cameras at
+     a constant altitude, with a pointing error across the epipolar
+     lines) and a config file with relative paths (an ROI of 2400 x 1600
+     px, the default tile size 800 and the default config otherwise);
+     ``pipeline.main(read_config_file(path))`` tiles the ROI (6 tiles,
+     their neighbourhoods and masks) and runs every stage; each stage's
+     time as the entry measures it and main's wall time, with the card's
+     name and power limit, the launches over main; the tiling against the
+     expected layout; stage 1's parts run again one by one (detection
+     with its pyramid, orientation and descriptor waves, the match wave,
+     RANSAC, the per-tile fit) with the keypoints and matches of each
+     tile, and once more under the profiler (CUDA kernels and their
+     device time); each tile's pointing.txt against the rendered error
+     (0.1 px); stage 1 of two tiles again with device="cpu": pointing.txt
+     byte for byte (or within 0.01 px, reported) and both tiles'
+     keypoints against the card's by the CPU tests' set criterion; stages
+     2 and 3 again with device="cpu" on the card's stage-1 files, their
+     files byte for byte; K1, K2 and K3 against their plain versions on
+     the bucket stage 4 gave them (``pipeline.matching_buckets`` of the
+     card's stage-3 files: 6 tiles, 832 x 960, 16 candidates), and stage
+     4 of two tiles with device="cpu", its three files byte for byte; the
+     scene's true correspondences' rectified
+     rows within 0.1 px (and stage 1's SIFT matches' rows reported),
+     stage 4's disparities inside each tile's range, the cloud's
+     altitudes near the scene's; dsm.tif's georeferencing (the UTM zone's
+     CRS, the grid at dsm_resolution, nodata NaN), its valid share inside
+     the ROI's footprint, its median altitude error, and the whole of it
+     bitwise against one rasterization of all the tiles' clouds; stage
+     3's parts one by one with their shares of its time; W1 at the
+     scene's group and tile, bitwise against and timed beside its plain
+     version, with its bound, and its order 1 beside grid_sample;
+ 8c. a tile mask from GML rings of real size (an ROI ring of 4000
+     vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
+     ``core.masking.image_tile_mask``'s host time and its area against the
+     rings';
   9. (run right after phase 4) the single-tile and lane-fold modes of
      the kernels against their plain versions: the pre-pass at a signed base (-40, padded
      secondary) on an 800 x 800 tile with 96 candidates, the WTA's
@@ -115,16 +128,21 @@ the JAX package.  Phases, each timed on a line of its own:
      ``mgm_binary_match_batch`` on the same tile in a 1-tile bucket, with
      its known shift; ``core.matching.compute_disparity_map`` on the
      797 x 803 tile; a 128 x 160 crop with edge_subpix against
-     device="cpu" byte for byte; the 800 x 800 call's wall time;
- 11. the lane-folded batch: bucket A's 8 tiles with S2P_TPU_LANE_FOLD=3
-     (two groups of 3 and a 2-tile tail) bitwise per tile against the
-     unfolded batch on the card;
- 12. a JSON line with, per kernel and mode, its launches during the
-     phase that drives its path (5 for the flow's kernels, 6 for the
-     classic matcher's, 8 for the scan at 528 candidates, 10 for the
-     pre-pass at a signed base and the WTA's edge modes, 11 for the
-     folded scan, 8b for W1), its error against the plain version, its
-     time, the plain version's time and the least time the card could
+     device="cpu" byte for byte, and the WTA calls of the card's run (its
+     single-tile modes) against their plain version on the partials that
+     run gave them; the 800 x 800 call's wall time;
+ 11. the lane-folded batch: bucket A's 8 tiles with S2P_TPU_LANE_FOLD=2
+     (the fold of phase 9's check: 4 groups of 2), then 3 (two groups of
+     3 and a 2-tile tail), each bitwise per tile against the unfolded
+     batch on the card;
+ 12. a JSON line with, per kernel and mode, its launches during the run
+     that drives its path and the numbers of its comparison at that run's
+     shapes: the flow's kernels in the scene through main (8b, its
+     bucket), at stage 4's buckets A and B (5) and at 528 candidates (8);
+     W1 in the scene (8b); the classic matcher's (6 and 4); the pre-pass
+     at a signed base (10 and 9); the WTA's edge modes (10); the folded
+     scan (11 at fold 2, and 9); its error against the plain version,
+     its time, the plain version's time and the least time the card could
      take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100
      SXM data sheet); the scan's entries also carry ``bucket_ms``, both
      sides of the bucket as the flow launches them, K4b's
@@ -179,8 +197,9 @@ S5_SHIFT = -67.0
 S5_CROP = (96, 128)
 S5_XY_TOL_M, S5_ALT_TOL_M = 1e-3, 2e-3
 S5_KNOWN_DISP, S5_KNOWN_TOL_M = 3.0, 0.01
-# lane folds: the kernel check's, and the batch entry's (8 tiles: two
-# groups and a 2-tile tail)
+# lane folds: the kernel check's and the batch entry's first run (8 tiles:
+# 4 groups of 2), and the batch entry's second (two groups and a 2-tile
+# tail)
 KERNEL_FOLD = 2
 BATCH_FOLD = 3
 # stages 1 -> 2 -> 3 -> 4 -> 5 of one scene: two 2000 x 2800 images seen by
@@ -196,6 +215,13 @@ SCENE_H0 = 300.0
 SCENE_POINTING = 0.7
 SCENE_ALT_TOL_M = (1.0, 3.0)
 SCENE_ROW_TOL_PX = 0.1
+# the DSM: its valid share on the cells inside the ROI's footprint
+SCENE_DSM_SHARE = 0.8
+# a tile mask from GML rings of the size real ones have: an ROI ring and
+# a cloud ring inside it (vertices), on one tile of the default size; the
+# mask's area against the rings' (relative)
+GML_VERTICES = (4000, 1000)
+GML_AREA_TOL = 0.02
 # stage 1: each tile's translation against the rendered pointing error
 # (px); the card's pointing.txt against the CPU's (px, where the bytes
 # differ); the keypoints of two tiles, card against CPU, by the set
@@ -363,15 +389,19 @@ def check_no_spill(log, kernel):
         raise AssertionError(f'no {kernel} in the ptxas log')
 
 
-def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
+def check_kernels(specs, pairs, stats, bucket, tag, variant=None,
+                  edge_modes=False):
     """Phase 3: every kernel of the flow against its plain version, on the
-    inputs the main path gives it at the bucket's shapes; ``tag`` is
-    appended to the kernels' names in ``stats``."""
+    inputs the main path gives it at the bucket's shapes (``variant``, the
+    flow's, None for the default); ``tag`` is appended to the kernels'
+    names in ``stats``, whose times and byte counts add up over the
+    buckets checked under one tag; ``edge_modes`` also checks the WTA's
+    single-tile modes on the same partials."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
 
-    v = mf.MgmVariant()
+    v = variant or mf.MgmVariant()
     D = bucket['D']
     b1, b2 = bucket_arrays(specs, bucket, pairs)
     dev = torch.device('cuda')
@@ -396,6 +426,7 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
 
     vols, seq = {}, {}
     for side, (sref, ssec, base, hr, wr, ws, votes) in sides.items():
+        scan_bytes = 0
         sr, ss, _ = mf._side_sigs(sref, ssec, base, hr, wr, ws, D)
         s1t = sr.transpose(1, 2).contiguous()
         s2t = ss.transpose(1, 2).contiguous()
@@ -439,6 +470,7 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
             # one launch per direction: each later direction reads back
             # and rewrites S
             floor += nbytes + 8 * vol * (len(lats) - 1)
+            scan_bytes += nbytes
             rec(f'scan {key}', side, ok, err,
                    timed(lambda: sk.scan(cost, p2, lats, v.p1, mf.BIG, **kw),
                          5),
@@ -454,7 +486,7 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
             del Sp, vp
         print(f'  scan {side}: byte floor of one launch per direction '
               f'{bound(floor, 0)[0]:.4f} ms, fused bound '
-              f"{bound(stats['scan' + tag]['nbytes'], 0)[0]:.4f} ms",
+              f'{bound(scan_bytes, 0)[0]:.4f} ms',
               flush=True)
 
         parts = [S['v'], S['h'].permute(0, 3, 2, 1)]
@@ -468,7 +500,7 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                timed(lambda: sk.wta(parts, v.subpix, mf.BIG / 2), 5),
                timed(lambda: sk.wta_plain(parts, v.subpix, mf.BIG / 2), 2),
                8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
-        if not tag:
+        if edge_modes:
             # the single-tile flow's modes on the same partials: each
             # alone, then both (timed)
             for one in ({'edge_subpix': True}, {'plateau_zero': True}):
@@ -494,19 +526,19 @@ def check_kernels(specs, pairs, stats, bucket=BUCKET_A, tag=''):
                 8 * vol + 4 * off.numel() + 4 * d_int.numel(), 2 * vol)
         del S, parts, cost_h
         torch.cuda.empty_cache()
-    check_bucket_scans(vols, seq, stats['scan' + tag])
+    check_bucket_scans(vols, seq, stats['scan' + tag], v)
 
 
-def check_bucket_scans(vols, seq, st):
+def check_bucket_scans(vols, seq, st, v):
     """K2 per bucket as the flow launches it: both sides' four chains of
     passes at once (sgm_kernels.flow_scans), bitwise against the passes
     run one by one, and timed twice beside the same passes one after
-    another on one stream; the JSON line reports the better of the two."""
+    another on one stream; the JSON line reports the better of the two
+    (added up over the buckets checked under one tag)."""
     import torch
     from s2p_tpu_torch.ops import mgm_flow as mf
     from s2p_tpu_torch.ops import sgm_kernels as sk
 
-    v = mf.MgmVariant()
     ins = [(vols['L'], True), (vols['R'], False)]
     got = sk.flow_scans(ins, v)
     for (parts, votes), side in zip(got, ('L', 'R')):
@@ -537,7 +569,7 @@ def check_bucket_scans(vols, seq, st):
           f'{ts[1]:.3f} ms', flush=True)
     print(f'  scan bucket, the same passes on one stream: {one_stream:.3f} ms',
           flush=True)
-    st['bucket_ms'] = min(ts)
+    st['bucket_ms'] = st.get('bucket_ms', 0.0) + min(ts)
     torch.cuda.empty_cache()
 
 
@@ -1567,13 +1599,44 @@ def check_single_path(pairs, out):
           f'{[round(t * 1e3, 3) for t in walls[1:]]}', flush=True)
 
 
-def check_single_crop(pairs):
-    """Phase 10: a 128 x 160 crop with edge_subpix, card against the CPU
-    byte for byte."""
+@contextmanager
+def spy_wta(calls):
+    """While the block runs, append the arguments of every WTA call on
+    CUDA tensors to ``calls`` (the partials copied), through the names
+    sgm_kernels and mgm_flow call it by."""
     from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    orig = sk.wta
+
+    def wta(parts, *a, **kw):
+        if parts[0].is_cuda:
+            calls.append(([p.clone() for p in parts], a, kw))
+        return orig(parts, *a, **kw)
+    sk.wta = mf.wta = wta
+    try:
+        yield
+    finally:
+        sk.wta = mf.wta = orig
+
+
+def check_single_crop(pairs, stats, launches):
+    """Phase 10: a 128 x 160 crop with edge_subpix, card against the CPU
+    byte for byte; the launches of the card's run, and its WTA calls (the
+    single-tile modes, K3 as ``wta_edge``) held against their plain
+    version on the partials that run gave them."""
+    import torch
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
     im1, im2 = (im[:128, :160].copy() for im in pairs[SINGLE['index']])
     v = mf.MgmVariant(edge_subpix=True, subpix_plateau='zero')
-    gpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v)
+    calls = []
+    sk.reset_launch_counts()
+    with spy_wta(calls):
+        gpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'],
+                                  v)
+        torch.cuda.synchronize()
+    launches['single_edge'] = sk.launch_counts()
+    print(f"  launches (crop): {launches['single_edge']}", flush=True)
     cpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v,
                               device='cpu')
     for name, x, y in zip(('disp', 'confidence'), gpu, cpu):
@@ -1583,6 +1646,17 @@ def check_single_crop(pairs):
                                  'the CPU run')
     print('  crop 128 x 160 (edge_subpix, plateau zero): disp and '
           'confidence equal the CPU run byte for byte', flush=True)
+    for side, (parts, a, kw) in zip(('L', 'R'), calls):
+        off, d_int = sk.wta(parts, *a, **kw)
+        off_p, d_p = sk.wta_plain(parts, *a, **kw)
+        ok, err = equal(off, off_p)
+        ok_d, err_d = equal(d_int, d_p)
+        vol = parts[0].numel()
+        record(stats, 'wta_edge', side, ok and ok_d, max(err, err_d),
+               timed(lambda: sk.wta(parts, *a, **kw), 5),
+               timed(lambda: sk.wta_plain(parts, *a, **kw), 2),
+               4 * len(parts) * vol + 4 * off.numel() + 4 * d_int.numel(),
+               len(parts) * vol)
 
 
 def check_folded_batch(specs, pairs, folded):
@@ -1711,43 +1785,39 @@ def check_warp():
                              'the CPU')
 
 
-def scene_tiles(root):
-    """The scene's tiles in the tiling's layout, each with the relative
-    directories of its 3 x 3 neighbourhood inside the ROI."""
+def expected_tiles(out_dir):
+    """The scene's 6 tiles as the tiling must lay them out: coordinates
+    and the relative directories of each one's 3 x 3 neighbourhood inside
+    the ROI."""
     rx, ry, rw, rh = SCENE['roi']
     t = SCENE['tile']
 
     def rel(x, y):
         return os.path.join('tiles', f'row_{y:07d}_height_{t}',
                             f'col_{x:07d}_width_{t}')
-    tiles = []
-    for y in range(ry, ry + rh, t):
-        for x in range(rx, rx + rw, t):
-            nbrs = [os.path.join('../../..', rel(x2, y2))
-                    for y2 in (y - t, y, y + t) for x2 in (x - t, x, x + t)
-                    if rx <= x2 < rx + rw and ry <= y2 < ry + rh]
-            tiles.append({'dir': os.path.join(root, rel(x, y)),
-                          'coordinates': (x, y, t, t),
-                          'neighborhood_dirs': nbrs})
-    return tiles
+    return [{'dir': os.path.join(out_dir, rel(x, y)),
+             'coordinates': (x, y, t, t),
+             'neighborhood_dirs': sorted(
+                 os.path.join('../../..', rel(x2, y2))
+                 for y2 in (y - t, y, y + t) for x2 in (x - t, x, x + t)
+                 if rx <= x2 < rx + rw and ry <= y2 < ry + rh)}
+            for y in range(ry, ry + rh, t) for x in range(rx, rx + rw, t)]
 
 
 def render_scene(root):
-    """The scene's images and the tiles' masks under ``root``; returns the
-    config (the default one, with the two cameras) and the tiles.
+    """The scene's two images, as GeoTIFFs with their cameras in the RPC
+    tag (the port's writer), and its config file (relative paths, the
+    default config otherwise) under ``root``; returns the config's path.
 
     Image 1 is smooth noise.  Image 2 shows, at each pixel, the ground
     point at SCENE_H0 that camera 2 sees SCENE_POINTING px above it (the
     pointing error), as camera 1 sees it: the map from image 2 to image 1
     is computed in float64 on a grid every 16 px and interpolated between
     (the map is smooth to about 1e-6 px over 16 px), and image 1 is
-    sampled there by a cubic spline.  Per tile, its directory and
-    mask.png; stage 1 writes the rest."""
+    sampled there by a cubic spline."""
     import numpy as np
     from scipy import ndimage
-    from s2p_tpu_torch.config import Config, ImageSpec
-    from s2p_tpu_torch.core import rpc_geom
-    from s2p_tpu_torch.geo import crs, geotiff
+    from s2p_tpu_torch.geo import geotiff
 
     cam1, cam2 = stage5_camera(1, 0.02), stage5_camera(2, -0.015)
     h, w = SCENE['h'], SCENE['w']
@@ -1766,22 +1836,16 @@ def render_scene(root):
     img2 = ndimage.map_coordinates(img1, [rmap, cmap], order=3,
                                    mode='nearest').astype(np.float32)
     os.makedirs(root)
-    paths = [os.path.join(root, f'img_{k}.tif') for k in (1, 2)]
-    for path, img in zip(paths, (img1, img2)):
-        geotiff.write(path, img)
-
-    tiles = scene_tiles(root)
-    for t in tiles:
-        _, _, tw, th = t['coordinates']
-        os.makedirs(os.path.join(t['dir'], 'pair_1'))
-        geotiff.write_png(os.path.join(t['dir'], 'mask.png'),
-                          np.full((th, tw), 255, np.uint8))
-    zone = rpc_geom.utm_zone(cam1, *SCENE['roi'])
-    cfg = Config(out_dir=root, images=(ImageSpec(img=paths[0], rpcm=cam1),
-                                       ImageSpec(img=paths[1], rpcm=cam2)),
-                 out_crs=f'epsg:{crs.epsg_code_from_utm_zone(zone)}',
-                 gsd=rpc_geom.gsd_from_rpc(cam1))
-    return cfg, tiles
+    for k, img, cam in ((1, img1, cam1), (2, img2, cam2)):
+        geotiff.write(os.path.join(root, f'img_{k}.tif'), img, rpc=cam)
+    rx, ry, rw, rh = SCENE['roi']
+    path = os.path.join(root, 'config.json')
+    with open(path, 'w') as f:
+        json.dump({'out_dir': 'out',
+                   'images': [{'img': 'img_1.tif'}, {'img': 'img_2.tif'}],
+                   'roi': {'x': rx, 'y': ry, 'w': rw, 'h': rh},
+                   'tile_size': SCENE['tile']}, f, indent=2)
+    return path
 
 
 def true_matches(cfg, tile, k, n=200):
@@ -1849,6 +1913,12 @@ def check_keypoint_sets(name, got, want):
                              'the CPU\'s set criterion')
 
 
+def moved(tile, out_dir, root):
+    """A tile of ``out_dir`` at the same place under ``root``."""
+    return dict(tile, dir=os.path.join(root,
+                                       os.path.relpath(tile['dir'], out_dir)))
+
+
 def check_scene_stage1(cfg, tiles, cpu_root, t_stage1):
     """Stage 1's checks and parts: each tile's translation against the
     rendered pointing error; the parts run again one by one, then under
@@ -1909,7 +1979,7 @@ def check_scene_stage1(cfg, tiles, cpu_root, t_stage1):
 
     # two tiles with device="cpu"
     cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
-    cpu_tiles = scene_tiles(cpu_root)[:2]
+    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles[:2]]
     for t in cpu_tiles:
         os.makedirs(os.path.join(t['dir'], 'pair_1'))
     t0 = time.perf_counter()
@@ -2065,55 +2135,220 @@ def time_scene_warp(cfg, tiles, stats):
           f'max difference inside {d:.3g}', flush=True)
 
 
-def run_scene(root, cpu_root, stats, launches):
-    """Stages 1 -> 2 -> 3 -> 4 -> 5 of the scene on the card, each timed,
-    the launch counts of the port's kernels over the five; then the
-    checks."""
+def check_scene_tiling(cfg, tiles):
+    """The tiling's tiles against the layout the scene must have."""
+    want = expected_tiles(cfg.out_dir)
+    got = [dict(t, neighborhood_dirs=sorted(t['neighborhood_dirs']))
+           for t in tiles]
+    if [(t['dir'], tuple(t['coordinates']), t['neighborhood_dirs'])
+            for t in got] != [(t['dir'], t['coordinates'],
+                               t['neighborhood_dirs']) for t in want]:
+        raise AssertionError(f'the tiling laid out {tiles}, not {want}')
+    print(f'  tiling: {len(tiles)} tiles of {SCENE["tile"]} px with their '
+          'neighbourhoods, as expected', flush=True)
+
+
+def check_scene_dsm(cfg, tiles):
+    """The scene's dsm.tif: the UTM CRS of the scene's zone, its grid at
+    dsm_resolution, nodata NaN; its valid share on the cells whose ground
+    point at SCENE_H0 camera 1 sees inside the ROI (30 px in from its
+    edges); its median |z - SCENE_H0|; and, with tolerance 0, one
+    rasterization of all the tiles' clouds (the seamlessness check)."""
+    import numpy as np
+    from s2p_tpu_torch.core import rpc_geom
+    from s2p_tpu_torch.geo import crs, geotiff
+    from s2p_tpu_torch.ops import rasterize
+
+    path = os.path.join(cfg.out_dir, 'dsm.tif')
+    prof = geotiff.read_profile(path)
+    dsm = geotiff.read_with_nans(path)
+    cam = cfg.images[0].rpcm
+    zone = rpc_geom.utm_zone(cam, *SCENE['roi'])
+    epsg = crs.epsg_code_from_utm_zone(zone)
+    r = cfg.dsm_resolution
+    a, b, c, d, e, f = prof.transform
+    print(f'  dsm.tif: {prof.width} x {prof.height}, {prof.dtype}, '
+          f'EPSG:{prof.crs.epsg if prof.crs else None} (zone {zone}), '
+          f'transform {prof.transform}, nodata {prof.nodata}', flush=True)
+    if (prof.crs is None or prof.crs.epsg != epsg or not 32701 <= epsg
+            <= 32760 or (a, b, d, e) != (r, 0.0, 0.0, -r)
+            or c % r or f % r or not np.isnan(prof.nodata)
+            or prof.dtype != 'float32'):
+        raise AssertionError('stage 7: dsm.tif is not georeferenced as the '
+                             'scene needs')
+    jj, ii = np.meshgrid(np.arange(prof.width), np.arange(prof.height))
+    xs, ys = c + (jj.ravel() + 0.5) * r, f - (ii.ravel() + 0.5) * r
+    lon, lat = crs.transform(xs, ys, prof.crs, 4326)
+    cols, rows = cam.projection(lon, lat, SCENE_H0)
+    rx, ry, rw, rh = SCENE['roi']
+    m = 30
+    inside = ((cols >= rx + m) & (cols < rx + rw - m) & (rows >= ry + m)
+              & (rows < ry + rh - m)).reshape(dsm.shape)
+    fin = np.isfinite(dsm)
+    share = float(fin[inside].mean())
+    err = np.abs(dsm[fin] - SCENE_H0)
+    med = float(np.median(err))
+    print(f'  dsm.tif: {int(inside.sum())} cells inside the ROI\'s '
+          f'footprint, {share:.4f} of them valid (bar {SCENE_DSM_SHARE}); '
+          f'{int(fin.sum())} valid cells in all, |z - {SCENE_H0}| median '
+          f'{med:.3f} m, 90th percentile {np.percentile(err, 90):.3f} m '
+          f'(bar {SCENE_ALT_TOL_M[0]} m on the median)', flush=True)
+    if share < SCENE_DSM_SHARE or med > SCENE_ALT_TOL_M[0]:
+        raise AssertionError('stage 7: the DSM misses the scene')
+    t0 = time.perf_counter()
+    clouds = [os.path.join(t['dir'], 'cloud.ply') for t in tiles]
+    raster, _ = rasterize.plyflatten_from_plyfiles_list(clouds, r)
+    t_mono = time.perf_counter() - t0
+    mono = raster[:, :, 0]
+    same = mono.shape == dsm.shape and bool(
+        np.array_equal(mono, dsm, equal_nan=True))
+    print(f'  seamlessness: dsm.tif against one rasterization of the '
+          f'{len(clouds)} clouds ({t_mono:.3f} s): equal bitwise {same}',
+          flush=True)
+    if not same:
+        raise AssertionError('stage 7: the tiled DSM differs from the '
+                             'monolithic rasterization')
+
+
+def check_scene_matching(cfg, tiles, cpu_cfg, cpu_tiles, stats, launches):
+    """Stage 4 of the scene: K1, K2 and K3 against their plain versions on
+    the buckets main gave them (``pipeline.matching_buckets`` over the
+    card's stage-3 files, the config's variant), under the tag ``_scene``;
+    then stage 4 of two tiles with device="cpu" on the CPU tree's stage-3
+    files (equal to the card's): the three files byte for byte."""
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import matching
+
+    variant = matching.mgm_variant_from_cfg(cfg)
+    buckets = pipeline.matching_buckets(cfg, [(t, 1) for t in tiles])
+    sides = 2 if variant.lr_enabled else 1
+    if launches['cost_prepass'] != sides * len(buckets):
+        raise AssertionError(f"main launched K1 {launches['cost_prepass']} "
+                             f'times, not once per side of its '
+                             f'{len(buckets)} buckets')
+    for (Hp, Wp, Dp), group in buckets.items():
+        specs, pairs = [], {}
+        for k, j in enumerate(group):
+            h, w1 = j['rect1'].shape
+            specs.append(dict(index=k, h=h, w1=w1, w2=j['rect2'].shape[1],
+                              dmin=j['dmin'], dmax=j['dmax']))
+            pairs[k] = (j['rect1'], j['rect2'])
+        print(f'  stage 4 bucket {Hp} x {Wp}, {Dp} candidates, '
+              f'{len(group)} tiles: K1, K2 and K3 against their plain '
+              'versions', flush=True)
+        check_kernels(specs, pairs, stats, dict(n=len(group), h=Hp, w=Wp,
+                                                D=Dp), '_scene', variant)
+        del specs, pairs
+    del buckets
+    t0 = time.perf_counter()
+    pipeline.stereo_matching_all(cpu_cfg, [(t, 1) for t in cpu_tiles[:2]],
+                                 device='cpu')
+    print(f'  stage 4 of two tiles with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    for a, b in zip(tiles[:2], cpu_tiles[:2]):
+        for name in ('rectified_disp.tif', 'rectified_disp_confidence.tif',
+                     'rectified_mask.png'):
+            with open(os.path.join(a['dir'], 'pair_1', name), 'rb') as f1, \
+                    open(os.path.join(b['dir'], 'pair_1', name), 'rb') as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"stage 4: {a['dir']}/{name} "
+                                         'differs from the CPU run')
+        print(f'  {tile_name(a)}: the three stage-4 files equal the CPU run '
+              'byte for byte', flush=True)
+
+
+def time_gml_mask(root):
+    """``masking.image_tile_mask`` on one tile of SCENE['tile'] px with an
+    ROI ring and a cloud ring of GML_VERTICES vertices (wavy circles with
+    a little noise about the tile's centre, written as GML): its host time (median of 3)
+    and its area against the rings' (shoelace), within GML_AREA_TOL."""
+    import numpy as np
+    from s2p_tpu_torch.core import masking
+
+    rng = np.random.RandomState(SCENE['seed'])
+    t = SCENE['tile']
+    paths, areas = [], []
+    for name, n, radius in (('roi', GML_VERTICES[0], 0.47 * t),
+                            ('clouds', GML_VERTICES[1], 0.2 * t)):
+        ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+        r = radius * (1 + 0.05 * np.sin(7 * ang + rng.uniform(0, 7))
+                      + 0.002 * rng.standard_normal(n))
+        x, y = 100 + t / 2 + r * np.cos(ang), 300 + t / 2 + r * np.sin(ang)
+        areas.append(0.5 * abs(np.dot(x, np.roll(y, 1))
+                               - np.dot(y, np.roll(x, 1))))
+        path = os.path.join(root, f'{name}.gml')
+        with open(path, 'w') as f:
+            f.write('<gml:FeatureCollection xmlns:gml="http://www.opengis.'
+                    'net/gml"><gml:posList>' + ' '.join(
+                        f'{a:.3f} {b:.3f}' for a, b in zip(x, y))
+                    + '</gml:posList></gml:FeatureCollection>\n')
+        paths.append(path)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mask = masking.image_tile_mask(100, 300, t, t, roi_gml=paths[0],
+                                       cld_gml=paths[1])
+        times.append(time.perf_counter() - t0)
+    want = areas[0] - areas[1]
+    rel = abs(int(mask.sum()) - want) / want
+    print(f'  image_tile_mask, {t} x {t} tile, GML rings of '
+          f'{GML_VERTICES[0]} and {GML_VERTICES[1]} vertices: '
+          f'{statistics.median(times):.4f} s (host, median of '
+          f'{[round(x, 4) for x in times]}); {int(mask.sum())} pixels '
+          f'inside against the rings\' {want:.1f} ({rel:.5f} apart, bar '
+          f'{GML_AREA_TOL})', flush=True)
+    if rel > GML_AREA_TOL:
+        raise AssertionError('the GML tile mask misses its rings\' area')
+
+
+def run_scene(root, cpu_root, stats, launches, card):
+    """The scene through the entry, ``pipeline.main`` of its config file
+    on the card (stages 1 to 7), its stage times and the launch counts of
+    the port's kernels over it; then the checks."""
     import dataclasses
     import numpy as np
     import torch
-    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch import pipeline, tiling
     from s2p_tpu_torch.geo import geotiff, ply
     from s2p_tpu_torch.ops import interp
     from s2p_tpu_torch.ops import sgm_kernels as sk
     from s2p_tpu_torch.ops.homography import points_apply_homography
 
     t0 = time.perf_counter()
-    cfg, tiles = render_scene(root)
-    print(f"  scene: two {SCENE['h']} x {SCENE['w']} images, "
-          f'{len(tiles)} tiles, rendered in {time.perf_counter() - t0:.3f} '
-          's', flush=True)
-    pairs = [(t, 1) for t in tiles]
-    walls = {}
-
-    def run(name, fn):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        print(f'  {name}: {walls[name]:.3f} s', flush=True)
-
+    config = render_scene(root)
+    print(f"  scene: two {SCENE['h']} x {SCENE['w']} GeoTIFFs with RPC "
+          f'tags and {config}, written in {time.perf_counter() - t0:.3f} s',
+          flush=True)
     sk.reset_launch_counts()
     interp.reset_launch_counts()
-    run('stage 1', lambda: pipeline.pointing_correction_all(cfg, pairs))
-    # the card's stage-1 files, for the CPU's stages 2 and 3
-    shutil.copytree(os.path.join(root, 'tiles'),
-                    os.path.join(cpu_root, 'tiles'))
-    for name, fn in (
-            ('stage 2', lambda: pipeline.global_pointing_correction(cfg,
-                                                                   tiles)),
-            ('stage 3', lambda: pipeline.rectification_all(cfg, pairs)),
-            ('stage 4', lambda: pipeline.stereo_matching_all(cfg, pairs)),
-            ('stage 5', lambda: pipeline.disparity_to_ply_all(cfg, tiles))):
-        run(name, fn)
+    stage_times = {}
+    t0 = time.perf_counter()
+    cfg = pipeline.main(pipeline.read_config_file(config),
+                        stage_times=stage_times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches['scene'] = {**sk.launch_counts(), **interp.launch_counts()}
-    print(f"  launches over stages 1 to 5: {launches['scene']}", flush=True)
+    walls = {label.split(')')[0]: t for label, t in stage_times.items()}
+    for label, t in stage_times.items():
+        print(f'  {label} {t:.3f} s', flush=True)
+    print(f'  main: {wall:.3f} s of wall time for stages 1 to 7 '
+          f'({sum(walls.values()):.3f} s in the stages) on {card}',
+          flush=True)
+    print(f"  launches over main: {launches['scene']}", flush=True)
+    tw, th = tiling.adjust_tile_size(cfg)
+    tiles = tiling.tiles_full_info(cfg, tw, th,
+                                   os.path.join(cfg.out_dir, 'tiles.txt'))
+    check_scene_tiling(cfg, tiles)
+    pairs = [(t, 1) for t in tiles]
     check_scene_stage1(cfg, tiles, os.path.join(cpu_root, 'stage1'),
-                       walls['stage 1'])
+                       walls['1'])
 
-    # stage 3 on the CPU: the same files byte for byte
+    # stages 2 and 3 on the CPU over the card's stage-1 files: the same
+    # files byte for byte
+    shutil.copytree(os.path.join(cfg.out_dir, 'tiles'),
+                    os.path.join(cpu_root, 'tiles'))
     cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
-    cpu_tiles = scene_tiles(cpu_root)
+    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles]
     t0 = time.perf_counter()
     pipeline.global_pointing_correction(cpu_cfg, cpu_tiles)
     pipeline.rectification_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
@@ -2122,7 +2357,7 @@ def run_scene(root, cpu_root, stats, launches):
           f'{time.perf_counter() - t0:.3f} s', flush=True)
     names = ('H_ref.txt', 'H_sec.txt', 'disp_min_max.txt',
              'rectified_ref.tif', 'rectified_sec.tif')
-    files = [('global_pointing_pair_1.txt', root, cpu_root)] + [
+    files = [('global_pointing_pair_1.txt', cfg.out_dir, cpu_root)] + [
         (os.path.join('pair_1', n), a['dir'], b['dir'])
         for a, b in zip(tiles, cpu_tiles) for n in names]
     for name, a, b in files:
@@ -2133,6 +2368,8 @@ def run_scene(root, cpu_root, stats, launches):
                                      'CPU run')
     print(f'  stage 2 and 3 files equal the CPU run byte for byte: '
           f'{len(files)} files', flush=True)
+    check_scene_matching(cfg, tiles, cpu_cfg, cpu_tiles, stats,
+                         launches['scene'])
 
     worst_row, alts, sift_rows = 0.0, [], []
     for k, t in enumerate(tiles):
@@ -2157,7 +2394,7 @@ def run_scene(root, cpu_root, stats, launches):
         pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
         err = np.abs(pts[:, 2] - SCENE_H0)
         alts.append(err)
-        print(f"  {os.path.relpath(t['dir'], root)}: range [{lo}, {hi}], "
+        print(f"  {tile_name(t)}: range [{lo}, {hi}], "
               f'disparity {np.percentile(disp[fin], 1):.3f} .. '
               f'{np.percentile(disp[fin], 99):.3f} ({fin.mean():.4f} '
               f'finite), {len(pts)} points, |altitude - {SCENE_H0}| median '
@@ -2180,7 +2417,8 @@ def run_scene(root, cpu_root, stats, launches):
     if med > SCENE_ALT_TOL_M[0] or p90 > SCENE_ALT_TOL_M[1]:
         raise AssertionError('stage 5: the cloud misses the altitude of the '
                              'scene')
-    scene_stage3_shares(cfg, tiles, walls['stage 3'])
+    check_scene_dsm(cfg, tiles)
+    scene_stage3_shares(cfg, tiles, walls['3'])
     time_scene_warp(cfg, tiles, stats)
 
 
@@ -2227,11 +2465,11 @@ def main():
 
     stats = {}
     with phase('flow kernels against their plain versions (bucket A)'):
-        check_kernels(specs_a, pairs, stats)
+        check_kernels(specs_a, pairs, stats, BUCKET_A, '_a', edge_modes=True)
     with phase('flow kernels against their plain versions (bucket B)'):
-        check_kernels(specs_b, pairs, stats, BUCKET_B, tag='_b')
+        check_kernels(specs_b, pairs, stats, BUCKET_B, '_b')
     with phase('flow kernels against their plain versions (D 528)'):
-        check_kernels([WIDE], pairs, stats, BUCKET_WIDE, tag='_d528')
+        check_kernels([WIDE], pairs, stats, BUCKET_WIDE, '_d528')
     with phase('K1 to K5 against their plain versions: adversarial '
                'shapes and values'):
         check_adversarial()
@@ -2251,20 +2489,22 @@ def main():
         gpu_root = os.path.join(tmp, 'gpu')
         cpu_root = os.path.join(tmp, 'cpu')
         cfg = Config(out_dir=gpu_root)
-        tiles = [(write_tile(gpu_root, s, *pairs[s['index']]), 1)
-                 for s in specs]
+        tiles = {b: [(write_tile(gpu_root, s, *pairs[s['index']]), 1)
+                     for s in group]
+                 for b, group in (('a', specs_a), ('b', specs_b))}
         cpu_specs = specs_a[:2] + specs_b[:2]
         cpu_tiles = [(write_tile(cpu_root, s, *pairs[s['index']]), 1)
                      for s in cpu_specs]
         with phase('stage 4 on the card (buckets A and B)'):
-            sk.reset_launch_counts()
-            t0 = time.perf_counter()
-            pipeline.stereo_matching_all(cfg, tiles)
-            torch.cuda.synchronize()
-            print(f'  stereo_matching_all: {len(tiles)} tiles in '
-                  f'{time.perf_counter() - t0:.3f} s', flush=True)
-            launches['flow'] = sk.launch_counts()
-            print(f"  launches: {launches['flow']}", flush=True)
+            for b, group in tiles.items():
+                sk.reset_launch_counts()
+                t0 = time.perf_counter()
+                pipeline.stereo_matching_all(cfg, group)
+                torch.cuda.synchronize()
+                launches[f'flow_{b}'] = sk.launch_counts()
+                print(f'  stereo_matching_all, bucket {b.upper()}: '
+                      f'{len(group)} tiles in {time.perf_counter() - t0:.3f}'
+                      f" s; launches {launches[f'flow_{b}']}", flush=True)
         with phase('stage 4 on the CPU (2 tiles of each bucket)'):
             pipeline.stereo_matching_all(cfg, cpu_tiles, device='cpu')
         with phase('stage 4 checks'):
@@ -2297,9 +2537,12 @@ def main():
             print(f"  launches: {launches['wide']}", flush=True)
             pipeline.stereo_matching_all(cfg, [wide_cpu], device='cpu')
             check_outputs(gpu_root, [WIDE], cpu_root, {WIDE['index']})
-        with phase('stages 1 -> 2 -> 3 -> 4 -> 5 of one scene on the card'):
+        with phase('one scene through pipeline.main on the card (stages 1 '
+                   'to 7)'):
             run_scene(os.path.join(tmp, 'scene'),
-                      os.path.join(tmp, 'scene_cpu'), stats, launches)
+                      os.path.join(tmp, 'scene_cpu'), stats, launches, card)
+        with phase('a tile mask from GML rings (host)'):
+            time_gml_mask(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2310,62 +2553,74 @@ def main():
         print(f"  launches: {launches['single']}", flush=True)
         check_single_path(pairs, single)
         del single
-        sk.reset_launch_counts()
-        check_single_crop(pairs)
-        launches['single_edge'] = sk.launch_counts()
-        print(f"  launches (crop): {launches['single_edge']}", flush=True)
+        check_single_crop(pairs, stats, launches)
     with phase('the lane-folded batch on the card'):
         from s2p_tpu_torch.ops import mgm_flow as mf
         b1, b2 = bucket_arrays(specs_a, BUCKET_A, pairs)
-        os.environ['S2P_TPU_LANE_FOLD'] = str(BATCH_FOLD)
-        try:
-            sk.reset_launch_counts()
-            folded = mf.mgm_binary_match_batch(*fold_args(specs_a, b1, b2))
-            torch.cuda.synchronize()
-            launches['fold'] = sk.launch_counts()
-        finally:
-            del os.environ['S2P_TPU_LANE_FOLD']
-        print(f"  launches: {launches['fold']}", flush=True)
-        check_folded_batch(specs_a, pairs, folded)
-        del folded
+        # the fold of the kernel check first (its launches go into the
+        # JSON line), then one that leaves a tail group
+        for run, fold in (('fold', KERNEL_FOLD), ('fold_tail', BATCH_FOLD)):
+            os.environ['S2P_TPU_LANE_FOLD'] = str(fold)
+            try:
+                sk.reset_launch_counts()
+                folded = mf.mgm_binary_match_batch(
+                    *fold_args(specs_a, b1, b2))
+                torch.cuda.synchronize()
+                launches[run] = sk.launch_counts()
+            finally:
+                del os.environ['S2P_TPU_LANE_FOLD']
+            print(f'  fold {fold}: launches {launches[run]}', flush=True)
+            check_folded_batch(specs_a, pairs, folded)
+            del folded
     for run, keys in (('single', ('cost_prepass', 'scan', 'wta')),
-                      ('fold', ('scan_sig_seg', 'cost_prepass', 'scan',
-                                'wta'))):
+                      ('fold', ('scan_sig_seg', 'wta')),
+                      ('fold_tail', ('scan_sig_seg', 'cost_prepass', 'scan',
+                                     'wta'))):
         idle = [k for k in keys if launches[run][k] == 0]
         if idle:
             raise AssertionError(f'the {run} path launched no {idle}')
 
     pallas = 's2p_tpu/ops/sgm_pallas.py'
     csrc = 's2p_tpu_torch/csrc'
-    # kernel -> (source, TPU kernel, the path run that counts it, its key)
-    table = {
-        'cost_prepass': (f'{csrc}/cost_prepass.cu', f'{pallas}:474', 'flow',
-                         'cost_prepass'),
-        'scan': (f'{csrc}/scan.cu', f'{pallas}:81', 'flow', 'scan'),
-        'wta': (f'{csrc}/wta.cu', f'{pallas}:358', 'flow', 'wta'),
-        'scan_d528': (f'{csrc}/scan.cu', f'{pallas}:81', 'wide', 'scan'),
-        'scan_sig': (f'{csrc}/scan.cu', f'{pallas}:81', 'sgm', 'scan_sig'),
+    # JSON name -> (source, TPU kernel, the path run that counts it, its
+    # key there, the stats of the comparisons at that run's shapes)
+    flow = {'cost_prepass': (f'{csrc}/cost_prepass.cu', f'{pallas}:474'),
+            'scan': (f'{csrc}/scan.cu', f'{pallas}:81'),
+            'wta': (f'{csrc}/wta.cu', f'{pallas}:358')}
+    table = {}
+    # the scene through main (its bucket), then stage 4's buckets A and B
+    # and the tile at 528 candidates
+    for suffix, run, tag in (('', 'scene', '_scene'), ('_a', 'flow_a', '_a'),
+                             ('_b', 'flow_b', '_b'),
+                             ('_d528', 'wide', '_d528')):
+        for kern, (src, replaces) in flow.items():
+            table[kern + suffix] = (src, replaces, run, kern, kern + tag)
+    table.update({
+        'scan_sig': (f'{csrc}/scan.cu', f'{pallas}:81', 'sgm', 'scan_sig',
+                     'scan_sig'),
         'scan_mgm': (f'{csrc}/scan_mgm.cu', f'{pallas}:81', 'sgm',
-                     'scan_mgm'),
-        'wta_dr': (f'{csrc}/wta.cu', f'{pallas}:358', 'sgm', 'wta_dr'),
+                     'scan_mgm', 'scan_mgm'),
+        'wta_dr': (f'{csrc}/wta.cu', f'{pallas}:358', 'sgm', 'wta_dr',
+                   'wta_dr'),
         'cost_prepass_signed': (f'{csrc}/cost_prepass.cu', f'{pallas}:474',
-                                'single', 'cost_prepass'),
+                                'single', 'cost_prepass',
+                                'cost_prepass_signed'),
         'wta_edge': (f'{csrc}/wta.cu', f'{pallas}:358', 'single_edge',
-                     'wta_edge'),
+                     'wta_edge', 'wta_edge'),
         'scan_sig_seg': (f'{csrc}/scan.cu', f'{pallas}:81', 'fold',
-                         'scan_sig_seg'),
+                         'scan_sig_seg', 'scan_sig_seg'),
         # W1 replaces a jitted jnp program, not a Pallas kernel
         'warp': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:145', 'scene',
-                 'warp'),
-    }
-    missing = [name for name, (_, _, run, key) in table.items()
+                 'warp', 'warp'),
+    })
+    missing = [name for name, (_, _, run, key, _) in table.items()
                if launches[run][key] == 0]
     if missing:
         raise AssertionError(f'kernels never launched on their path: '
                              f'{missing}')
     kernels = []
-    for name, (src, replaces, run, key) in table.items():
-        st = stats[name]
+    for name, (src, replaces, run, key, stat) in table.items():
+        st = stats[stat]
         t_bound, by = bound(st['nbytes'], st['ops'])
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': launches[run][key],

@@ -9,10 +9,13 @@ The package imports torch, numpy and scipy only.  Its entry points take
 ``device=None`` and then run on CUDA; they raise when CUDA is missing
 unless the caller asks for ``device="cpu"``.
 
-Ported so far: stage 4 (stereo matching) with the default ``mgm`` matcher,
-through :func:`s2p_tpu_torch.pipeline.stereo_matching_all`; the single-tile
-``mgm`` entry and the classic SGM census matcher (``ops/mgm_flow.py``,
-``ops/sgm.py``); and stage 5 in pair mode (triangulation, the 3D filter
-and the tile's ``cloud.ply``), through
-:func:`s2p_tpu_torch.pipeline.disparity_to_ply_all`.
+Ported so far: a pair scene from its config file to its ``dsm.tif``,
+through :func:`s2p_tpu_torch.pipeline.main` (or ``python3 -m
+s2p_tpu_torch.cli config.json``): the config, RPC loading, the tiling and
+its masks, stages 1 to 5 on the device (SIFT pointing, the global
+pointing fit, rectification, ``mgm`` matching, triangulation) and stages
+6 and 7 on the host (the tile DSMs and their mosaic); also the
+single-tile ``mgm`` entry and the classic SGM census matcher
+(``ops/mgm_flow.py``, ``ops/sgm.py``).  Not yet: three or more images,
+SIFT's host route and the other matchers.
 """

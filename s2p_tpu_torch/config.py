@@ -2,19 +2,25 @@
 
 The fields, their JSON names and their defaults are those of the s2p JSON
 config schema (reference s2p ``config.py``), so one config file drives
-either package.  ``state.config_from_state`` builds this class from the
-dict of the JAX package's ``Config.to_dict()``.
+either package, and ``Config.dump_json`` writes the same ``config.json``
+as the JAX package's.  ``state.config_from_state`` builds this class from
+the dict of the JAX package's ``Config.to_dict()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import warnings
 from typing import Any, Optional
+
+import numpy as np
 
 # JSON keys that are not valid python identifiers
 _ALIASES = {'3d_filtering_r': 'filtering_3d_r',
             '3d_filtering_n': 'filtering_3d_n'}
+_ALIASES_INV = {v: k for k, v in _ALIASES.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +33,15 @@ class ImageSpec:
     cld: Optional[str] = None
     roi: Optional[str] = None
     wat: Optional[str] = None
+
+    def to_dict(self):
+        """The image's config entry, without the loaded camera."""
+        d = {'img': self.img}
+        for f in ('rpc', 'clr', 'cld', 'roi', 'wat'):
+            v = getattr(self, f)
+            if v is not None:
+                d[f] = v
+        return d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,3 +155,61 @@ class Config:
             else:
                 warnings.warn(f'ignoring unknown parameter {k}.')
         return cls(**kwargs)
+
+    def replace(self, **kw) -> 'Config':
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self):
+        """The config as the s2p JSON schema's dict: JSON key names, each
+        image's entry without its camera, and the fields computed at build
+        time only where they are set."""
+        d = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == 'images':
+                v = [img.to_dict() for img in v]
+            if v is None and f.name in ('gsd', 'neighborhood_dirs',
+                                        'roi_geojson'):
+                continue
+            d[_ALIASES_INV.get(f.name, f.name)] = v
+        return d
+
+    def dump_json(self, path):
+        with open(path, 'w') as f:
+            json.dump(self.to_dict(), f, indent=2, default=_json_default)
+
+
+def _json_default(o):
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, tuple):
+        return list(o)
+    raise TypeError(f'not JSON serializable: {o!r}')
+
+
+def read_config_file(config_file: str) -> dict:
+    """A JSON config file as a plain user dict, its relative paths
+    (``out_dir``, ``roi_geojson``, ``exogenous_dem`` and each image's
+    files) resolved against the file's directory; the dict can be edited
+    before it goes to :func:`s2p_tpu_torch.pipeline.main`."""
+    with open(config_file, 'r') as f:
+        user_cfg = json.load(f)
+
+    def absolutize(p):
+        if not os.path.isabs(p):
+            return os.path.join(os.path.abspath(os.path.dirname(config_file)),
+                                p)
+        return p
+
+    if 'out_dir' in user_cfg:
+        user_cfg['out_dir'] = absolutize(user_cfg['out_dir'])
+    for k in ('roi_geojson', 'exogenous_dem'):
+        if isinstance(user_cfg.get(k), str):
+            user_cfg[k] = absolutize(user_cfg[k])
+    for img in user_cfg.get('images', []):
+        for d in ('img', 'rpc', 'clr', 'cld', 'roi', 'wat'):
+            if isinstance(img.get(d), str):
+                img[d] = absolutize(img[d])
+    return user_cfg

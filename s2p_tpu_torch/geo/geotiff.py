@@ -3,20 +3,26 @@
 Stage 3 reads the input images (and an exogenous DEM's window) and
 writes the rectified pair as float32 TIFF; stage 4 reads that pair and
 writes the disparity and confidence maps as float32 TIFF and the
-validity mask as an 8-bit grey PNG.  The port's machines have no PIL, rasterio or GDAL, so this module
-carries the subset it needs:
+validity mask as an 8-bit grey PNG; stages 6 and 7 write the tile and
+scene DSMs as georeferenced float32 GeoTIFFs.  The port's machines have
+no PIL, rasterio or GDAL, so this module carries the subset it needs:
 
   * TIFF read (the JAX package's pure-Python reader, without its native
     windowed decoder): classic TIFF and BigTIFF, first IFD, strips or
     tiles, chunky or planar samples, any integer or float sample type,
     compression none, deflate, PackBits or LZW, the horizontal and the
     floating-point predictor, windowed reads, the profile (geo transform,
-    EPSG CRS, nodata, RPC tag);
-  * TIFF write: one band in uncompressed strips, with the GDAL nodata
-    tag -- byte for byte what ``s2p_tpu.geo.geotiff.write`` writes for a
-    2-D array;
-  * PNG write and read of 8-bit grey images (the reader undoes all five
-    PNG row filters, so it also reads files written by other encoders).
+    EPSG CRS, nodata, RPC tag), any tag's raw value (:func:`read_tag`);
+  * TIFF write: ``s2p_tpu.geo.geotiff.write``'s layout (strips, or
+    256 x 256 tiles; deflate through zlib or none; the geo transform,
+    the GeoKeys of a UTM or geographic CRS, the GDAL nodata and metadata
+    tags and the RPC tag), byte for byte what that function writes.  It
+    writes no predictor;
+  * PNG write of 8-bit grey images, and PNG read of the non-interlaced
+    layouts a mask comes in (grey of 1 to 16 bits, palette indices, and
+    grey-alpha, RGB and RGBA of 8 or 16 bits), as PIL returns them: the
+    reader undoes all five PNG row filters, so it reads files written by
+    other encoders.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ _T_PLANAR, _T_PREDICTOR = 284, 317
 _T_TILE_W, _T_TILE_H, _T_TILE_OFFSETS, _T_TILE_COUNTS = 322, 323, 324, 325
 _T_SAMPLE_FORMAT = 339
 _T_PIXEL_SCALE, _T_TIEPOINT = 33550, 33922
-_T_GEO_KEYS = 34735
-_T_GDAL_NODATA = 42113
+_T_GEO_KEYS, _T_GEO_ASCII = 34735, 34737
+_T_GDAL_METADATA, _T_GDAL_NODATA = 42112, 42113
 _T_RPC = 50844
 
 _TYPE_FMT = {1: 'B', 2: 'c', 3: 'H', 4: 'I', 5: 'II', 6: 'b', 7: 'B',
@@ -59,6 +65,9 @@ class Profile:
     @property
     def shape(self):
         return (self.height, self.width)
+
+    def copy(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 def _as_tuple(v):
@@ -255,6 +264,11 @@ def _lzw_decode(raw, out_size):
     return bytes(out)
 
 
+def read_tag(path, tag):
+    """The raw value of a TIFF tag, or None."""
+    return _Tiff(path).tags.get(tag)
+
+
 def read_profile(path) -> Profile:
     """Size, sample type, geo transform, CRS, nodata and RPC tag."""
     t = _Tiff(path)
@@ -352,29 +366,86 @@ def _pack_tag(tag, typ, values, heap, heap_base):
     return struct.pack('<HHI', tag, typ, cnt) + val
 
 
-def write(path, array, nodata=None):
-    """Write a 2-D array as a single-band strip TIFF."""
+def write(path, array, profile: Profile = None, crs=None, transform=None,
+          nodata=None, rpc=None, compress=None, tiled=False, tags=None):
+    """Write an (h, w) or (h, w, bands) array as a (Geo)TIFF.
+
+    ``profile`` supplies the crs, transform and nodata the arguments leave
+    None.  ``transform`` is (a, b, c, d, e, f) with x = c + a*col and
+    y = f + e*row; ``crs`` a :class:`s2p_tpu_torch.geo.crs.CRS`, an EPSG
+    code or a string such as 'epsg:32631+5773'; ``rpc`` an
+    :class:`s2p_tpu_torch.geo.rpc.RPCModel` or the 92 values of the RPC
+    tag; ``compress`` None or 'deflate'; ``tiled`` writes 256 x 256 tiles
+    instead of strips; ``tags`` a dict written as GDAL metadata."""
     arr = np.asarray(array)
-    if arr.ndim != 2:
-        raise ValueError(f'write takes a 2-D array, got {arr.shape}')
-    h, w = arr.shape
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.ndim != 3:
+        raise ValueError(f'write takes a 2-D or 3-D array, got {arr.shape}')
+    h, w, spp = arr.shape
+    if profile is not None:
+        crs = crs if crs is not None else profile.crs
+        transform = transform if transform is not None else profile.transform
+        nodata = nodata if nodata is not None else profile.nodata
     dt = arr.dtype
     arr = np.ascontiguousarray(arr, dtype=dt.newbyteorder('<'))
-    rps = max(1, min(h, (1 << 16) // max(1, w * dt.itemsize) + 1))
-    chunks = [arr[y0:y0 + rps].tobytes() for y0 in range(0, h, rps)]
+
+    if tiled:
+        chunks = []
+        for y0 in range(0, h, 256):
+            for x0 in range(0, w, 256):
+                block = np.zeros((256, 256, spp), dtype=arr.dtype)
+                hh, ww = min(256, h - y0), min(256, w - x0)
+                block[:hh, :ww] = arr[y0:y0 + hh, x0:x0 + ww]
+                chunks.append(block.tobytes())
+    else:
+        rps = max(1, min(h, (1 << 16) // max(1, w * spp * dt.itemsize) + 1))
+        chunks = [arr[y0:y0 + rps].tobytes() for y0 in range(0, h, rps)]
+    if compress == 'deflate':
+        chunks = [zlib.compress(c, 6) for c in chunks]
+    elif compress is not None:
+        raise NotImplementedError(f'TIFF compression {compress!r} is not '
+                                  'written')
 
     entries = [
-        (_T_WIDTH, 3, w), (_T_HEIGHT, 3, h), (_T_BPS, 3, dt.itemsize * 8),
-        (_T_COMPRESSION, 3, 1), (_T_PHOTO, 3, 1), (_T_SPP, 3, 1),
+        (_T_WIDTH, 3, w), (_T_HEIGHT, 3, h),
+        (_T_BPS, 3, (dt.itemsize * 8,) * spp),
+        (_T_COMPRESSION, 3, 8 if compress == 'deflate' else 1),
+        (_T_PHOTO, 3, 2 if spp >= 3 else 1), (_T_SPP, 3, spp),
         (_T_PLANAR, 3, 1),
-        (_T_SAMPLE_FORMAT, 3, {'u': 1, 'i': 2, 'f': 3}[dt.kind]),
-        (_T_ROWS_PER_STRIP, 3, rps),
-        (_T_STRIP_OFFSETS, 4, tuple([0] * len(chunks))),
-        (_T_STRIP_COUNTS, 4, tuple(len(c) for c in chunks)),
+        (_T_SAMPLE_FORMAT, 3, ({'u': 1, 'i': 2, 'f': 3}[dt.kind],) * spp),
     ]
+    if spp > 3:
+        entries.append((338, 3, (0,) * (spp - 3)))     # ExtraSamples
+    if transform is not None:
+        a, _, c, _, e, f = transform
+        entries.append((_T_PIXEL_SCALE, 12, (a, -e, 0.0)))
+        entries.append((_T_TIEPOINT, 12, (0.0, 0.0, 0.0, c, f, 0.0)))
+    if crs is not None:
+        gk, gascii = _geokeys_for_crs(crs)
+        entries.append((_T_GEO_KEYS, 3, gk))
+        if gascii:
+            entries.append((_T_GEO_ASCII, 2, gascii))
     if nodata is not None:
         entries.append((_T_GDAL_NODATA, 2, 'nan' if np.isnan(nodata)
                         else repr(float(nodata))))
+    if rpc is not None:
+        if not isinstance(rpc, (tuple, list, np.ndarray)):
+            from .rpc_io import rpc_to_tag_values
+            rpc = rpc_to_tag_values(rpc)
+        entries.append((_T_RPC, 12, tuple(float(v) for v in rpc)))
+    if tags:
+        entries.append((_T_GDAL_METADATA, 2, '<GDALMetadata>\n' + ''.join(
+            f'  <Item name="{k}">{v}</Item>\n' for k, v in tags.items())
+            + '</GDALMetadata>\n'))
+    if tiled:
+        entries += [(_T_TILE_W, 3, 256), (_T_TILE_H, 3, 256)]
+        off_tag, cnt_tag = _T_TILE_OFFSETS, _T_TILE_COUNTS
+    else:
+        entries.append((_T_ROWS_PER_STRIP, 3, rps))
+        off_tag, cnt_tag = _T_STRIP_OFFSETS, _T_STRIP_COUNTS
+    entries += [(off_tag, 4, (0,) * len(chunks)),
+                (cnt_tag, 4, tuple(len(c) for c in chunks))]
     entries.sort(key=lambda e: e[0])
 
     header_size = 8
@@ -388,7 +459,7 @@ def write(path, array, nodata=None):
     for c in chunks:
         offs.append(pos)
         pos += len(c) + len(c) % 2
-    entries = [(t, ty, tuple(offs) if t == _T_STRIP_OFFSETS else v)
+    entries = [(t, ty, tuple(offs) if t == off_tag else v)
                for t, ty, v in entries]
     heap = bytearray()
     packed = [_pack_tag(t, ty, v, heap, heap_base) for t, ty, v in entries]
@@ -407,8 +478,36 @@ def write(path, array, nodata=None):
         f.write(bytes(out))
 
 
+def _geokeys_for_crs(crs):
+    """The GeoKey directory and GeoAscii text of a CRS: a projected one
+    (UTM) by its EPSG code and name, in metres, else a geographic one.  A
+    vertical datum ('+5773') is not written, as the JAX package writes
+    none."""
+    from . import crs as crsmod
+    if isinstance(crs, (str, int)):
+        crs = crsmod.CRS(crs)
+    name = crs.name
+    keys = [(1025, 0, 1, 1)]                           # RasterPixelIsArea
+    if crs.is_projected:
+        keys.insert(0, (1024, 0, 1, 1))
+        keys.append((1026, _T_GEO_ASCII, len(name) + 1, 0))
+        keys.append((2049, _T_GEO_ASCII, 7, len(name) + 1))
+        keys.append((3072, 0, 1, crs.epsg))
+        keys.append((3076, 0, 1, 9001))                # metres
+        gascii = name + '|WGS 84|'
+    else:
+        keys.insert(0, (1024, 0, 1, 2))
+        keys.append((2048, 0, 1, crs.epsg or 4326))
+        gascii = ''
+    keys.sort(key=lambda k: k[0])
+    flat = [1, 1, 0, len(keys)]
+    for k in keys:
+        flat.extend(k)
+    return tuple(flat), gascii
+
+
 # --------------------------------------------------------------------- #
-# PNG, 8-bit grey
+# PNG
 # --------------------------------------------------------------------- #
 
 _PNG_SIG = b'\x89PNG\r\n\x1a\n'
@@ -438,22 +537,52 @@ def write_png(path, array):
                 + _png_chunk(b'IEND', b''))
 
 
-def _paeth_row(raw, prior):
-    out = np.empty_like(raw, dtype=np.int32)
-    left = 0
-    for x in range(raw.shape[0]):
-        b = int(prior[x])
-        c = int(prior[x - 1]) if x else 0
-        p = left + b - c
-        pa, pb, pc = abs(p - left), abs(p - b), abs(p - c)
-        pred = left if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        left = (int(raw[x]) + pred) & 0xFF
-        out[x] = left
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter(raw, h, stride, bpp, path):
+    """Undo the PNG row filters of ``raw`` ((h, 1 + stride) bytes, the
+    filter type first in each row); ``bpp`` is the filters' byte step."""
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, row = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = row
+        elif ftype == 1:                         # Sub
+            cur = (np.cumsum(row.reshape(-1, bpp), axis=0) & 0xFF).ravel()
+        elif ftype == 2:                         # Up
+            cur = (row + prior) & 0xFF
+        elif ftype == 3:                         # Average
+            cur = np.empty(stride, np.int32)
+            for x in range(stride):
+                left = int(cur[x - bpp]) if x >= bpp else 0
+                cur[x] = (int(row[x]) + ((left + int(prior[x])) >> 1)) & 0xFF
+        elif ftype == 4:                         # Paeth
+            cur = np.empty(stride, np.int32)
+            for x in range(stride):
+                left = int(cur[x - bpp]) if x >= bpp else 0
+                b = int(prior[x])
+                c = int(prior[x - bpp]) if x >= bpp else 0
+                p = left + b - c
+                pa, pb, pc = abs(p - left), abs(p - b), abs(p - c)
+                pred = left if pa <= pb and pa <= pc else (b if pb <= pc
+                                                           else c)
+                cur[x] = (int(row[x]) + pred) & 0xFF
+        else:
+            raise ValueError(f'{path}: bad PNG filter type {ftype}')
+        out[y] = cur
+        prior = cur
     return out
 
 
 def read_png(path):
-    """An 8-bit grey PNG as a 2-D uint8 array."""
+    """A PNG as the array PIL's ``np.array(Image.open(path))`` gives:
+    grey of 1 bit as bool, of 2 and 4 bits scaled to 8-bit, of 8 bits as
+    uint8 and of 16 bits as uint16, all (h, w); palette images as their
+    uint8 indices; grey-alpha, RGB and RGBA as (h, w, 2, 3 or 4) uint8,
+    16-bit samples cut to their high byte (16-bit grey-alpha as RGBA).
+    Interlaced files are refused."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != _PNG_SIG:
@@ -470,31 +599,33 @@ def read_png(path):
             break
         i += 12 + n
     w, h, depth, color, _, _, interlace = hdr
-    if (depth, color, interlace) != (8, 0, 0):
-        raise NotImplementedError(f'{path}: only 8-bit grey, non-interlaced '
-                                  'PNG is supported')
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8) \
-        .reshape(h, w + 1)
-    out = np.zeros((h, w), np.int32)
-    prior = np.zeros(w, np.int32)
-    for y in range(h):
-        ftype, row = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = row
-        elif ftype == 1:                         # Sub
-            cur = np.cumsum(row) & 0xFF
-        elif ftype == 2:                         # Up
-            cur = (row + prior) & 0xFF
-        elif ftype == 3:                         # Average
-            cur = np.empty(w, np.int32)
-            left = 0
-            for x in range(w):
-                left = (int(row[x]) + ((left + int(prior[x])) >> 1)) & 0xFF
-                cur[x] = left
-        elif ftype == 4:                         # Paeth
-            cur = _paeth_row(row, prior)
-        else:
-            raise ValueError(f'{path}: bad PNG filter type {ftype}')
-        out[y] = cur
-        prior = cur
-    return out.astype(np.uint8)
+    nch = _PNG_CHANNELS.get(color)
+    if (nch is None or interlace != 0
+            or depth not in ((1, 2, 4, 8, 16) if color == 0 else
+                             (1, 2, 4, 8) if color == 3 else (8, 16))):
+        raise NotImplementedError(
+            f'{path}: PNG of bit depth {depth}, colour type {color}, '
+            f'interlace {interlace} is not supported')
+    bits = w * nch * depth
+    stride = -(-bits // 8)
+    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)[
+        :h * (stride + 1)].reshape(h, stride + 1)
+    rows = _unfilter(raw, h, stride, max(1, nch * depth // 8), path)
+    if depth < 8:
+        vals = np.unpackbits(rows, axis=1)[:, :bits].reshape(h, w, depth)
+        idx = (vals.astype(np.uint8) << np.arange(depth - 1, -1, -1,
+                                                  dtype=np.uint8)).sum(
+            axis=2, dtype=np.uint8)
+        if color == 3:
+            return idx
+        if depth == 1:
+            return idx.astype(bool)
+        return (idx * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if depth == 16:
+        a = rows.view('>u2').reshape(h, w, nch)
+        a = a.astype(np.uint16) if color == 0 else (a >> 8).astype(np.uint8)
+        if color == 4:                           # PIL opens it as RGBA
+            a = a[:, :, [0, 0, 0, 1]]
+    else:
+        a = rows.reshape(h, w, nch)
+    return a[:, :, 0] if nch == 1 else a

@@ -211,6 +211,25 @@ class RPCModel:
         return RpcParams(*[np.asarray(getattr(self, f), dtype)
                            for f in RpcParams._fields])
 
+    def to_dict(self):
+        """The inverse model as a dict of python floats and lists (the
+        config's ``rpc`` entry)."""
+        d = {f: list(map(float, getattr(self, f)))
+             for f in ('col_num', 'col_den', 'row_num', 'row_den')}
+        for f in ('lon_offset', 'lon_scale', 'lat_offset', 'lat_scale',
+                  'alt_offset', 'alt_scale', 'col_offset', 'col_scale',
+                  'row_offset', 'row_scale'):
+            d[f] = float(getattr(self, f))
+        return d
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(**{k: d[k] for k in (
+            'col_num', 'col_den', 'row_num', 'row_den',
+            'lon_offset', 'lon_scale', 'lat_offset', 'lat_scale',
+            'alt_offset', 'alt_scale', 'col_offset', 'col_scale',
+            'row_offset', 'row_scale')})
+
 
 # ====================================================================== #
 # Device functions: float32 tensors, the JAX package's iteration counts

@@ -1,37 +1,52 @@
-"""Pipeline stages of the port.  Ported so far: stage 1 (SIFT pointing,
-on the device route), stage 2 (the global pointing fit), stage 3
-(rectification), stage 4 with ``mgm`` and stage 5 in pair mode.
+"""The pipeline of the port: stages 1 to 7 of a pair scene and the entry
+that runs them from a config, :func:`main`.
 
-Counterparts of ``pointing_correction_all``,
+Counterparts of ``main``, ``build_cfg``, ``pointing_correction_all``,
 ``global_pointing_correction``, ``rectification_all``,
-``stereo_matching_all`` and ``disparity_to_ply_all`` in
-``s2p_tpu/pipeline.py``.  The per-tile file contract is the JAX
-package's, so either package can run a stage on the other's files:
-stage 1 writes ``pointing.txt``, ``center_keypts_sec.txt`` and
-``sift_matches.txt`` in each ``<tile>/pair_<i>/``; stage 2 writes the
-scene's ``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
+``stereo_matching_all``, ``disparity_to_ply_all``, ``plys_to_dsm`` and
+``global_dsm`` in ``s2p_tpu/pipeline.py``.  The per-tile file contract is
+the JAX package's, so either package can run a stage on the other's
+files: :func:`main` writes the scene's ``config.json`` and ``tiles.txt``
+and, through :mod:`s2p_tpu_torch.tiling`, each tile's directory,
+``config.json`` and ``mask.png``; stage 1 writes ``pointing.txt``,
+``center_keypts_sec.txt`` and ``sift_matches.txt`` in each
+``<tile>/pair_<i>/``; stage 2 writes the scene's
+``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
 ``H_sec.txt``, ``disp_min_max.txt``, ``rectified_ref.tif`` and
 ``rectified_sec.tif``; stage 4 writes ``rectified_disp.tif``,
-``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them,
-and stage 5 reads those with the homographies, the tile's ``mask.png``
-and the scene's ``global_pointing_pair_1.txt`` and writes the tile's
-``cloud.ply``.
+``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them;
+stage 5 reads those with the homographies, the tile's ``mask.png`` and
+the scene's ``global_pointing_pair_1.txt`` and writes the tile's
+``cloud.ply``; stage 6 rasterizes each tile's cloud with its
+neighbours' into the tile's ``dsm.tif`` and ``confidence.tif``, and
+stage 7 mosaics those into the scene's.
+
+Stages 1, 3, 4 and 5 run on the device that :func:`main` resolves once
+(CUDA unless the caller names the CPU); stages 2, 6 and 7 are host numpy,
+as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import json
 import os
+import time
 
 import numpy as np
 
-from . import runner
-from .config import Config
-from .core import masking, matching, pointing, rectification, triangulation
+from . import runner, tiling
+from .config import Config, ImageSpec, read_config_file  # noqa: F401 (API)
+from .core import (masking, matching, pointing, rectification, rpc_geom,
+                   triangulation)
 from .device import resolve
 from .geo import crs as crsmod
 from .geo import geotiff
 from .geo import ply as plymod
+from .geo import rpc_io
+from .ops import rasterize
 from .ops.filtering import count_3d_neighbors_batch, filter_xyz
 from .ops.homography import warp_jobs_batched
 from .ops.mgm_flow import mgm_binary_match_batch
@@ -42,6 +57,10 @@ from .ops import sift as sift_ops
 def _image(path):
     """A full input image as float32, decoded once per path."""
     return geotiff.read(path).astype(np.float32)
+
+
+def clear_image_cache():
+    _image.cache_clear()
 
 
 def _remove(*paths):
@@ -281,6 +300,14 @@ def rectification_all(cfg: Config, tiles_pairs, timeout=600,
 # Stage 4: stereo matching
 # --------------------------------------------------------------------- #
 
+def _check_matcher(cfg: Config):
+    algo = cfg.matching_algorithm
+    if algo != 'mgm':
+        raise NotImplementedError(
+            f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
+            'runs stage 4 with mgm')
+
+
 def _clean_after_matching(cfg: Config, out_dir):
     """The rectified secondary and the range file are dead after matching;
     the rectified reference stays in pair mode (stage 5 reads it for the
@@ -292,24 +319,11 @@ def _clean_after_matching(cfg: Config, out_dir):
 
 
 
-def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
-    """Stage 4 for every (tile, pair index) in ``tiles_pairs``.
-
-    Tiles are bucketed by padded shape: H and W up to multiples of 64, the
-    candidate count up to a multiple of 16.  Each bucket runs as one
-    batch through :func:`mgm_binary_match_batch` with per-tile disparity
-    bases and true extents, so each tile's output equals its unpadded
-    run.  ``timeout`` is the JAX package's parameter, which only its
-    per-tile matchers use; the ``mgm`` batch here, like the JAX package's,
-    runs without a deadline.  ``device`` None runs on CUDA and raises
-    without it; "cpu" runs the kernels' plain versions."""
-    algo = cfg.matching_algorithm
-    if algo != 'mgm':
-        raise NotImplementedError(
-            f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
-            'runs stage 4 with mgm')
-    dev = resolve(device)
-    variant = matching.mgm_variant_from_cfg(cfg)
+def matching_buckets(cfg: Config, tiles_pairs):
+    """Stage 4's jobs, read from each tile's stage-3 files, grouped by
+    padded shape (Hp, Wp, Dp): H and W up to multiples of 64, the
+    candidate count up to a multiple of 16.  A job holds its pair
+    directory, its two rectified images and its clamped disparity range."""
     jobs = []
     for tile, i in tiles_pairs:
         out_dir = os.path.join(tile['dir'], f'pair_{i}')
@@ -326,13 +340,27 @@ def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
         Dp = -(-(dmax - dmin + 1) // 16) * 16
         jobs.append(dict(out_dir=out_dir, rect1=rect1, rect2=rect2,
                          dmin=int(dmin), dmax=int(dmax), key=(Hp, Wp, Dp)))
-
     buckets = {}
     for j in jobs:
         buckets.setdefault(j['key'], []).append(j)
+    return buckets
 
+
+def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
+    """Stage 4 for every (tile, pair index) in ``tiles_pairs``.
+
+    Tiles are bucketed by padded shape (:func:`matching_buckets`).  Each
+    bucket runs as one batch through :func:`mgm_binary_match_batch` with
+    per-tile disparity bases and true extents, so each tile's output
+    equals its unpadded run.  ``timeout`` is the JAX package's parameter, which only its
+    per-tile matchers use; the ``mgm`` batch here, like the JAX package's,
+    runs without a deadline.  ``device`` None runs on CUDA and raises
+    without it; "cpu" runs the kernels' plain versions."""
+    _check_matcher(cfg)
+    dev = resolve(device)
+    variant = matching.mgm_variant_from_cfg(cfg)
     nv = max(2, min(variant.nb_dir, 8))
-    for (Hp, Wp, Dp), group in buckets.items():
+    for (Hp, Wp, Dp), group in matching_buckets(cfg, tiles_pairs).items():
         n = len(group)
         b1 = np.full((n, Hp, Wp), np.nan, np.float32)
         b2 = np.full((n, Hp, Wp), np.nan, np.float32)
@@ -447,6 +475,34 @@ def _ply_tile_finish(cfg: Config, tile, job, xyz, count, colors):
                 os.path.join(tile['dir'], 'mask.png'))
 
 
+def _triangulate(cfg: Config, live, dev, timeout, nb_workers):
+    """Stage 5 of the (tile, job) pairs in ``live``: the batched
+    triangulation, neighbour counts and ``clr`` warps on ``dev``, then the
+    host finish of each tile on :func:`runner.launch_calls`."""
+    results = triangulation.disp_to_xyz_batch(
+        [j for _, j in live], out_crs=crsmod.CRS(cfg.out_crs), device=dev)
+    counts = [None] * len(results)
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+        counts = count_3d_neighbors_batch([r[0] for r in results],
+                                          cfg.filtering_3d_r, p, dev)
+    colors = [None] * len(live)
+    if cfg.images[0].clr:
+        colors = _clr_colors(cfg, [j for _, j in live], dev)
+    runner.launch_calls(
+        functools.partial(_ply_tile_finish, cfg),
+        [(t, j, xyz, cnt, col) for (t, j), (xyz, _), cnt, col
+         in zip(live, results, counts, colors)], nb_workers,
+        tilewise=False, timeout=timeout)
+
+
+def disparity_to_ply(cfg: Config, tile, device=None):
+    """Stage 5, pair mode, for one tile: :func:`disparity_to_ply_all` of
+    that tile, except that a missing stage-4 file raises."""
+    dev = resolve(device)
+    _triangulate(cfg, [(tile, _ply_tile_job(cfg, tile))], dev, None, 1)
+
+
 def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
                          device=None):
     """Stage 5, pair mode, for every tile: each shape bucket triangulates
@@ -468,23 +524,8 @@ def disparity_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
         except (OSError, ValueError):
             jobs.append(None)    # missing tile outputs tolerated
     live = [(t, j) for t, j in zip(tiles, jobs) if j is not None]
-    if not live:
-        return
-    results = triangulation.disp_to_xyz_batch(
-        [j for _, j in live], out_crs=crsmod.CRS(cfg.out_crs), device=dev)
-    counts = [None] * len(results)
-    if cfg.filtering_3d_r and cfg.filtering_3d_n:
-        p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
-        counts = count_3d_neighbors_batch([r[0] for r in results],
-                                          cfg.filtering_3d_r, p, dev)
-    colors = [None] * len(live)
-    if cfg.images[0].clr:
-        colors = _clr_colors(cfg, [j for _, j in live], dev)
-    runner.launch_calls(
-        functools.partial(_ply_tile_finish, cfg),
-        [(t, j, xyz, cnt, col) for (t, j), (xyz, _), cnt, col
-         in zip(live, results, counts, colors)], nb_workers,
-        tilewise=False, timeout=timeout)
+    if live:
+        _triangulate(cfg, live, dev, timeout, nb_workers)
 
 
 def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):
@@ -503,3 +544,329 @@ def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):
                      extra_names=extra_names,
                      comments=['created by S2P-TPU',
                                'projection: {}'.format(proj_com)])
+
+
+# --------------------------------------------------------------------- #
+# Stages 6 and 7: rasterization and mosaic (host numpy)
+# --------------------------------------------------------------------- #
+
+def plys_to_dsm(cfg: Config, tile):
+    """Stage 6 for one tile: rasterize the tile's cloud together with its
+    neighbours' clouds (the splat halo) on the grid of the tile's own
+    cloud's extent, into the tile's ``dsm.tif`` and (when the clouds carry
+    a confidence) ``confidence.tif``."""
+    out_dsm = os.path.join(tile['dir'], 'dsm.tif')
+    out_conf = os.path.join(tile['dir'], 'confidence.tif')
+    r = cfg.dsm_resolution
+
+    own = os.path.join(tile['dir'], 'cloud.ply')
+    if not os.path.exists(own):
+        return
+    points, _ = plymod.read_ply(own)
+    if len(points) == 0:
+        return
+    xmin, ymin = points[:, 0].min(), points[:, 1].min()
+    xmax, ymax = points[:, 0].max(), points[:, 1].max()
+    xoff, yoff, xsize, ysize = rasterize.grid_from_roi(xmin, ymin, xmax, ymax,
+                                                       r)
+
+    clouds = [os.path.join(tile['dir'], n, 'cloud.ply')
+              for n in tile['neighborhood_dirs']]
+    clouds = [c for c in clouds if os.path.exists(c)] or [own]
+    raster, profile = rasterize.plyflatten_from_plyfiles_list(
+        clouds, resolution=r, roi=(xoff, yoff, xsize, ysize),
+        radius=cfg.dsm_radius, sigma=cfg.dsm_sigma)
+    profile = profile.copy(crs=crsmod.CRS(cfg.out_crs))
+
+    geotiff.write(out_dsm, raster[:, :, 0].astype(np.float32), profile=profile)
+    if raster.shape[-1] == 5:
+        geotiff.write(out_conf, raster[:, :, 4].astype(np.float32),
+                      profile=profile)
+
+
+def _merge_rasters(paths, out_path, res, bounds=None):
+    """'First'-wins mosaic of georeferenced rasters onto a common grid of
+    cell ``res`` over ``bounds`` (left, bottom, right, top; default the
+    union of the rasters), written as a deflate-compressed, tiled GeoTIFF
+    with nodata NaN; returns the mosaic."""
+    profs = [geotiff.read_profile(p) for p in paths]
+    if bounds is None:
+        xs0 = [pr.transform[2] for pr in profs]
+        ys1 = [pr.transform[5] for pr in profs]
+        xs1 = [pr.transform[2] + pr.width * res for pr in profs]
+        ys0 = [pr.transform[5] - pr.height * res for pr in profs]
+        bounds = (min(xs0), min(ys0), max(xs1), max(ys1))
+    left, bottom, right, top = bounds
+    W = int(round((right - left) / res))
+    H = int(round((top - bottom) / res))
+    out = np.full((H, W), np.nan, dtype=np.float32)
+    for p, pr in zip(paths, profs):
+        arr = geotiff.read_with_nans(p)
+        j0 = int(round((pr.transform[2] - left) / res))
+        i0 = int(round((top - pr.transform[5]) / res))
+        hh, ww = arr.shape
+        i1 = min(i0 + hh, H)
+        j1 = min(j0 + ww, W)
+        ci0, cj0 = max(-i0, 0), max(-j0, 0)
+        if i1 <= max(i0, 0) or j1 <= max(j0, 0):
+            continue
+        dst = out[max(i0, 0):i1, max(j0, 0):j1]
+        src = arr[ci0:ci0 + dst.shape[0], cj0:cj0 + dst.shape[1]]
+        np.copyto(dst, src, where=np.isnan(dst) & np.isfinite(src))
+    geotiff.write(out_path, out,
+                  crs=profs[0].crs,
+                  transform=(res, 0.0, left, 0.0, -res, top),
+                  nodata=float('nan'), compress='deflate', tiled=True)
+    return out
+
+
+def global_dsm(cfg: Config, tiles):
+    """Stage 7: the scene's ``dsm.tif`` and ``confidence.tif``, mosaics of
+    the tiles' on the grid of ``dsm_resolution``, cut to the bounds of
+    ``roi_geojson`` where the config has one."""
+    bounds = None
+    if cfg.roi_geojson is not None:
+        ll_poly = read_lon_lat_poly_from_geojson(cfg.roi_geojson)
+        out_crs = crsmod.CRS(cfg.out_crs)
+        xs, ys = crsmod.transform(ll_poly[:, 0], ll_poly[:, 1], 4326, out_crs)
+        a = cfg.dsm_resolution
+        bounds = (a * np.floor(xs.min() / a), a * np.floor(ys.min() / a),
+                  a * np.ceil(xs.max() / a), a * np.ceil(ys.max() / a))
+
+    dsms = [os.path.join(t['dir'], 'dsm.tif') for t in tiles]
+    dsms = [d for d in dsms if os.path.exists(d)]
+    confs = [os.path.join(t['dir'], 'confidence.tif') for t in tiles]
+    confs = [c for c in confs if os.path.exists(c)]
+    if dsms:
+        _merge_rasters(dsms, os.path.join(cfg.out_dir, 'dsm.tif'),
+                       cfg.dsm_resolution, bounds)
+    if confs:
+        _merge_rasters(confs, os.path.join(cfg.out_dir, 'confidence.tif'),
+                       cfg.dsm_resolution, bounds)
+
+
+# --------------------------------------------------------------------- #
+# The entry: config, tiling, stages 1 to 7
+# --------------------------------------------------------------------- #
+
+def build_cfg(user_cfg: dict) -> Config:
+    """Validate a user config (the s2p JSON schema as a dict) and derive
+    the run's parameters: absolute image paths, each image's camera (from
+    its ``rpc`` entry, else from its GeoTIFF's RPC tag), the ROI in whole
+    pixels (``full_img``, ``roi`` or ``roi_geojson``), the output CRS (the
+    ROI centre's UTM zone unless ``out_crs`` names one, '+5773' with
+    ``out_geoid``) and the ground sample distance."""
+    d = dict(user_cfg)
+    if 'images' not in d or len(d['images']) < 2:
+        raise ValueError('missing paths to input images')
+
+    images = []
+    for img in d['images']:
+        spec = img if isinstance(img, ImageSpec) else ImageSpec(
+            **{k: img[k] for k in ('img', 'rpc', 'clr', 'cld', 'roi', 'wat')
+               if k in img})
+        spec = dataclasses.replace(spec, **{
+            f: os.path.abspath(getattr(spec, f))
+            for f in ('img', 'clr', 'cld', 'roi', 'wat')
+            if getattr(spec, f) is not None
+            and not os.path.isabs(getattr(spec, f))})
+        rpcm = rpc_io.load_rpc(spec.rpc) if spec.rpc is not None \
+            else rpc_io.rpc_from_geotiff(spec.img)
+        images.append(dataclasses.replace(spec, rpcm=rpcm))
+    d['images'] = tuple(images)
+
+    if d.get('full_img'):
+        prof = geotiff.read_profile(images[0].img)
+        d['roi'] = {'x': 0, 'y': 0, 'w': prof.width, 'h': prof.height}
+    elif 'roi' in d and all(k in d['roi'] for k in 'xywh'):
+        pass
+    elif 'roi_geojson' in d:
+        ll_poly = read_lon_lat_poly_from_geojson(d['roi_geojson'])
+        d['roi'] = rpc_geom.roi_process(
+            images[0].rpcm, ll_poly, use_srtm=d.get('use_srtm', False),
+            exogenous_dem=d.get('exogenous_dem'),
+            exogenous_dem_geoid_mode=d.get('exogenous_dem_geoid_mode', True))
+    else:
+        raise ValueError('missing or incomplete roi definition')
+    d['roi'] = {'x': int(np.floor(d['roi']['x'])),
+                'y': int(np.floor(d['roi']['y'])),
+                'w': int(np.ceil(d['roi']['w'])),
+                'h': int(np.ceil(d['roi']['h']))}
+
+    cfg = Config.from_user_dict(d)
+    if cfg.out_crs is None:
+        r = cfg.roi
+        zone = rpc_geom.utm_zone(images[0].rpcm, r['x'], r['y'], r['w'],
+                                 r['h'])
+        out_crs = f'epsg:{crsmod.epsg_code_from_utm_zone(zone)}'
+        if cfg.out_geoid:
+            out_crs += '+5773'
+        cfg = cfg.replace(out_crs=out_crs)
+    crsmod.CRS(cfg.out_crs)  # validate
+    return cfg.replace(gsd=rpc_geom.gsd_from_rpc(images[0].rpcm))
+
+
+def read_lon_lat_poly_from_geojson(poly):
+    """The (lon, lat) ring of a GeoJSON polygon, feature or feature
+    collection (its first feature), given as a path or a dict."""
+    if isinstance(poly, str):
+        with open(poly) as f:
+            a = json.load(f)
+    else:
+        a = poly
+    if a['type'] == 'FeatureCollection':
+        a = a['features'][0]
+    if a['type'] == 'Feature':
+        a = a['geometry']
+    return np.asarray(a['coordinates'][0])
+
+
+@contextlib.contextmanager
+def _stage(label, times):
+    """Stage banner and elapsed-time print (kept in ``times[label]``);
+    when S2P_TPU_PROFILE names a directory, a ``torch.profiler`` trace of
+    the stage (host, and the card's kernels where CUDA is present) is
+    written there as ``<label>.json``, a Chrome trace."""
+    print(label)
+    prof_dir = os.environ.get('S2P_TPU_PROFILE')
+    t0 = time.time()
+    try:
+        if prof_dir:
+            import torch
+            slug = ''.join(c if c.isalnum() else '_'
+                           for c in label.strip('. '))
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            os.makedirs(prof_dir, exist_ok=True)
+            with torch.profiler.profile(activities=acts) as prof:
+                yield
+            prof.export_chrome_trace(os.path.join(prof_dir, slug + '.json'))
+        else:
+            yield
+    finally:
+        times[label] = time.time() - t0
+        print('elapsed time: {:.3f} s'.format(times[label]))
+
+
+# first per-tile input file each resumable stage reads; resuming a stage
+# whose inputs were swept by ``clean_intermediate`` must fail loudly, not
+# recompute on garbage.  Only the TOTAL absence of the file across tiles
+# errors -- individual missing tiles stay tolerated (failed tiles leave
+# gaps that the later stages skip).
+_RESUME_NEEDS = {
+    2: 'pointing.txt',
+    3: 'pointing.txt',
+    4: 'rectified_sec.tif',
+    5: 'rectified_disp.tif',
+}
+
+
+def _check_resume_inputs(start_from, tiles_pairs):
+    fname = _RESUME_NEEDS.get(start_from)
+    if fname is None or not tiles_pairs:
+        return
+    if not any(os.path.exists(os.path.join(t['dir'], f'pair_{i}', fname))
+               for t, i in tiles_pairs):
+        raise RuntimeError(
+            f'start_from={start_from} resumes a stage that reads per-tile '
+            f'{fname!r}, but no tile has it: the intermediate files were '
+            f'deleted (clean_intermediate trades resumability for disk) '
+            f'or the earlier stages never ran. Re-run from an earlier '
+            f'stage.')
+
+
+def _check_supported(cfg: Config, start_from):
+    """Refuse, before any file is written, a run the port cannot finish."""
+    if len(cfg.images) > 2:
+        raise NotImplementedError(
+            f'{len(cfg.images)} images: the multi-pair mode (height maps, '
+            'offsets and fusion in stage 5) is not ported yet (ROADMAP '
+            'M10); the port runs pairs')
+    if start_from <= 1:
+        _check_sift_device(cfg)
+    if start_from <= 4:
+        _check_matcher(cfg)
+
+
+def main(user_cfg, start_from=0, device=None, stage_times=None):
+    """Run a pair scene from ``user_cfg`` (the s2p JSON schema as a dict,
+    e.g. from :func:`read_config_file`) through stages 1 to 7, from stage
+    ``start_from`` on (the earlier stages' files must be there), and
+    return the built :class:`Config`.
+
+    ``device`` is resolved once (None: CUDA, raising without it; "cpu":
+    the kernels' plain versions) and passed to every stage that runs on a
+    device.  The port runs in one process: the JAX package's multi-process
+    hooks (``parallel/distributed``) and its JAX runtime set-up have no
+    counterpart here (ROADMAP M11).  Three or more images, SIFT's host
+    route and any matcher but ``mgm`` raise NotImplementedError before
+    anything is written.  A dict passed as ``stage_times`` receives each
+    stage's elapsed seconds under its banner."""
+    dev = resolve(device)
+    cfg = build_cfg(user_cfg)
+    _check_supported(cfg, start_from)
+    times = {} if stage_times is None else stage_times
+
+    nb_workers = cfg.max_processes or min(8, os.cpu_count() or 1)
+    tw, th = tiling.adjust_tile_size(cfg)
+    tiles_txt = os.path.join(cfg.out_dir, 'tiles.txt')
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    cfg.dump_json(os.path.join(cfg.out_dir, 'config.json'))
+    tiles = tiling.tiles_full_info(
+        cfg, tw, th, tiles_txt, create_masks=True,
+        runner=runner.PoolRunner(nb_workers, cfg.timeout))
+    if not tiles:
+        raise RuntimeError(
+            'the ROI is not seen in two images or is totally masked')
+    if start_from > 0:
+        assert os.path.exists(tiles_txt), (
+            f'start_from set to {start_from} but tiles.txt not found in '
+            f'{cfg.out_dir!r}')
+    else:
+        with open(tiles_txt, 'w') as f:
+            for t in tiles:
+                print(t['json'], file=f)
+
+    n = len(cfg.images)
+    tiles_pairs = [(t, i) for i in range(1, n) for t in tiles]
+    timeout = cfg.timeout
+    if start_from > 0:
+        _check_resume_inputs(start_from, tiles_pairs)
+
+    if start_from <= 1:
+        with _stage('1) correcting pointing locally...', times):
+            pointing_correction_all(cfg, tiles_pairs, timeout=timeout,
+                                    nb_workers=nb_workers, device=dev)
+    if start_from <= 2:
+        with _stage('2) correcting pointing globally...', times):
+            global_pointing_correction(cfg, tiles)
+    if start_from <= 3:
+        with _stage('3) rectifying tiles...', times):
+            rectification_all(cfg, tiles_pairs, timeout=timeout,
+                              nb_workers=nb_workers, device=dev)
+        if cfg.clean_intermediate:
+            # swept after the stage, not during it, so that the
+            # neighbours' matches stage 3 reads are all still there
+            for t, i in tiles_pairs:
+                d = os.path.join(t['dir'], f'pair_{i}')
+                _remove(os.path.join(d, 'pointing.txt'),
+                        os.path.join(d, 'sift_matches.txt'))
+    if start_from <= 4:
+        with _stage('4) running stereo matching...', times):
+            stereo_matching_all(cfg, tiles_pairs, timeout=cfg.mgm_timeout,
+                                device=dev)
+    if start_from <= 5:
+        with _stage('5) triangulating tiles...', times):
+            disparity_to_ply_all(cfg, tiles, timeout=timeout,
+                                 nb_workers=nb_workers, device=dev)
+    if start_from <= 6:
+        with _stage('6) computing DSM by tile...', times):
+            runner.launch_calls(functools.partial(plys_to_dsm, cfg), tiles,
+                                nb_workers, timeout=timeout, debug=cfg.debug)
+    if start_from <= 7:
+        with _stage('7) computing global DSM...', times):
+            global_dsm(cfg, tiles)
+
+    clear_image_cache()
+    return cfg

@@ -100,6 +100,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.pointing_correction_all(Config(), [])
     with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.disparity_to_ply(Config(), {})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.main({'images': [{'img': 'a.tif'}, {'img': 'b.tif'}]})
+    with pytest.raises(RuntimeError, match='CUDA'):
         sift_device.keypoints_from_arrays([a[0]], [0.0133])
     with pytest.raises(RuntimeError, match='CUDA'):
         sift.matches_on_rpc_roi_batch([])

@@ -5,8 +5,8 @@ Usage (from the repo root, on a machine with a CUDA card):
 
     python3 tools/profile_stage1_torch.py
 
-Renders ``chip_smoke.py``'s scene (two 2000 x 2800 images, 6 tiles of
-800) and runs stage 1's SIFT part
+Renders ``chip_smoke.py``'s scene (two 2000 x 2800 GeoTIFFs and a config
+file), tiles it as ``pipeline.main`` does (6 tiles of 800) and runs stage 1's SIFT part
 (``ops.sift.matches_on_rpc_roi_batch`` over the 6 tile pairs) as the
 first device work of the process (cold), then twice more (warm), each
 split into its parts (the detection wave with its pyramid, orientation
@@ -41,7 +41,7 @@ def main():
         print('profile_stage1_torch: CUDA is not available', file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch import pipeline, tiling
     from s2p_tpu_torch.core import pointing
     from s2p_tpu_torch.ops import sift
 
@@ -52,7 +52,11 @@ def main():
     out = {'card': card}
     tmp = tempfile.mkdtemp(prefix='s2p_stage1_')
     try:
-        cfg, tiles = cs.render_scene(os.path.join(tmp, 'scene'))
+        cfg = pipeline.build_cfg(pipeline.read_config_file(
+            cs.render_scene(os.path.join(tmp, 'scene'))))
+        tiles = tiling.tiles_full_info(
+            cfg, *tiling.adjust_tile_size(cfg),
+            os.path.join(cfg.out_dir, 'tiles.txt'), create_masks=True)
         pairs = [(t, 1) for t in tiles]
         t0 = time.perf_counter()
         jobs = pipeline._pointing_jobs(cfg, pairs)
