@@ -14,6 +14,9 @@ the JAX package.  Phases, each timed on a line of its own:
      averaged-MGM scan (K4b, both instantiations), of the WTA with the
      right-reference map (K5, its three instantiations) and of the warp
      (W1, orders 1, 3 and 5) has a 0-byte stack frame and no spill;
+ 2b. W1's division by 120 (a multiply and two fused multiply-adds behind
+     a guard on |x|) against the IEEE division on all 2^32 float32 bit
+     patterns: 0 mismatches among non-NaN results;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -101,7 +104,11 @@ the JAX package.  Phases, each timed on a line of its own:
      bitwise against one rasterization of all the tiles' clouds; stage
      3's parts one by one with their shares of its time; W1 at the
      scene's group and tile, bitwise against and timed beside its plain
-     version, with its bound, and its order 1 beside grid_sample;
+     version, with its bound, its order 1 beside grid_sample and its
+     order 3, and the group again with a NaN band across the image (the
+     mask dilated once); then stage 3 again with that NaN band in image 1
+     (the path of W1's masked order 5 and of its mask dilation), on the
+     card and with device="cpu", the rectified images byte for byte;
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -119,9 +126,16 @@ the JAX package.  Phases, each timed on a line of its own:
      3 and 5, each with a clean source and one with NaN along its borders
      and a NaN block (order 5 through its NaN mask), batches of 1, 2 and
      3 homographies, an output larger than its source, a 1 x 1 output,
-     homographies whose z crosses 0 inside the output, and 65 jobs
-     through ``ops.homography.warp_jobs_batched`` (two launches); then the
-     plain version on the card against the plain version on the CPU;
+     homographies whose z crosses 0 inside the output, output strips
+     over each border's last 4 px (supports that cross it by 0, 1 and 2
+     px: the edges of the clamp-free interior path), 6 x 6 and 5 x 5
+     sources, homographies that scale by 8 both ways, order 5 with a NaN
+     band at the scene's bucket, and 65 jobs through
+     ``ops.homography.warp_jobs_batched`` (two launches); then the plain
+     version on the card against the plain version on the CPU; then the
+     mask dilation (``interp.warp_dilate``) against ``dilate_nanmask6``
+     on 1 x N, N x 1, 5 x 5 and larger masks with NaN, inf, negative and
+     -0 entries, and at the scene's image size, timed there;
  10. the single-tile entry on the card: ``ops.mgm_flow.mgm_binary_match``
      on a 797 x 803 tile (range -40..55, the padded route) and an
      800 x 800 tile (the aligned route), each bitwise against
@@ -139,12 +153,14 @@ the JAX package.  Phases, each timed on a line of its own:
      that drives its path and the numbers of its comparison at that run's
      shapes: the flow's kernels in the scene through main (8b, its
      bucket), at stage 4's buckets A and B (5) and at 528 candidates (8);
-     W1 in the scene (8b); the classic matcher's (6 and 4); the pre-pass
+     W1 in the scene (8b), its mask dilation in the scene's stage 3 with
+     a NaN band (8b); the classic matcher's (6 and 4); the pre-pass
      at a signed base (10 and 9); the WTA's edge modes (10); the folded
      scan (11 at fold 2, and 9); its error against the plain version,
      its time, the plain version's time and the least time the card could
      take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100
-     SXM data sheet); the scan's entries also carry ``bucket_ms``, both
+     SXM data sheet; W1's operations over 33.5e12/s, the rate of separate
+     adds and multiplies); the scan's entries also carry ``bucket_ms``, both
      sides of the bucket as the flow launches them, K4b's
      ``step_floor_ms`` and W1's ``group_ms`` (the scene's group of 6);
  13. the last line: {"ok": true, "device": {...}}.
@@ -168,6 +184,10 @@ from contextlib import contextmanager
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SPIN_CYCLES = 2_000_000         # a device-side spin ahead of a timed run
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+# W1 is built with --fmad=false and keeps the reference's roundings, so its
+# adds and multiplies execute one by one: 132 SMs x 128 lanes x 1.98 GHz,
+# half the rate above, which counts a fused multiply-add as two operations
+F32_SEPARATE_OPS_PER_S = 33.5e12
 
 BUCKET_A = dict(n=8, h=448, w=512, D=80)
 BUCKET_B = dict(n=2, h=832, w=896, D=96)
@@ -217,6 +237,15 @@ SCENE_ALT_TOL_M = (1.0, 3.0)
 SCENE_ROW_TOL_PX = 0.1
 # the DSM: its valid share on the cells inside the ROI's footprint
 SCENE_DSM_SHARE = 0.8
+# stage 3 of the scene again with a NaN band across image 1 (rows), the
+# path of W1's masked order 5 and of its mask dilation
+SCENE_NAN_ROWS = (1000, 1004)
+# W1's division by 120 without a division (csrc/warp.cu div120): the
+# mismatches of the correction alone, without its guard, against the IEEE
+# division over all 2^32 float32 inputs, from an exhaustive run in C on
+# the CPU (-ffp-contract=off): -0, +-inf and 559,240 inputs with
+# |x| < 2^-123, whose quotients are subnormal
+DIV120_UNGUARDED = 559_243
 # a tile mask from GML rings of the size real ones have: an ROI ring and
 # a cloud ring inside it (vertices), on one tile of the default size; the
 # mask's area against the rings' (relative)
@@ -290,13 +319,17 @@ def write_tile(root, spec, ref, sec):
 
 
 def equal(a, b):
-    """(bitwise equal NaN-aware, max abs error over finite pairs)."""
+    """(equal bit for bit, any NaN equal to any NaN; max abs error over
+    finite pairs).  +0 and -0 differ."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False, float('inf')
     if a.dtype.is_floating_point:
+        it = {torch.float32: torch.int32, torch.float64: torch.int64,
+              torch.float16: torch.int16, torch.bfloat16: torch.int16}[
+                  a.dtype]
         both_nan = torch.isnan(a) & torch.isnan(b)
-        same = (a == b) | both_nan
+        same = (a.view(it) == b.view(it)) | both_nan
         fin = torch.isfinite(a) & torch.isfinite(b)
         err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
         if (torch.isnan(a) != torch.isnan(b)).any():
@@ -328,9 +361,9 @@ def timed(fn, reps):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / F32_OPS_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
     return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
 
 
@@ -1739,6 +1772,10 @@ def check_warp():
             raise AssertionError(f'W1 {label} (order {order}) differs from '
                                  f'its plain version: {err}')
 
+    def affine(s, tx, ty):
+        """x -> s x + t in both axes, as a batch of one."""
+        return np.array([[[s, 0, tx], [0, s, ty], [0, 0, 1]]], np.float32)
+
     for order in (1, 3, 5):
         for nan in (False, True):
             case('3 jobs', source(61, 77, nan), hinvs(3), 70, 50, order, nan)
@@ -1746,9 +1783,38 @@ def check_warp():
                  order, nan)
             case('z crosses 0', source(61, 77, nan), hinvs(2, True), 60, 40,
                  order, nan)
+            # the edges of the interior path: an output strip of 1/8-px
+            # steps over the first or last 4 px of each axis, so that the
+            # supports cross each border by 0, 1 and 2 px (order 5)
+            img = source(61, 77, nan)
+            for side, hv, ow, oh in (
+                    ('left', [[0.125, 0, 0], [0, 1, 20], [0, 0, 1]], 33,
+                     20),
+                    ('right', [[0.125, 0, 72], [0, 1, 20], [0, 0, 1]], 33,
+                     20),
+                    ('top', [[1, 0, 20], [0, 0.125, 0], [0, 0, 1]], 20, 33),
+                    ('bottom', [[1, 0, 20], [0, 0.125, 56], [0, 0, 1]], 20,
+                     33)):
+                case(f'{side} border by 0-2 px', img,
+                     np.asarray(hv, np.float32)[None], ow, oh, order, nan)
+            # sources with at most one interior position at order 5
+            for n in (6, 5):
+                case(f'{n} x {n} source', source(n, n, nan),
+                     affine(n / 40, -0.1, 0.05), 44, 44, order, nan)
+            case('scaled by 8 (magnified)', source(61, 77, nan),
+                 affine(0.125, 3.3, 2.7), 300, 200, order, nan)
+            case('scaled by 8 (minified)', source(300, 340, nan),
+                 affine(8.0, 0.4, 0.6), 42, 37, order, nan)
         case('1 job', source(61, 77, True), hinvs(1), 83, 67, order, True)
         case('1 x 1 output', source(61, 77, True), hinvs(2), 1, 1, order,
              True)
+    # order 5 with a NaN band at the scene's bucket: 2 tiles of 832 x 1024
+    img = source(2000, 2800, False)
+    img[1000:1004] = np.nan
+    band = np.stack([np.linalg.inv(np.array(
+        [[1.0, 0.01 * k, -200.0 - 800 * k], [-0.01 * k, 1.0, -700.0],
+         [0, 0, 1]])) for k in (1, 2)]).astype(np.float32)
+    case('NaN band at the scene bucket', img, band, 1024, 832, 5, True)
 
     # 65 jobs on one source and bucket: two launches (64 + 1)
     img = source(300, 340, True)
@@ -1783,6 +1849,151 @@ def check_warp():
     if not ok:
         raise AssertionError('the plain warp differs between the card and '
                              'the CPU')
+
+
+def check_div120():
+    """W1's division by 120 (a multiply and two fused multiply-adds behind
+    a guard on |x|) against the IEEE division, over all 2^32 float32 bit
+    patterns on the card: no mismatch among non-NaN results."""
+    import ctypes
+    import torch
+    from s2p_tpu_torch.ops import _build
+
+    counts = torch.zeros(2, dtype=torch.int64, device='cuda')
+    t0 = time.perf_counter()
+    _build.call('warp', 's2p_warp_div120_check',
+                [ctypes.c_void_p, ctypes.c_void_p], counts.data_ptr())
+    torch.cuda.synchronize()
+    bad, bad_fast = counts.tolist()
+    print(f'  div120 against __fdiv_rn(x, 120) over all 2^32 float32 '
+          f'inputs: {bad} mismatches among non-NaN results; the correction '
+          f'alone, without its guard: {bad_fast} (the CPU\'s exhaustive '
+          f'run: {DIV120_UNGUARDED}); {time.perf_counter() - t0:.3f} s',
+          flush=True)
+    if bad:
+        raise AssertionError(f'div120 differs from the IEEE division on '
+                             f'{bad} inputs')
+    if bad_fast != DIV120_UNGUARDED:
+        raise AssertionError('the unguarded correction differs from the '
+                             'CPU on the card')
+
+
+def check_warp_dilate(stats):
+    """W1's mask dilation (``interp.warp_dilate``) against its plain
+    version ``dilate_nanmask6`` on the card, bitwise, one line per case;
+    timed at the scene's image size (the shape of its path run)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from s2p_tpu_torch.ops import interp
+
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(43)
+
+    def mask(h, w, kind):
+        m = np.zeros((h, w), np.float32)
+        if kind == 'band':
+            m[h // 2:h // 2 + 4] = 1
+        elif kind == 'borders':
+            m[0], m[-1], m[:, 0], m[:, -1] = (1,) * 4
+        elif kind == 'sparse':
+            m[rng.rand(h, w) < 0.001] = 1
+            m[rng.randint(h), rng.randint(w)] = 1
+        else:       # NaN, inf, negative and -0 entries
+            for v, p in ((np.nan, 0.002), (np.inf, 0.001), (-2.0, 0.01),
+                         (-0.0, 0.01)):
+                m[rng.rand(h, w) < p] = v
+            m[rng.randint(h), rng.randint(w)] = np.nan
+        return torch.from_numpy(m).to(dev)
+
+    for h, w, kind in ((1, 37, 'sparse'), (37, 1, 'sparse'),
+                       (5, 5, 'borders'), (6, 6, 'values'),
+                       (61, 77, 'borders'), (61, 77, 'values'),
+                       (203, 300, 'sparse'), (203, 300, 'values'),
+                       (2000, 2800, 'band')):
+        m = mask(h, w, kind)
+        got = interp.warp_dilate(m)
+        ok, err = equal(got, interp.dilate_nanmask6(m))
+        print(f'  warp_dilate {h} x {w} ({kind}): bitwise={ok} '
+              f'max_abs_err={err} ({int(got.sum())} pixels set)',
+              flush=True)
+        if not ok:
+            raise AssertionError(f'warp_dilate {h} x {w} ({kind}) differs '
+                                 f'from dilate_nanmask6: {err}')
+    record(stats, 'warp_dilate', '', ok, err,
+           timed(lambda: interp.warp_dilate(m), 10),
+           timed(lambda: interp.dilate_nanmask6(m), 3), m.numel() * 5, 0)
+    # the library's call for the same map of a 0/1 mask: max_pool2d pads
+    # with -inf, so its window [y - 2, y + 3] keeps to the image as the
+    # clamped one does (timed here only; the port runs its own kernel)
+    def pool():
+        return F.max_pool2d(m[None], 6, stride=1, padding=3)
+    lib = (pool()[0, 1:, 1:] > 0).to(torch.uint8)
+    ok, err = equal(lib, got)
+    if not ok:
+        raise AssertionError(f'max_pool2d differs from warp_dilate on the '
+                             f'0/1 mask: {err}')
+    stats['warp_dilate']['library_ms'] = timed(pool, 10)
+    print(f'  warp_dilate {h} x {w}: library max_pool2d '
+          f'{stats["warp_dilate"]["library_ms"]:.4f} ms, its map '
+          f'bitwise={ok}', flush=True)
+
+
+def check_scene_nan_stage3(cfg, tiles, root, launches):
+    """Stage 3 of the scene again with a NaN band across image 1, the path
+    of W1's masked order 5 (its mask dilated once for the image's group),
+    on the card and with device="cpu": the rectified images byte for byte;
+    the launches of the card's run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.geo import geotiff
+    from s2p_tpu_torch.ops import interp
+
+    img = geotiff.read(cfg.images[0].img).astype(np.float32)
+    img[SCENE_NAN_ROWS[0]:SCENE_NAN_ROWS[1]] = np.nan
+    os.makedirs(root)
+    path = os.path.join(root, 'img_1_nan.tif')
+    geotiff.write(path, img)
+    runs = {}
+    for name, device in (('card', None), ('cpu', 'cpu')):
+        out = os.path.join(root, name)
+        shutil.copytree(os.path.join(cfg.out_dir, 'tiles'),
+                        os.path.join(out, 'tiles'),
+                        ignore=shutil.ignore_patterns('*.ply', '*.tif'))
+        shutil.copy(os.path.join(cfg.out_dir, 'global_pointing_pair_1.txt'),
+                    out)
+        c = dataclasses.replace(cfg, out_dir=out, images=(
+            dataclasses.replace(cfg.images[0], img=path),
+            *cfg.images[1:]))
+        runs[name] = [moved(t, cfg.out_dir, out) for t in tiles]
+        interp.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipeline.rectification_all(c, [(t, 1) for t in runs[name]],
+                                   device=device)
+        torch.cuda.synchronize()
+        print(f'  stage 3 with a NaN band in image 1, {name}: '
+              f'{time.perf_counter() - t0:.3f} s', flush=True)
+        if device is None:
+            launches['scene_nan'] = interp.launch_counts()
+    print(f"  launches: {launches['scene_nan']}", flush=True)
+    nan_px = 0
+    for a, b in zip(runs['card'], runs['cpu']):
+        for f in ('rectified_ref.tif', 'rectified_sec.tif'):
+            pa = os.path.join(a['dir'], 'pair_1', f)
+            with open(pa, 'rb') as f1, \
+                    open(os.path.join(b['dir'], 'pair_1', f), 'rb') as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f'stage 3 with a NaN band: {pa} '
+                                         'differs from the CPU run')
+        nan_px += int(np.isnan(geotiff.read(os.path.join(
+            a['dir'], 'pair_1', 'rectified_ref.tif'))).sum())
+    print(f'  rectified images equal the CPU run byte for byte: '
+          f'{2 * len(tiles)} files, {nan_px} NaN pixels in the reference '
+          'images', flush=True)
+    if not nan_px:
+        raise AssertionError('the NaN band reached no rectified image')
 
 
 def expected_tiles(out_dir):
@@ -2100,16 +2311,42 @@ def time_scene_warp(cfg, tiles, stats):
     ms_group = timed(lambda: kernel(group), 10)
     ms = timed(lambda: kernel(one), 10)
     plain_ms = timed(plain, 2)
-    nbytes = c.numel() * 4 * (1 if m is None else 2) + 36 + oh * ow * 4
+    nbytes = c.numel() * (4 if m is None else 5) + 36 + oh * ow * 4
     ops = interp.warp_ops(5, m is not None, n_inside, oh * ow)
-    t_bound, by = bound(nbytes, ops)
+    t_bound, by = bound(nbytes, ops, F32_SEPARATE_OPS_PER_S)
     print(f'  W1 order 5 at the scene: group of {len(hvs)} tiles, '
           f'{oh} x {ow} each, bitwise={ok}: {ms_group:.4f} ms a group, '
           f'{ms:.4f} ms a warp ({n_inside} of {oh * ow} pixels inside); '
           f'plain {plain_ms:.3f} ms a warp; bound {t_bound:.4f} ms a warp '
-          f'({by}: {ops:.4g} f32 operations, {nbytes} bytes)', flush=True)
+          f'({by}: {ops:.4g} f32 operations at '
+          f'{F32_SEPARATE_OPS_PER_S:.3g}/s, {nbytes} bytes)', flush=True)
     stats['warp'] = dict(err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-                         ops=ops, group_ms=ms_group)
+                         ops=ops, ops_per_s=F32_SEPARATE_OPS_PER_S,
+                         group_ms=ms_group)
+
+    # the same group with the NaN band of the masked stage-3 run: the
+    # image's mask dilated once, then the group
+    img_nan = img.copy()
+    img_nan[SCENE_NAN_ROWS[0]:SCENE_NAN_ROWS[1]] = np.nan
+    cn, mn = (torch.from_numpy(a).to(dev)
+              for a in hom._spline5_inputs(img_nan))
+    bad6 = interp.warp_dilate(mn)
+    got = interp.warp_homography(cn, group, ow, oh, 5, mn, bad6)
+    ref = torch.stack([interp.warp_homography_plain(cn, h, ow, oh, 5, mn)
+                       for h in group])
+    ok, err = equal(got, ref)
+    if not ok:
+        raise AssertionError(f'W1 with the NaN band differs from its plain '
+                             f'version: {err}')
+    ms_mgroup = timed(lambda: interp.warp_homography(cn, group, ow, oh, 5,
+                                                     mn, bad6), 10)
+    ms_mone = timed(lambda: interp.warp_homography(cn, one, ow, oh, 5, mn,
+                                                   bad6), 10)
+    ms_dil = timed(lambda: interp.warp_dilate(mn), 10)
+    print(f'  W1 order 5 with a NaN band (rows {SCENE_NAN_ROWS}) at the '
+          f'scene: bitwise={ok}, {int(torch.isnan(got).sum())} NaN outputs; '
+          f'{ms_mgroup:.4f} ms a group, {ms_mone:.4f} ms a warp, the '
+          f'dilation {ms_dil:.4f} ms once per image', flush=True)
 
     # order 1 beside torch's bilinear grid_sample on the same grid
     src = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
@@ -2128,11 +2365,13 @@ def time_scene_warp(cfg, tiles, stats):
     fin = torch.isfinite(w1)
     d = (lib[fin] - w1[fin]).abs().max().item()
     ms1 = timed(lambda: interp.warp_homography(src, hv, ow, oh, 1), 10)
+    ms3 = timed(lambda: interp.warp_homography(src, hv, ow, oh, 3), 10)
     lib_ms = timed(lambda: F.grid_sample(inp, grid, mode='bilinear',
                                          align_corners=True), 10)
     print(f'  W1 order 1 at {oh} x {ow}: {ms1:.4f} ms; grid_sample '
           f'(bilinear, align_corners=True, zeros outside) {lib_ms:.4f} ms; '
-          f'max difference inside {d:.3g}', flush=True)
+          f'max difference inside {d:.3g}; W1 order 3 {ms3:.4f} ms',
+          flush=True)
 
 
 def check_scene_tiling(cfg, tiles):
@@ -2420,6 +2659,8 @@ def run_scene(root, cpu_root, stats, launches, card):
     check_scene_dsm(cfg, tiles)
     scene_stage3_shares(cfg, tiles, walls['3'])
     time_scene_warp(cfg, tiles, stats)
+    check_scene_nan_stage3(cfg, tiles, os.path.join(cpu_root, 'nan'),
+                           launches)
 
 
 def main():
@@ -2456,6 +2697,8 @@ def main():
         check_no_spill(_build.build_log('scan_mgm'), 'scan_mgm_kernel')
         check_no_spill(_build.build_log('wta'), 'wta_dr_kernel')
         check_no_spill(_build.build_log('warp'), 'warp_kernel')
+    with phase("W1's division by 120: all 2^32 float32 inputs"):
+        check_div120()
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -2482,6 +2725,7 @@ def main():
         check_fold_kernels(specs_a, pairs, stats)
     with phase('W1 (the homography warp) against its plain version'):
         check_warp()
+        check_warp_dilate(stats)
 
     launches = {}
     tmp = tempfile.mkdtemp(prefix='s2p_chip_smoke_')
@@ -2612,6 +2856,10 @@ def main():
         # W1 replaces a jitted jnp program, not a Pallas kernel
         'warp': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:145', 'scene',
                  'warp', 'warp'),
+        # the dilation replaces the 36-tap mask maxima of the quintic
+        # sampler, on stage 3's path for an image with NaN
+        'warp_dilate': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:134',
+                        'scene_nan', 'warp_dilate', 'warp_dilate'),
     })
     missing = [name for name, (_, _, run, key, _) in table.items()
                if launches[run][key] == 0]
@@ -2621,12 +2869,14 @@ def main():
     kernels = []
     for name, (src, replaces, run, key, stat) in table.items():
         st = stats[stat]
-        t_bound, by = bound(st['nbytes'], st['ops'])
+        t_bound, by = bound(st['nbytes'], st['ops'],
+                            st.get('ops_per_s', F32_OPS_PER_S))
         kernels.append({'name': name, 'route': 'cuda', 'source': src,
                         'replaces': replaces, 'launches': launches[run][key],
                         'max_abs_err': st['err'], 'ms': st['ms'],
                         'plain_ms': st['plain_ms'], 'bound_ms': t_bound,
-                        'bound_by': by, 'library_ms': None,
+                        'bound_by': by,
+                        'library_ms': st.get('library_ms'),
                         **{k: st[k] for k in ('bucket_ms', 'step_floor_ms',
                                               'group_ms') if k in st}})
     print(json.dumps({'kernels': kernels}))

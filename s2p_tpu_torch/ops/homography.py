@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .interp import warp_homography
+from .interp import warp_dilate, warp_homography
 
 # jobs of one launch: bounds the device memory of a group's output
 MAX_JOBS = 64
@@ -72,7 +72,8 @@ def warp_jobs_batched(jobs, order=5, device=None):
     order.
 
     The spline prefilter runs once per distinct source array (by
-    identity) and its coefficients are uploaded once.  Jobs sharing a
+    identity), its coefficients are uploaded once and, on the card, its
+    NaN mask is dilated once for W1 (:func:`warp_dilate`).  Jobs sharing a
     source and an output bucket (h up to a multiple of 64, w up to a
     multiple of 128) run as one warp of up to :data:`MAX_JOBS`
     homographies, and each output is cropped to its own (h, w).  The warp
@@ -90,10 +91,14 @@ def warp_jobs_batched(jobs, order=5, device=None):
             coeffs, mask = _spline5_inputs(img)
         else:
             coeffs, mask = np.asarray(img, dtype=np.float32), None
-        srcs[id(img)] = (torch.from_numpy(np.ascontiguousarray(coeffs))
-                         .to(dev),
-                         None if mask is None else
-                         torch.from_numpy(mask).to(dev))
+        coeffs = torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev)
+        if mask is not None:
+            mask = torch.from_numpy(mask).to(dev)
+        # W1 reads the mask dilated, once per source; the CPU route reads
+        # the mask itself
+        dilated = (warp_dilate(mask) if mask is not None
+                   and dev.type == 'cuda' else None)
+        srcs[id(img)] = (coeffs, mask, dilated)
     groups = {}
     for k, (img, H, w, h) in enumerate(jobs):
         hb = -(-int(h) // 64) * 64
@@ -101,12 +106,12 @@ def warp_jobs_batched(jobs, order=5, device=None):
         groups.setdefault((id(img), hb, wb), []).append((k, _inverse_f32(H)))
     outs = [None] * len(jobs)
     for (key, hb, wb), members in groups.items():
-        coeffs, mask = srcs[key]
+        coeffs, mask, dilated = srcs[key]
         for i in range(0, len(members), MAX_JOBS):
             part = members[i:i + MAX_JOBS]
             hinvs = torch.from_numpy(np.stack([hv for _, hv in part])).to(dev)
             out = warp_homography(coeffs, hinvs, wb, hb, order=order,
-                                  nanmask=mask)
+                                  nanmask=mask, dilated=dilated)
             for row, (k, _) in enumerate(part):
                 outs[k] = out[row]
     return [o[:int(h), :int(w)].cpu().numpy()

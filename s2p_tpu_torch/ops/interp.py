@@ -12,7 +12,10 @@ the order of ``lax.integer_pow``; ``t ** 5`` would round differently.
 :func:`warp_homography` is the port's warp: for a CPU tensor it runs
 :func:`warp_homography_plain`, for a CUDA tensor it launches W1, one
 thread per output pixel of a batch of homographies over one source.  It
-never falls back: a failed build or launch raises.
+never falls back: a failed build or launch raises.  W1 reads an order-5
+NaN mask through :func:`warp_dilate`, a byte map made once per source
+whose plain version is :func:`dilate_nanmask6`; the plain warp keeps the
+36-tap rule of the JAX package.
 
 Sampling convention: integer coordinates land on pixel centres.  A
 sample whose support leaves the image (or, for the quintic spline with a
@@ -27,10 +30,11 @@ import torch
 
 from . import _build
 
-_launches = {'warp': 0}
+_launches = {'warp': 0, 'warp_dilate': 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WARP_ARGS = [_P, _P, _P, _P] + [_I] * 6 + [_P]
+_DILATE_ARGS = [_P, _P, _I, _I, _P]
 
 
 def launch_counts():
@@ -124,7 +128,9 @@ def _bspline5_weights(t):
     for o in (-2, -1, 0, 1, 2, 3):
         x = t - o
         acc = torch.zeros_like(t)
-        for k in range(7):
+        # for t in [0, 1], x + 3 <= 4 - o, so each k >= 4 - o adds c * 0,
+        # which leaves the sum (from +0, never -0) unchanged bit for bit
+        for k in range(4 - o):
             term = _pow5(torch.clamp_min(x + 3.0 - k, 0.0))
             acc = acc + (_BIN6[k] if k % 2 == 0 else -_BIN6[k]) * term
         ws.append(_div(acc, 120.0))
@@ -182,7 +188,48 @@ def warp_homography_plain(img, hinv, out_w, out_h, order=3, nanmask=None):
     return bicubic_sample(img, sx, sy)
 
 
-def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None):
+def dilate_nanmask6(nanmask):
+    """Plain version of :func:`warp_dilate`: the (H, W) uint8 map that is 1
+    where a value m of ``nanmask`` with ``!(m <= 0)`` (positive or NaN)
+    lies in rows clamp(y - 2 .. y + 3) and columns clamp(x - 2 .. x + 3).
+    A quintic sample whose integer parts are (x0, y0) is NaN under
+    :func:`bspline5_sample`'s 36-tap rule exactly where the map is 1 at
+    (y0, x0)."""
+    bad = ~(nanmask <= 0)
+    h, w = bad.shape
+    dev = bad.device
+    rows = torch.zeros_like(bad)
+    for i in range(-2, 4):
+        rows |= bad[:, (torch.arange(w, device=dev) + i).clamp(0, w - 1)]
+    out = torch.zeros_like(bad)
+    for j in range(-2, 4):
+        out |= rows[(torch.arange(h, device=dev) + j).clamp(0, h - 1)]
+    return out.to(torch.uint8)
+
+
+def warp_dilate(nanmask):
+    """The dilated NaN mask of one source for W1's order 5 (see
+    :func:`dilate_nanmask6`): for a CPU tensor the plain version, for a
+    CUDA tensor one launch of the dilation kernel of ``csrc/warp.cu``."""
+    if nanmask.dtype != torch.float32 or nanmask.dim() != 2:
+        raise TypeError(f'nanmask: expected 2-D float32, got '
+                        f'{nanmask.dtype} {tuple(nanmask.shape)}')
+    if nanmask.device.type == 'cpu':
+        return dilate_nanmask6(nanmask)
+    if nanmask.device.type != 'cuda':
+        raise ValueError(f'unsupported device {nanmask.device}')
+    nanmask = nanmask.contiguous()
+    out = torch.empty(nanmask.shape, dtype=torch.uint8,
+                      device=nanmask.device)
+    if out.numel():
+        _build.call('warp', 's2p_warp_dilate', _DILATE_ARGS,
+                    nanmask.data_ptr(), out.data_ptr(), *nanmask.shape)
+        _launches['warp_dilate'] += 1
+    return out
+
+
+def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None,
+                    dilated=None):
     """Resample ``img`` under a batch of homographies: out[b](x) =
     img(hinvs[b] @ x).
 
@@ -196,20 +243,29 @@ def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None):
             B-spline).
         nanmask: for order 5, an optional (H, W) float32 tensor, nonzero
             where the original image was NaN.
+        dilated: for a CUDA tensor, ``warp_dilate(nanmask)`` where the
+            caller already has it (one source warped in several launches
+            is dilated once); None dilates ``nanmask`` here.  It must be
+            that map of this ``nanmask``: W1 reads it in place of
+            ``nanmask``, and the shapes and type are all that is checked.
+            The CPU route reads ``nanmask`` alone.
 
     Returns (B, out_h, out_w) float32, or (out_h, out_w) for one (3, 3)
     homography.  A CPU tensor runs :func:`warp_homography_plain` for each
-    homography; a CUDA tensor launches W1 once for the batch."""
+    homography; a CUDA tensor launches W1 once for the batch (and the
+    dilation once, when ``nanmask`` comes without ``dilated``)."""
     if order not in (1, 3, 5):
         raise ValueError(f'order must be 1, 3 or 5, got {order}')
     one = hinvs.dim() == 2
     hinvs = hinvs[None] if one else hinvs
-    for name, t, nd in (('img', img, 2), ('hinvs', hinvs, 3),
-                        ('nanmask', nanmask, 2)):
+    for name, t, nd, dtype in (('img', img, 2, torch.float32),
+                               ('hinvs', hinvs, 3, torch.float32),
+                               ('nanmask', nanmask, 2, torch.float32),
+                               ('dilated', dilated, 2, torch.uint8)):
         if t is None:
             continue
-        if t.dtype != torch.float32 or t.dim() != nd:
-            raise TypeError(f'{name}: expected {nd}-D float32, got '
+        if t.dtype != dtype or t.dim() != nd:
+            raise TypeError(f'{name}: expected {nd}-D {dtype}, got '
                             f'{t.dtype} {tuple(t.shape)}')
         if t.device != img.device:
             raise ValueError(f'{name} on {t.device}, img on {img.device}')
@@ -217,6 +273,9 @@ def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None):
         raise ValueError(f'hinvs must be (B, 3, 3), got {tuple(hinvs.shape)}')
     if nanmask is not None and (order != 5 or nanmask.shape != img.shape):
         raise ValueError('nanmask needs order 5 and the shape of img')
+    if dilated is not None and (nanmask is None
+                                or dilated.shape != img.shape):
+        raise ValueError('dilated needs nanmask and the shape of img')
     if img.device.type == 'cpu':
         out = torch.stack([warp_homography_plain(img, hv, out_w, out_h,
                                                  order, nanmask)
@@ -230,9 +289,11 @@ def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None):
     out = torch.empty((B, out_h, out_w), dtype=torch.float32,
                       device=img.device)
     if out.numel():
-        mask = None if nanmask is None else nanmask.contiguous()
+        if nanmask is not None and dilated is None:
+            dilated = warp_dilate(nanmask)
+        bad6 = None if dilated is None else dilated.contiguous()
         _build.call('warp', 's2p_warp', _WARP_ARGS, img.data_ptr(),
-                    None if mask is None else mask.data_ptr(),
+                    None if bad6 is None else bad6.data_ptr(),
                     hinvs.data_ptr(), out.data_ptr(), B, H, W, out_h, out_w,
                     order)
         _launches['warp'] += 1
@@ -240,15 +301,35 @@ def warp_homography(img, hinvs, out_w, out_h, order=3, nanmask=None):
 
 
 def warp_ops(order, masked, n_inside, n_pixels):
-    """float32 operations W1 does for a warp with ``n_pixels`` output
-    pixels, ``n_inside`` of them inside their source (the others stop
-    after their coordinates and the inside test): per pixel 18 for the
-    coordinates (6 multiplies, 6 adds, 2 divisions) and the inside test's
-    4 comparisons;
-    inside, 4 for the integer parts and fractions, then the weights of
-    both axes and the taps' multiplies and adds (order 5: per weight 2 +
-    7 x 7 + 1 division, 36 taps and 6 rows; with a mask, one maximum a
-    tap)."""
-    inner = {1: 2 + 11, 3: 2 * 18 + 2 * 16 + 2 * 4,
-             5: 2 * 6 * 52 + 2 * 36 + 2 * 6 + (36 if masked else 0)}[order]
+    """float32 operations W1 must do for a warp with ``n_pixels`` output
+    pixels, ``n_inside`` of them sampled (inside their source and, with a
+    mask, clear of its NaNs; the others stop after their coordinates, the
+    inside test and the mask's byte), counting only what the output needs:
+    no identity (a multiply by 1, an add to +0, a subtraction of 0, a
+    maximum that cannot bind) and each shared product once.
+
+    Per pixel 18: the coordinates (6 multiplies, 6 adds, 2 divisions) and
+    the inside test's 4 comparisons.  Per sampled pixel 4 for the integer
+    parts and fractions, then the weights of each axis:
+
+    * order 1: 1 - t;
+    * order 3: t^2, t^3, 6 distinct products (+-0.5 t^3, +-1.5 t^3,
+      +-0.5 t, 2.5 t^2, 2 t^2, 0.5 t^2) and 7 adds: 15;
+    * order 5: 11 for the offsets (t - o for o != 0, then + 3) and, over
+      the 21 terms an axis that can be nonzero, 6n - 3 for an offset of
+      n = 4 - o terms (the fifth power's 3 multiplies a term, and a
+      subtraction, a coefficient's multiply and an add for each term but
+      the first: k = 0 subtracts 0, multiplies by 1 and adds to +0); the
+      maximum max(v - k, 0) binds for no kept term (v >= 3 - o >= k), so
+      it is not counted; 6 divisions by 120 of 3 (a multiply and two
+      fused multiply-adds): 137.
+
+    Then the taps: at order 1 the blend's 8 multiplies and 3 adds; at
+    orders 3 and 5, N x N taps, N^2 multiplies and N (N - 1) adds in the
+    rows (a row's first add to +0 changes no bit of the output: a row that
+    is +-0 adds +-0 to an outer sum that starts from +0), N multiplies and
+    N adds in the outer sum; and with a mask one comparison."""
+    taps = {1: 8 + 3, 3: 16 + 12 + 4 + 4, 5: 36 + 30 + 6 + 6}[order]
+    inner = 2 * {1: 1, 3: 15, 5: 137}[order] + taps \
+        + (1 if masked and order == 5 else 0)
     return 18 * n_pixels + (4 + inner) * n_inside

@@ -172,12 +172,31 @@ def test_warp_homography_refuses_bad_input():
         tint.warp_homography(img, torch.eye(4), 4, 4, order=1)
 
 
+def test_warp_homography_refuses_bad_dilated():
+    img = torch.zeros((8, 9))
+    hv = torch.eye(3)
+    bad6 = torch.zeros((8, 9), dtype=torch.uint8)
+    with pytest.raises(ValueError, match='dilated'):
+        tint.warp_homography(img, hv, 4, 4, order=5, dilated=bad6)
+    with pytest.raises(ValueError, match='dilated'):
+        tint.warp_homography(img, hv, 4, 4, order=5, nanmask=img,
+                             dilated=bad6[:, :8])
+    with pytest.raises(TypeError, match='dilated'):
+        tint.warp_homography(img, hv, 4, 4, order=5, nanmask=img,
+                             dilated=img)
+    with pytest.raises(TypeError, match='nanmask'):
+        tint.warp_dilate(bad6)
+
+
 def test_cpu_warp_launches_no_kernel():
-    """On CPU tensors the wrapper takes the plain version: W1's count
-    stays 0."""
+    """On CPU tensors the wrappers take the plain versions: the counts of
+    W1 and of its mask dilation stay 0."""
     tint.reset_launch_counts()
-    tint.warp_homography(torch.zeros((8, 9)), torch.eye(3), 4, 4, order=5)
-    assert tint.launch_counts() == {'warp': 0}
+    mask = torch.zeros((8, 9))
+    tint.warp_homography(torch.zeros((8, 9)), torch.eye(3), 4, 4, order=5,
+                         nanmask=mask)
+    tint.warp_dilate(mask)
+    assert tint.launch_counts() == {'warp': 0, 'warp_dilate': 0}
 
 
 def test_warp_z_crossing_zero():
@@ -261,3 +280,108 @@ def test_points_and_boxes_equal_jax():
     _same(np.array(thom.bounding_box2D(pts)),
           np.array(jhom.bounding_box2D(pts)))
     _same(thom.matrix_translation(3.5, -2), jhom.matrix_translation(3.5, -2))
+
+
+def _weights_inputs(kind):
+    """float32 fractions t in [0, 1) for the weights' bitwise test."""
+    if kind == 'zero':
+        return np.zeros(1, np.float32)
+    if kind == 'below_one':     # the 2^20 float32 just below 1
+        top = np.float32(1).view(np.uint32)
+        return np.arange(top - (1 << 20), top, dtype=np.uint32) \
+            .view(np.float32)
+    if kind == 'powers_of_two':     # 2^-1 .. 2^-149 (subnormal)
+        return np.ldexp(np.ones(149, np.float32), -np.arange(1, 150))
+    return np.random.default_rng(0).random(10 ** 6, dtype=np.float32)
+
+
+@pytest.mark.parametrize('kind', ['zero', 'below_one', 'powers_of_two',
+                                  'uniform'])
+def test_bspline5_weights_equal_jax(kind):
+    """The port's quintic weights, which skip the terms that are exactly
+    zero for t in [0, 1], equal the JAX package's full 7-term sums bit
+    for bit."""
+    t = _weights_inputs(kind)
+    assert t.dtype == np.float32 and (t >= 0).all() and (t < 1).all()
+    with jax.disable_jit():
+        want = [np.asarray(w) for w in jint._bspline5_weights(t)]
+    got = [w.numpy() for w in tint._bspline5_weights(torch.from_numpy(t))]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def _masked_source(kind):
+    """(image with NaN, extra edits of the mask) for the dilation test."""
+    rng = np.random.RandomState(11)
+    shape = {'row_1xN': (1, 23), 'col_Nx1': (23, 1),
+             'tiny_5x5': (5, 5)}.get(kind, (24, 31))
+    img = (rng.rand(*shape) * 255).astype(np.float32)
+    h, w = shape
+    edits = []
+    if kind.startswith('border_'):
+        side = kind.split('_')[1]
+        sl = {'top': (0, slice(None)), 'bottom': (-1, slice(None)),
+              'left': (slice(None), 0), 'right': (slice(None), -1)}[side]
+        img[sl] = np.nan
+    elif kind == 'corners':
+        for y, x in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+            img[y, x] = np.nan
+    elif kind == 'single_pixels':
+        for y, x in ((2, 2), (7, 15), (12, 29), (21, 3)):
+            img[y, x] = np.nan
+    elif kind == 'mask_nan':     # NaN, negative and -0 values in the mask
+        img[5, 5] = np.nan
+        edits = [((10, 20), np.nan), ((15, 8), -3.0), ((3, 27), -0.0),
+                 ((5, 5), -1.0)]
+    else:   # a corner, and the middle of the long sources
+        img[0, 0] = np.nan
+        if h * w > 25:
+            img[h // 2, w // 2] = np.nan
+    return img, edits
+
+
+@pytest.mark.parametrize('kind', ['border_top', 'border_bottom',
+                                  'border_left', 'border_right', 'corners',
+                                  'single_pixels', 'mask_nan', 'row_1xN',
+                                  'col_Nx1', 'tiny_5x5'])
+def test_dilated_nanmask_equals_36_tap_rule(kind):
+    """W1's masked order 5 reads one byte of ``dilate_nanmask6`` at the
+    sample's integer parts.  Through that map the verdict of every
+    sample inside the source equals the 36-tap rule (a tap with
+    !(m <= 0) makes the sample NaN), and the samples equal
+    ``bspline5_sample`` with the mask bitwise, NaN sets included."""
+    img, edits = _masked_source(kind)
+    coeffs, mask = thom._spline5_inputs(img)
+    for (y, x), v in edits:
+        mask[y, x] = v
+    h, w = img.shape
+    # integers, halves and random fractions over the source and past it
+    rng = np.random.RandomState(12)
+    gy = np.concatenate([np.arange(-1, h + 1), np.arange(-1, h) + 0.5,
+                         rng.uniform(-1, h, 40)]).astype(np.float32)
+    gx = np.concatenate([np.arange(-1, w + 1), np.arange(-1, w) + 0.5,
+                         rng.uniform(-1, w, 40)]).astype(np.float32)
+    ys, xs = (a.ravel() for a in np.meshgrid(gy, gx, indexing='ij'))
+    t = torch.from_numpy
+    want = tint.bspline5_sample(t(coeffs), t(xs), t(ys),
+                                nanmask=t(mask)).numpy()
+    clear = tint.bspline5_sample(t(coeffs), t(xs), t(ys)).numpy()
+    dil = tint.dilate_nanmask6(t(mask)).numpy()
+    assert dil.dtype == np.uint8 and dil.shape == mask.shape
+    assert np.array_equal(dil, tint.warp_dilate(t(mask)).numpy())
+    inside = (xs >= 0) & (ys >= 0) & (xs <= w - 1) & (ys <= h - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, w - 1)
+    y0 = np.clip(np.floor(ys).astype(int), 0, h - 1)
+    verdict = inside & (dil[y0, x0] == 1)
+    # the 36-tap rule, tap by tap
+    rule = np.zeros_like(inside)
+    for j in range(-2, 4):
+        for i in range(-2, 4):
+            m = mask[np.clip(y0 + j, 0, h - 1), np.clip(x0 + i, 0, w - 1)]
+            rule |= ~(m <= 0)
+    rule &= inside
+    assert np.array_equal(verdict, rule)
+    assert verdict.any() and (inside & ~verdict).any()
+    got = np.where(verdict, np.float32(np.nan), clear)
+    _same(got, want)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of versions of the port's cost pre-pass (K1), averaged-MGM
-scan (K4b) and WTA with the right-reference map (K5) in one process, on
-the same inputs.
+scan (K4b), WTA with the right-reference map (K5) and homography warp
+(W1) in one process, on the same inputs.
 
 Usage, from the repo root on a machine with one CUDA card and nvcc:
 
@@ -10,14 +10,16 @@ Usage, from the repo root on a machine with one CUDA card and nvcc:
     git show <commit>:s2p_tpu_torch/csrc/wta.cu > out/k5_old.cu
     python3 tools/ab_kernels_torch.py --k1 out/k1_old.cu --k4b out/k4b_old.cu
     python3 tools/ab_kernels_torch.py --k5 out/k5_old.cu
+    git show <commit>:s2p_tpu_torch/csrc/warp.cu > out/w1_old.cu
+    python3 tools/ab_kernels_torch.py --w1 out/w1_old.cu
 
-``--k1``, ``--k4b`` and ``--k5`` each take zero or more sources, and only
-the kernels named run; the package's own ``csrc/cost_prepass.cu``,
-``csrc/scan_mgm.cu`` and ``csrc/wta.cu`` are appended as the last version.
-Every source is built with the port's nvcc flags into
+``--k1``, ``--k4b``, ``--k5`` and ``--w1`` each take zero or more sources,
+and only the kernels named run; the package's own ``csrc/cost_prepass.cu``,
+``csrc/scan_mgm.cu``, ``csrc/wta.cu`` and ``csrc/warp.cu`` are appended as
+the last version.  Every source is built with the port's nvcc flags into
 out/ab_kernels_build/ and its C entry (``s2p_cost_prepass``,
-``s2p_scan_mgm``, ``s2p_wta_dr``; the signatures stay fixed for this) runs
-on the same random inputs:
+``s2p_scan_mgm``, ``s2p_wta_dr``, ``s2p_warp``; the signatures stay fixed
+for this) runs on the same random inputs:
 
   * K1 at the flow's shapes, per side: bucket A (8 x 512 positions x 448
     lanes, 80 candidates, base 0), bucket B (2 x 896 x 832, 96), one tile
@@ -32,11 +34,27 @@ on the same random inputs:
   * K5 at the classic matcher's summed partials: S_v contiguous and S_h
     read in its (W, D, H) layout, at the 512 x 512 pair (64 candidates
     from -8), the 832 x 832 tile (96 from -30) and a 256 x 1600 strip (64
-    from -20, past the widest band: the windowed instantiation).
+    from -20, past the widest band: the windowed instantiation);
+  * W1 at the scene's shapes: a 2000 x 2800 smoothed-noise source,
+    outputs of 832 x 1024 under 6 homographies like stage 3's (tiles of
+    800 px, small rotations), orders 1, 3 and 5, a group of 6 and one
+    warp, and order 5 again with a NaN band across the source.  A version
+    that exports ``s2p_warp_dilate`` (this package's) takes the mask
+    dilated once by it (timed apart); an earlier one takes the float mask.
+    Copies of the package's ``warp.cu``, made by text substitution and
+    built only here, follow it as versions of their own: each undoes one
+    mechanism of the design (all 42 weight terms, the IEEE division in
+    place of ``div120``, every order-3 and order-5 pixel through the
+    clamped taps, ``fmaxf`` dropped from the terms) and must give the
+    same bits.  Then two ablation copies are timed at order 5 without
+    outputs compared: the weights replaced by constants, and every tap
+    replaced by a constant.  Last, ``cuobjdump -sass`` counts the
+    instructions of each version's ``warp_kernel<5>``.
 
 Each case runs its versions forward then backward (v0 .. vn, vn .. v0;
 median of 5 CUDA-event runs each, behind a device-side spin), and every
-version's outputs are compared bitwise with the first's.  Then K4b's step
+version's outputs are compared with the first's bit for bit (+0 and -0
+differ; any NaN equals any NaN).  Then K4b's step
 floor: the package's ``s2p_cluster_sync_loop`` (one cluster barrier per
 step, nothing else) over each pass's step count.  It prints the card's
 name and power limit first.
@@ -85,7 +103,8 @@ def build(srcs, out):
         if p.returncode:
             raise RuntimeError(f'nvcc failed for {k}:\n{log}')
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if ('registers' in line or 'spill' in line
+                    or 'entry function' in line):
                 print(f'  {k}: {line.strip()}')
         lib = ctypes.CDLL(os.path.join(out, f'lib{k}.so'))
         for fn in ('s2p_cost_prepass', 's2p_cluster_sync_loop',
@@ -120,6 +139,22 @@ def sigs(shape, g):
     return v.to(torch.int32)
 
 
+_INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64,
+           torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def bitwise(a, b):
+    """Equal bit for bit (so +0 differs from -0), any NaN equal to any NaN
+    whatever its payload."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        it = _INT_OF[a.dtype]
+        return bool(((a.view(it) == b.view(it))
+                     | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
 def ab(name, labels, make_run, outs):
     """Time each version forward then backward and compare its outputs
     with the first version's."""
@@ -135,7 +170,7 @@ def ab(name, labels, make_run, outs):
         times[k].append(median_ms(run))
     ref = first[labels[0]]
     for k in labels:
-        same = all(torch.equal(a, b) for a, b in zip(first[k], ref))
+        same = all(bitwise(a, b) for a, b in zip(first[k], ref))
         ms = ', '.join(f'{t:.4f}' for t in times[k])
         print(f'  {name} {k}: {ms} ms, bitwise equal to {labels[0]}: {same}',
               flush=True)
@@ -239,11 +274,164 @@ def run_k5(libs, g):
               '(bytes at 3.35 TB/s)', flush=True)
 
 
+# W1: the source, the outputs, the source rows made NaN for the masked
+# cases; the variants of warp.cu, each undoing one mechanism of the
+# design, which must give the same bits; and the ablation copies, whose
+# outputs differ (label, ((text, replacement), ...))
+W1_SRC = (2000, 2800)
+W1_OUT = (832, 1024)
+W1_NAN_ROWS = (1000, 1004)
+W1_VARIANTS = (
+    ('42 terms', (
+        ('const float c[6] = {1.f, -6.f, 15.f, -20.f, 15.f, -6.f};',
+         'const float c[7] = {1.f, -6.f, 15.f, -20.f, 15.f, -6.f, 1.f};'),
+        ('for (int k = 0; k <= 3 - o; ++k)', 'for (int k = 0; k <= 6; ++k)'))),
+    ('IEEE division', (
+        ('w[o + 2] = div120(acc);', 'w[o + 2] = acc / 120.0f;'),)),
+    ('clamped taps only', (
+        ('const bool interior = (x0', 'const bool interior = false && (x0'),)),
+    ('no fmaxf', (
+        ('const float u = fmaxf(v - (float)k, 0.0f);',
+         'const float u = v - (float)k;'),)))
+W1_ABLATIONS = (
+    ('weights constant', ((
+        '      weights5(tx, wx);\n      weights5(ty, wy);\n',
+        '      for (int i = 0; i < N; ++i) {\n'
+        '        wx[i] = 0.125f * (float)(i + 1);\n'
+        '        wy[i] = 0.0625f * (float)(i + 1);\n'
+        '      }\n'),)),
+    ('taps constant', ((
+        'float ld(const float* p) { return __ldg(p); }',
+        'float ld(const float* p) { return 1.0f; }'),)))
+
+
+def w1_copies(src, out, edits, stem):
+    """{label: path} of the copies of ``src`` that ``edits`` make (as
+    W1_VARIANTS), written to ``out``."""
+    with open(src) as f:
+        text = f.read()
+    paths = {}
+    os.makedirs(out, exist_ok=True)
+    for k, (label, subs) in enumerate(edits):
+        new = text
+        for old, rep in subs:
+            if new.count(old) != 1:
+                raise RuntimeError(f'W1 copy {label!r}: {old!r} is not in '
+                                   f'{src} once')
+            new = new.replace(old, rep)
+        paths[label] = os.path.join(out, f'{stem}_{k}.cu')
+        with open(paths[label], 'w') as f:
+            f.write(new)
+    return paths
+
+
+def sass_counts(lib_path, kernel='warp_kernelILi5E'):
+    """(instructions other than NOP, {opcode: count}) of the function whose
+    mangled name holds ``kernel``, from ``cuobjdump -sass``."""
+    import re
+    tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    text = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    ops, inside = {}, False
+    for line in text.splitlines():
+        if 'Function :' in line:
+            inside = kernel in line
+            continue
+        m = re.match(r'\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)',
+                     line)
+        if inside and m:
+            op = m.group(2).split('.')[0]
+            ops[op] = ops.get(op, 0) + 1
+    return sum(v for k, v in ops.items() if k != 'NOP'), ops
+
+
+def run_w1(libs, ablations, g):
+    import numpy as np
+    from scipy import ndimage
+    from s2p_tpu_torch.ops import homography as hom
+    from s2p_tpu_torch.ops import interp
+
+    labels = list(libs)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(0)
+    img = ndimage.uniform_filter(rng.rand(*W1_SRC).astype(np.float32) * 200,
+                                 3)
+    img_nan = img.copy()
+    img_nan[W1_NAN_ROWS[0]:W1_NAN_ROWS[1]] = np.nan
+    coeffs = hom._spline5_inputs(img)[0]
+    coeffs_nan, mask = hom._spline5_inputs(img_nan)
+    hv = []
+    for k in range(6):      # output -> source: tile k of 800 px, rotated
+        a = 0.004 * (k - 2.5)
+        hv.append([[np.cos(a), -np.sin(a), 150.0 + 800 * (k % 3)],
+                   [np.sin(a), np.cos(a), 150.0 + 800 * (k // 3)],
+                   [1e-7 * k, -1e-7 * k, 1.0]])
+    dev = 'cuda'
+    hv6 = torch.tensor(np.array(hv, np.float32), device=dev)
+    src = {5: torch.from_numpy(coeffs).to(dev), 3: torch.from_numpy(img)
+           .to(dev), 1: torch.from_numpy(img).to(dev)}
+    src_nan = torch.from_numpy(coeffs_nan).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    oh, ow = W1_OUT
+    H, W = W1_SRC
+    bad6 = {}
+    for k in labels:
+        if hasattr(libs[k], 's2p_warp_dilate'):
+            fn = libs[k].s2p_warp_dilate
+            fn.argtypes = interp._DILATE_ARGS
+            fn.restype = ctypes.c_int
+            bad6[k] = torch.empty((H, W), dtype=torch.uint8, device=dev)
+            if fn(mask.data_ptr(), bad6[k].data_ptr(), H, W, stream):
+                raise RuntimeError(f'{k}: s2p_warp_dilate failed')
+            t = median_ms(lambda: fn(mask.data_ptr(), bad6[k].data_ptr(),
+                                     H, W, stream))
+            print(f'  W1 {k}: mask dilation {H} x {W} {t:.4f} ms (once per '
+                  'source)', flush=True)
+    for lib in list(libs.values()) + list(ablations.values()):
+        lib.s2p_warp.argtypes = interp._WARP_ARGS
+        lib.s2p_warp.restype = ctypes.c_int
+
+    def launcher(lib, k, s, masked, hvs, order, out):
+        m = (bad6[k] if k in bad6 else mask) if masked else None
+        return lambda: lib.s2p_warp(
+            s.data_ptr(), None if m is None else m.data_ptr(),
+            hvs.data_ptr(), out.data_ptr(), len(hvs), H, W, oh, ow, order,
+            stream)
+
+    cases = [(f'order {o}{" masked" if m else ""}, {n}', o, m, hvs)
+             for o, m in ((5, False), (5, True), (3, False), (1, False))
+             for n, hvs in (('group of 6', hv6), ('one warp', hv6[:1]))]
+    for name, order, masked, hvs in cases:
+        s = src_nan if masked else src[order]
+        out = torch.empty((len(hvs), oh, ow), device=dev)
+        ab(f'W1 {name}', labels,
+           lambda k: launcher(libs[k], k, s, masked, hvs, order, out), [out])
+        if order == 5:
+            n_in = int(torch.isfinite(out).sum()) // len(hvs)
+            ops = interp.warp_ops(5, masked, n_in, oh * ow)
+            print(f'  W1 {name} bound: {ops / 33.5e12 * 1e3:.4f} ms a warp '
+                  f'({ops:.4g} operations at 33.5e12/s, {n_in} of '
+                  f'{oh * ow} pixels sampled)', flush=True)
+        if order == 5 and not masked:
+            for label, lib in ablations.items():
+                t = median_ms(launcher(lib, 'ablation', s, False, hvs, 5,
+                                       out))
+                print(f'  W1 {name}, ablation "{label}": {t:.4f} ms',
+                      flush=True)
+    for k, lib in list(libs.items()) + list(ablations.items()):
+        n, ops = sass_counts(lib._name)
+        top = ', '.join(f'{op} {c}' for op, c in
+                        sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+        print(f'  W1 {k}: warp_kernel<5> SASS, {n} instructions other than '
+              f'NOP ({top})', flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--k1', nargs='*')
     ap.add_argument('--k4b', nargs='*')
     ap.add_argument('--k5', nargs='*')
+    ap.add_argument('--w1', nargs='*')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('ab_kernels_torch: CUDA is not available', file=sys.stderr)
@@ -255,19 +443,35 @@ def main():
     out = os.path.join(ROOT, 'out', 'ab_kernels_build')
     runs = (('k1', args.k1, 'cost_prepass.cu', run_k1),
             ('k4b', args.k4b, 'scan_mgm.cu', run_k4b),
-            ('k5', args.k5, 'wta.cu', run_k5))
+            ('k5', args.k5, 'wta.cu', run_k5),
+            ('w1', args.w1, 'warp.cu', run_w1))
     srcs = {}
     for key, old, own, _ in runs:
         if old is not None:
             srcs.update({f'{key}_v{i}': p for i, p in enumerate(old)})
             srcs[f'{key}_new'] = os.path.join(csrc, own)
+    ablations = {}
+    if args.w1 is not None:
+        own = os.path.join(csrc, 'warp.cu')
+        variants = w1_copies(own, out, W1_VARIANTS, 'w1_variant')
+        srcs.update({f'w1_{label.replace(" ", "_")}': p
+                     for label, p in variants.items()})
+        ablations = w1_copies(own, out, W1_ABLATIONS, 'w1_ablation')
+        srcs.update({f'w1ablation_{k}': p
+                     for k, p in enumerate(ablations.values())})
     libs = build(srcs, out)
     for k, p in srcs.items():
         print(f'  {k}: {os.path.relpath(p, ROOT)}', flush=True)
     g = torch.Generator(device='cuda').manual_seed(0)
     for key, old, _, fn in runs:
-        if old is not None:
-            fn({k: v for k, v in libs.items() if k.startswith(key + '_')}, g)
+        if old is None:
+            continue
+        mine = {k: v for k, v in libs.items() if k.startswith(key + '_')}
+        if key == 'w1':
+            fn(mine, {label: libs[f'w1ablation_{k}'] for k, label in
+                      enumerate(ablations)}, g)
+        else:
+            fn(mine, g)
     return 0
 
 
