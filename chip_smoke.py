@@ -109,6 +109,26 @@ the JAX package.  Phases, each timed on a line of its own:
      mask dilated once); then stage 3 again with that NaN band in image 1
      (the path of W1's masked order 5 and of its mask dilation), on the
      card and with device="cpu", the rectified images byte for byte;
+ 8d. (run right after 8b) a triplet through the entry, stages 1 to 7 on
+     the card for two pairs: the scene's two images and a third rendered
+     from image 1 through a third camera with its own pointing error, a
+     config file over the three (an ROI of 2 x 2 tiles of 800 px, the
+     default config with the 3D filter on); each stage's time with stage
+     5's four steps apart (5a height maps, 5b and 5c the pairs' mean
+     heights, 5d fusion and the fused clouds), main's wall time, stage
+     5a's peak device memory and the launches of K1, K2, K3, W1 and the
+     mask dilation over main; each pair's pointing.txt against its
+     rendered error; K1, K2 and K3 against their plain versions on the
+     bucket stage 4 gave them; stages 2 and 3 of pair 2 with
+     device="cpu", their files byte for byte; stage 5a of one tile's
+     two pairs on crops of their rectified maps, card against CPU; 5b-5d
+     with device="cpu" on a copy of the card's 5a output (the mean
+     heights, the despeckled and fused maps and the clouds byte for
+     byte: the despeckling's window ops on the card against the CPU);
+     the two pairs' global mean heights against each other and the
+     scene's altitude, the fused clouds' altitudes, dsm.tif as in 8b;
+     then 5d's parts one tile after another (fusion, the host float64
+     localization, the neighbour counts, the filter and PLY write);
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -152,7 +172,8 @@ the JAX package.  Phases, each timed on a line of its own:
  12. a JSON line with, per kernel and mode, its launches during the run
      that drives its path and the numbers of its comparison at that run's
      shapes: the flow's kernels in the scene through main (8b, its
-     bucket), at stage 4's buckets A and B (5) and at 528 candidates (8);
+     bucket), at stage 4's buckets A and B (5), at 528 candidates (8)
+     and in the triplet through main (8d, its bucket);
      W1 in the scene (8b), its mask dilation in the scene's stage 3 with
      a NaN band (8b); the classic matcher's (6 and 4); the pre-pass
      at a signed base (10 and 9); the WTA's edge modes (10); the folded
@@ -240,6 +261,16 @@ SCENE_DSM_SHARE = 0.8
 # stage 3 of the scene again with a NaN band across image 1 (rows), the
 # path of W1's masked order 5 and of its mask dilation
 SCENE_NAN_ROWS = (1000, 1004)
+# the triplet: the scene's two images and a third seen by camera 3 (its
+# columns moving 0.05 px per metre, a base of 0.15 px/m to camera 1) with
+# its own pointing error, an ROI of 2 x 2 tiles of 800 px, the default
+# config with the 3D filter on (r and n of the stage-5 phase); stage 5a's
+# maps of one tile, card against CPU, on crops of the rectified maps;
+# the two pairs' global mean heights against each other and SCENE_H0 (m)
+TRIPLET = dict(roi=(400, 200, 1600, 1600), h_term=0.005, seed=3,
+               pointing=-0.5)
+TRIPLET_FILTER = (2.5, 8)
+TRIPLET_MEAN_TOL_M = 0.5
 # W1's division by 120 without a division (csrc/warp.cu div120): the
 # mismatches of the correction alone, without its guard, against the IEEE
 # division over all 2^32 float32 inputs, from an exhaustive run in C on
@@ -2015,6 +2046,27 @@ def expected_tiles(out_dir):
             for y in range(ry, ry + rh, t) for x in range(rx, rx + rw, t)]
 
 
+def render_view(img1, cam1, cam, pointing):
+    """Image 1 as camera ``cam`` sees it: at each pixel, the ground point
+    at SCENE_H0 that ``cam`` sees ``pointing`` px above it, as camera 1
+    sees it (the map in float64 on a grid every 16 px, interpolated
+    between; image 1 sampled there by a cubic spline)."""
+    import numpy as np
+    from scipy import ndimage
+
+    h, w = img1.shape
+    step = 16
+    gy, gx = np.mgrid[0:h + step:step, 0:w + step:step].astype(np.float64)
+    lon, lat = cam.localization(gx.ravel(), gy.ravel() - pointing, SCENE_H0)
+    c1, r1 = cam1.projection(lon, lat, SCENE_H0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) / step
+    cmap = ndimage.map_coordinates(c1.reshape(gx.shape), [yy, xx], order=1)
+    rmap = ndimage.map_coordinates(r1.reshape(gx.shape), [yy, xx], order=1)
+    del yy, xx
+    return ndimage.map_coordinates(img1, [rmap, cmap], order=3,
+                                   mode='nearest').astype(np.float32)
+
+
 def render_scene(root):
     """The scene's two images, as GeoTIFFs with their cameras in the RPC
     tag (the port's writer), and its config file (relative paths, the
@@ -2022,10 +2074,10 @@ def render_scene(root):
 
     Image 1 is smooth noise.  Image 2 shows, at each pixel, the ground
     point at SCENE_H0 that camera 2 sees SCENE_POINTING px above it (the
-    pointing error), as camera 1 sees it: the map from image 2 to image 1
-    is computed in float64 on a grid every 16 px and interpolated between
-    (the map is smooth to about 1e-6 px over 16 px), and image 1 is
-    sampled there by a cubic spline."""
+    pointing error), as camera 1 sees it (:func:`render_view`: the map
+    from image 2 to image 1 is computed in float64 on a grid every 16 px
+    and interpolated between, smooth to about 1e-6 px over 16 px, and
+    image 1 is sampled there by a cubic spline)."""
     import numpy as np
     from scipy import ndimage
     from s2p_tpu_torch.geo import geotiff
@@ -2035,17 +2087,7 @@ def render_scene(root):
     rng = np.random.RandomState(SCENE['seed'])
     img1 = ndimage.uniform_filter(rng.rand(h, w).astype(np.float32) * 200,
                                   3)
-    step = 16
-    gy, gx = np.mgrid[0:h + step:step, 0:w + step:step].astype(np.float64)
-    lon, lat = cam2.localization(gx.ravel(), gy.ravel() - SCENE_POINTING,
-                                 SCENE_H0)
-    c1, r1 = cam1.projection(lon, lat, SCENE_H0)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) / step
-    cmap = ndimage.map_coordinates(c1.reshape(gx.shape), [yy, xx], order=1)
-    rmap = ndimage.map_coordinates(r1.reshape(gx.shape), [yy, xx], order=1)
-    del yy, xx
-    img2 = ndimage.map_coordinates(img1, [rmap, cmap], order=3,
-                                   mode='nearest').astype(np.float32)
+    img2 = render_view(img1, cam1, cam2, SCENE_POINTING)
     os.makedirs(root)
     for k, img, cam in ((1, img1, cam1), (2, img2, cam2)):
         geotiff.write(os.path.join(root, f'img_{k}.tif'), img, rpc=cam)
@@ -2387,11 +2429,11 @@ def check_scene_tiling(cfg, tiles):
           'neighbourhoods, as expected', flush=True)
 
 
-def check_scene_dsm(cfg, tiles):
+def check_scene_dsm(cfg, tiles, roi=SCENE['roi']):
     """The scene's dsm.tif: the UTM CRS of the scene's zone, its grid at
     dsm_resolution, nodata NaN; its valid share on the cells whose ground
-    point at SCENE_H0 camera 1 sees inside the ROI (30 px in from its
-    edges); its median |z - SCENE_H0|; and, with tolerance 0, one
+    point at SCENE_H0 camera 1 sees inside the ROI ``roi`` (30 px in from
+    its edges); its median |z - SCENE_H0|; and, with tolerance 0, one
     rasterization of all the tiles' clouds (the seamlessness check)."""
     import numpy as np
     from s2p_tpu_torch.core import rpc_geom
@@ -2402,7 +2444,7 @@ def check_scene_dsm(cfg, tiles):
     prof = geotiff.read_profile(path)
     dsm = geotiff.read_with_nans(path)
     cam = cfg.images[0].rpcm
-    zone = rpc_geom.utm_zone(cam, *SCENE['roi'])
+    zone = rpc_geom.utm_zone(cam, *roi)
     epsg = crs.epsg_code_from_utm_zone(zone)
     r = cfg.dsm_resolution
     a, b, c, d, e, f = prof.transform
@@ -2419,7 +2461,7 @@ def check_scene_dsm(cfg, tiles):
     xs, ys = c + (jj.ravel() + 0.5) * r, f - (ii.ravel() + 0.5) * r
     lon, lat = crs.transform(xs, ys, prof.crs, 4326)
     cols, rows = cam.projection(lon, lat, SCENE_H0)
-    rx, ry, rw, rh = SCENE['roi']
+    rx, ry, rw, rh = roi
     m = 30
     inside = ((cols >= rx + m) & (cols < rx + rw - m) & (rows >= ry + m)
               & (rows < ry + rh - m)).reshape(dsm.shape)
@@ -2449,17 +2491,16 @@ def check_scene_dsm(cfg, tiles):
                              'monolithic rasterization')
 
 
-def check_scene_matching(cfg, tiles, cpu_cfg, cpu_tiles, stats, launches):
-    """Stage 4 of the scene: K1, K2 and K3 against their plain versions on
-    the buckets main gave them (``pipeline.matching_buckets`` over the
-    card's stage-3 files, the config's variant), under the tag ``_scene``;
-    then stage 4 of two tiles with device="cpu" on the CPU tree's stage-3
-    files (equal to the card's): the three files byte for byte."""
+def check_bucket_kernels(cfg, tiles_pairs, stats, launches, tag):
+    """K1, K2 and K3 against their plain versions on the buckets stage 4
+    gave them inside main (``pipeline.matching_buckets`` over the card's
+    stage-3 files of ``tiles_pairs``, the config's variant), under
+    ``tag``; main must have launched K1 once per side of each bucket."""
     from s2p_tpu_torch import pipeline
     from s2p_tpu_torch.core import matching
 
     variant = matching.mgm_variant_from_cfg(cfg)
-    buckets = pipeline.matching_buckets(cfg, [(t, 1) for t in tiles])
+    buckets = pipeline.matching_buckets(cfg, tiles_pairs)
     sides = 2 if variant.lr_enabled else 1
     if launches['cost_prepass'] != sides * len(buckets):
         raise AssertionError(f"main launched K1 {launches['cost_prepass']} "
@@ -2476,9 +2517,20 @@ def check_scene_matching(cfg, tiles, cpu_cfg, cpu_tiles, stats, launches):
               f'{len(group)} tiles: K1, K2 and K3 against their plain '
               'versions', flush=True)
         check_kernels(specs, pairs, stats, dict(n=len(group), h=Hp, w=Wp,
-                                                D=Dp), '_scene', variant)
+                                                D=Dp), tag, variant)
         del specs, pairs
     del buckets
+
+
+def check_scene_matching(cfg, tiles, cpu_cfg, cpu_tiles, stats, launches):
+    """Stage 4 of the scene: K1, K2 and K3 against their plain versions on
+    the buckets main gave them, under the tag ``_scene``; then stage 4 of
+    two tiles with device="cpu" on the CPU tree's stage-3 files (equal to
+    the card's): the three files byte for byte."""
+    from s2p_tpu_torch import pipeline
+
+    check_bucket_kernels(cfg, [(t, 1) for t in tiles], stats, launches,
+                         '_scene')
     t0 = time.perf_counter()
     pipeline.stereo_matching_all(cpu_cfg, [(t, 1) for t in cpu_tiles[:2]],
                                  device='cpu')
@@ -2663,6 +2715,332 @@ def run_scene(root, cpu_root, stats, launches, card):
                            launches)
 
 
+def render_triplet(root, scene_root):
+    """The triplet under ``root``: the scene's two images (copied from
+    ``scene_root``), a third rendered from image 1 through camera 3 with
+    its own pointing error (:func:`render_view`), and a config file over
+    the three (relative paths, TRIPLET's ROI, the default tile size and
+    config, the 3D filter on); returns the config's path."""
+    from s2p_tpu_torch.geo import geotiff
+
+    os.makedirs(root)
+    for k in (1, 2):
+        shutil.copy(os.path.join(scene_root, f'img_{k}.tif'), root)
+    img1 = geotiff.read(os.path.join(root, 'img_1.tif'))
+    cam3 = stage5_camera(TRIPLET['seed'], TRIPLET['h_term'])
+    geotiff.write(os.path.join(root, 'img_3.tif'),
+                  render_view(img1, stage5_camera(1, 0.02), cam3,
+                              TRIPLET['pointing']), rpc=cam3)
+    rx, ry, rw, rh = TRIPLET['roi']
+    path = os.path.join(root, 'config.json')
+    with open(path, 'w') as f:
+        json.dump({'out_dir': 'out',
+                   'images': [{'img': f'img_{k}.tif'} for k in (1, 2, 3)],
+                   'roi': {'x': rx, 'y': ry, 'w': rw, 'h': rh},
+                   'tile_size': SCENE['tile'],
+                   '3d_filtering_r': TRIPLET_FILTER[0],
+                   '3d_filtering_n': TRIPLET_FILTER[1]}, f, indent=2)
+    return path
+
+
+def files_equal(pairs, what):
+    """Each (path, path) byte for byte, else fail with ``what``."""
+    for a, b in pairs:
+        with open(a, 'rb') as f1, open(b, 'rb') as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f'{what}: {a} differs from {b}')
+    return len(pairs)
+
+
+def check_triplet_5a_crops(cfg, tile, root):
+    """Stage 5a of one tile, both pairs, on crops of its rectified maps
+    (S5_CROP at the origin; the tile's grid is kept): the card against
+    device="cpu", the same NaN sets and altitudes within S5_ALT_TOL_M."""
+    import dataclasses
+    import numpy as np
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.geo import geotiff
+
+    h, w = S5_CROP
+    maps = {}
+    for dev in ('cuda', 'cpu'):
+        out = os.path.join(root, dev)
+        tdir = os.path.join(out, 'tile')
+        os.makedirs(tdir)
+        shutil.copy(os.path.join(tile['dir'], 'mask.png'), tdir)
+        for i in (1, 2):
+            shutil.copy(os.path.join(cfg.out_dir,
+                                     f'global_pointing_pair_{i}.txt'), out)
+            src, dst = (os.path.join(d, f'pair_{i}')
+                        for d in (tile['dir'], tdir))
+            os.makedirs(dst)
+            for name in ('H_ref.txt', 'H_sec.txt'):
+                shutil.copy(os.path.join(src, name), dst)
+            geotiff.write(os.path.join(dst, 'rectified_disp.tif'),
+                          np.ascontiguousarray(geotiff.read(os.path.join(
+                              src, 'rectified_disp.tif'))[:h, :w]),
+                          nodata=float('nan'))
+            geotiff.write_png(os.path.join(dst, 'rectified_mask.png'),
+                              np.ascontiguousarray(geotiff.read_png(
+                                  os.path.join(src,
+                                               'rectified_mask.png'))[:h, :w]))
+        t = dict(tile, dir=tdir)
+        pipeline.disparity_to_height_all(
+            dataclasses.replace(cfg, out_dir=out), [(t, 1), (t, 2)],
+            device=dev)
+        maps[dev] = [os.path.join(tdir, f'pair_{i}', 'height_map.tif')
+                     for i in (1, 2)]
+    for i, (a, b) in enumerate(zip(maps['cuda'], maps['cpu'])):
+        x, y = geotiff.read(a), geotiff.read(b)
+        with open(a, 'rb') as f1, open(b, 'rb') as f2:
+            same = f1.read() == f2.read()
+        fin = np.isfinite(x)
+        d = float(np.abs(x[fin] - y[fin]).max()) if fin.any() else 0.0
+        # the resample gives 0 where the tile's grid leaves the crop
+        n = int((fin & (x != 0)).sum())
+        print(f'  stage 5a of {tile_name(tile)} pair {i + 1} on a {S5_CROP} '
+              f'crop: {n} heights from the crop, the card against the CPU: '
+              f'byte for byte {same}, altitudes within {d} m', flush=True)
+        if (not n or not np.array_equal(fin, np.isfinite(y))
+                or d > S5_ALT_TOL_M):
+            raise AssertionError('stage 5a: the crop differs from the CPU '
+                                 'run')
+
+
+def run_triplet(root, scene_root, cpu_root, stats, launches, card):
+    """The triplet through the entry, ``pipeline.main`` of its config file
+    on the card (stages 1 to 7 for two pairs), each stage's time with
+    5a-5d apart, main's wall, stage 5a's peak device memory and the
+    launches of the port's kernels over main; then the checks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline, tiling
+    from s2p_tpu_torch.geo import geotiff, ply
+    from s2p_tpu_torch.ops import interp
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    t0 = time.perf_counter()
+    config = render_triplet(root, scene_root)
+    print(f'  triplet: image 3 rendered and {config} written in '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    # stage 5a's peak memory, and its height maps before 5d despeckles
+    # them, by a wrapper around the driver main calls
+    peak, after_5a = {}, os.path.join(cpu_root, 'after_5a')
+    driver = pipeline.disparity_to_height_all
+
+    def stage_5a(cfg, tiles_pairs, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        driver(cfg, tiles_pairs, **kw)
+        torch.cuda.synchronize()
+        peak['bytes'] = torch.cuda.max_memory_allocated()
+        peak['before'] = before
+        for t, i in tiles_pairs:
+            rel = os.path.relpath(os.path.join(t['dir'], f'pair_{i}'),
+                                  cfg.out_dir)
+            os.makedirs(os.path.join(after_5a, rel))
+            shutil.copy(os.path.join(cfg.out_dir, rel, 'height_map.tif'),
+                        os.path.join(after_5a, rel))
+    sk.reset_launch_counts()
+    interp.reset_launch_counts()
+    stage_times = {}
+    pipeline.disparity_to_height_all = stage_5a
+    try:
+        t0 = time.perf_counter()
+        cfg = pipeline.main(pipeline.read_config_file(config),
+                            stage_times=stage_times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.disparity_to_height_all = driver
+    launches['triplet'] = {**sk.launch_counts(), **interp.launch_counts()}
+    for label, t in stage_times.items():
+        print(f'  triplet {label} {t:.3f} s', flush=True)
+    steps = {k.split(')')[0]: t for k, t in stage_times.items()}
+    print(f"  triplet stage 5: {steps['5']:.3f} s = 5a {steps['5a']:.3f} + "
+          f"5b {steps['5b']:.3f} + 5c {steps['5c']:.3f} + 5d "
+          f"{steps['5d']:.3f} s", flush=True)
+    print(f'  triplet main: {wall:.3f} s of wall time for stages 1 to 7 '
+          f"({sum(t for k, t in steps.items() if len(k) == 1):.3f} s in the "
+          f'stages) on {card}', flush=True)
+    print(f"  triplet stage 5a peak device memory: {peak['bytes']} bytes "
+          f"({peak['bytes'] / 2**20:.1f} MiB; {peak['before'] / 2**20:.1f} "
+          'MiB allocated before it)', flush=True)
+    lt = launches['triplet']
+    print('  triplet launches over main: ' + ', '.join(
+        f'{name} {lt[key]}' for name, key in (
+            ('K1', 'cost_prepass'), ('K2', 'scan'), ('K3', 'wta'),
+            ('W1', 'warp'), ('warp_dilate', 'warp_dilate'))), flush=True)
+    idle = [k for k in ('cost_prepass', 'scan', 'wta', 'warp') if lt[k] == 0]
+    if idle:
+        raise AssertionError(f'the triplet launched no {idle}')
+
+    tw, th = tiling.adjust_tile_size(cfg)
+    tiles = tiling.tiles_full_info(cfg, tw, th,
+                                   os.path.join(cfg.out_dir, 'tiles.txt'))
+    if len(tiles) != 4:
+        raise AssertionError(f'the triplet has {len(tiles)} tiles, not 4')
+    worst = 0.0
+    for i, err in ((1, SCENE_POINTING), (2, TRIPLET['pointing'])):
+        for t in tiles:
+            A = np.loadtxt(os.path.join(t['dir'], f'pair_{i}',
+                                        'pointing.txt'))
+            off = max(abs(A[0, 2]), abs(A[1, 2] + err))
+            worst = max(worst, off)
+            print(f'  triplet stage 1: {tile_name(t)} pair {i}: translation '
+                  f'({A[0, 2]:.3f}, {A[1, 2]:.3f}) px against (0, {-err}): '
+                  f'off by {off:.3f} px', flush=True)
+    if worst > SCENE_POINTING_TOL_PX:
+        raise AssertionError(f'triplet stage 1 misses the rendered pointing '
+                             f'errors by {worst:.3f} px')
+
+    check_bucket_kernels(cfg, [(t, i) for i in (1, 2) for t in tiles], stats,
+                         lt, '_triplet')
+
+    # stages 2 and 3 of pair 2 with device="cpu" on the card's stage-1
+    # files
+    stage23 = os.path.join(cpu_root, 'stage23')
+    shutil.copytree(os.path.join(cfg.out_dir, 'tiles'),
+                    os.path.join(stage23, 'tiles'))
+    cpu_cfg = dataclasses.replace(cfg, out_dir=stage23)
+    cpu_tiles = [moved(t, cfg.out_dir, stage23) for t in tiles]
+    t0 = time.perf_counter()
+    pipeline.global_pointing_correction(cpu_cfg, cpu_tiles)
+    pipeline.rectification_all(cpu_cfg, [(t, 2) for t in cpu_tiles],
+                               device='cpu')
+    print(f'  triplet stages 2 and 3 of pair 2 with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    names = ('H_ref.txt', 'H_sec.txt', 'disp_min_max.txt',
+             'rectified_ref.tif', 'rectified_sec.tif')
+    n = files_equal([(os.path.join(cfg.out_dir, 'global_pointing_pair_2.txt'),
+                      os.path.join(stage23, 'global_pointing_pair_2.txt'))]
+                    + [(os.path.join(a['dir'], 'pair_2', f),
+                        os.path.join(b['dir'], 'pair_2', f))
+                       for a, b in zip(tiles, cpu_tiles) for f in names],
+                    'triplet stage 3')
+    print(f'  triplet pair 2: {n} stage-2 and stage-3 files equal the CPU '
+          'run byte for byte', flush=True)
+    shutil.rmtree(stage23)
+
+    check_triplet_5a_crops(cfg, tiles[0], os.path.join(cpu_root, 'crops'))
+
+    # 5b-5d with device="cpu" on a copy of the card's 5a output
+    rerun = os.path.join(cpu_root, 'rerun')
+    cpu_cfg = dataclasses.replace(cfg, out_dir=rerun)
+    cpu_tiles = [moved(t, cfg.out_dir, rerun) for t in tiles]
+    for a, b in zip(tiles, cpu_tiles):
+        os.makedirs(b['dir'])
+        shutil.copy(os.path.join(a['dir'], 'mask.png'), b['dir'])
+        for i in (1, 2):
+            shutil.copytree(os.path.join(after_5a, os.path.relpath(
+                a['dir'], cfg.out_dir), f'pair_{i}'),
+                os.path.join(b['dir'], f'pair_{i}'))
+    t0 = time.perf_counter()
+    for t in cpu_tiles:
+        pipeline.mean_heights(cpu_cfg, t)
+    pipeline.global_mean_heights(cpu_cfg, cpu_tiles)
+    pipeline.heights_to_ply_all(cpu_cfg, cpu_tiles, device='cpu')
+    print(f'  triplet 5b-5d with device="cpu": {time.perf_counter() - t0:.3f}'
+          ' s', flush=True)
+    names = ('local_mean_heights.txt', 'height_map.tif', 'cloud.ply',
+             'pair_1/height_map.tif', 'pair_2/height_map.tif')
+    n = files_equal([(os.path.join(cfg.out_dir, f'global_mean_height_pair_'
+                                   f'{i}.txt'),
+                      os.path.join(rerun, f'global_mean_height_pair_{i}.txt'))
+                     for i in (1, 2)]
+                    + [(os.path.join(a['dir'], f), os.path.join(b['dir'], f))
+                       for a, b in zip(tiles, cpu_tiles) for f in names],
+                    'triplet 5b-5d')
+    print(f'  triplet 5b-5d: {n} files (local and global mean heights, the '
+          'despeckled and fused height maps, the clouds) equal the CPU run '
+          'byte for byte', flush=True)
+
+    means = [float(np.loadtxt(os.path.join(
+        cfg.out_dir, f'global_mean_height_pair_{i}.txt'))) for i in (1, 2)]
+    print(f'  triplet global mean heights: pair 1 {means[0]:.4f} m, pair 2 '
+          f'{means[1]:.4f} m (SCENE_H0 {SCENE_H0}, tolerance '
+          f'{TRIPLET_MEAN_TOL_M} m)', flush=True)
+    if (abs(means[0] - means[1]) > TRIPLET_MEAN_TOL_M
+            or max(abs(m - SCENE_H0) for m in means) > TRIPLET_MEAN_TOL_M):
+        raise AssertionError('triplet: the pairs\' mean heights miss the '
+                             'scene')
+    alts, finite = [], []
+    for t in tiles:
+        pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
+        alts.append(np.abs(pts[:, 2] - SCENE_H0))
+        fused = geotiff.read(os.path.join(t['dir'], 'height_map.tif'))
+        finite.append(float(np.isfinite(fused).mean()))
+    err = np.concatenate(alts)
+    med, p90 = float(np.median(err)), float(np.percentile(err, 90))
+    print(f'  triplet fused maps: finite share per tile {finite}; clouds: '
+          f'{len(err)} points, |altitude - {SCENE_H0}| median {med:.3f} m, '
+          f'90th percentile {p90:.3f} m (tolerances {SCENE_ALT_TOL_M})',
+          flush=True)
+    if med > SCENE_ALT_TOL_M[0] or p90 > SCENE_ALT_TOL_M[1]:
+        raise AssertionError('triplet: the fused cloud misses the altitude '
+                             'of the scene')
+    check_scene_dsm(cfg, tiles, TRIPLET['roi'])
+
+    triplet_5d_parts(cfg, tiles, after_5a, os.path.join(cpu_root, 'parts'),
+                     steps['5d'])
+
+
+def triplet_5d_parts(cfg, tiles, after_5a, root, t_5d):
+    """Stage 5d's parts on the card, one tile after another, on a copy of
+    the card's 5a output: the fusion (despeckling and merge), the host
+    float64 localization of the fused maps (``height_map_to_xyz``), the
+    neighbour counts of all tiles as one batch, and the filter with the
+    PLY write; each part's seconds against 5d's wall inside main (which
+    ran the tiles on a thread pool)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import triangulation
+    from s2p_tpu_torch.geo import crs, geotiff
+    from s2p_tpu_torch.ops.filtering import count_3d_neighbors_batch
+
+    pcfg = dataclasses.replace(cfg, out_dir=root)
+    ptiles = [moved(t, cfg.out_dir, root) for t in tiles]
+    for a, b in zip(tiles, ptiles):
+        shutil.copytree(os.path.join(after_5a, os.path.relpath(
+            a['dir'], cfg.out_dir)), b['dir'])
+    for i in (1, 2):
+        shutil.copy(os.path.join(cfg.out_dir,
+                                 f'global_mean_height_pair_{i}.txt'), root)
+    parts = dict.fromkeys(('fusion', 'localization', 'count', 'finish'),
+                          0.0)
+    xyzs, heights = [], 0
+    for t in ptiles:
+        t0 = time.perf_counter()
+        pipeline.heights_fusion(pcfg, t)
+        torch.cuda.synchronize()
+        parts['fusion'] += time.perf_counter() - t0
+        x, y, _, _ = t['coordinates']
+        hmap = geotiff.read(os.path.join(t['dir'], 'height_map.tif'))
+        heights += int(np.isfinite(hmap).sum())
+        t0 = time.perf_counter()
+        xyzs.append(triangulation.height_map_to_xyz(
+            hmap, cfg.images[0].rpcm, x, y, crs.CRS(cfg.out_crs)))
+        parts['localization'] += time.perf_counter() - t0
+    p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+    t0 = time.perf_counter()
+    counts = count_3d_neighbors_batch(xyzs, cfg.filtering_3d_r, p)
+    torch.cuda.synchronize()
+    parts['count'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t, xyz, cnt in zip(ptiles, xyzs, counts):
+        pipeline._heights_tile_finish(pcfg, t, xyz, None, cnt)
+    parts['finish'] = time.perf_counter() - t0
+    for name, t in parts.items():
+        print(f'  triplet 5d part, one tile after another: {name}: {t:.3f} s'
+              f' ({t / t_5d:.3f} of 5d in main)', flush=True)
+    print(f"  triplet 5d: height_map_to_xyz localized {heights} heights "
+          f"(host float64) in {parts['localization']:.3f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2785,6 +3163,12 @@ def main():
                    'to 7)'):
             run_scene(os.path.join(tmp, 'scene'),
                       os.path.join(tmp, 'scene_cpu'), stats, launches, card)
+        with phase('a triplet through pipeline.main on the card (stages 1 '
+                   'to 7, two pairs)'):
+            run_triplet(os.path.join(tmp, 'triplet'),
+                        os.path.join(tmp, 'scene'),
+                        os.path.join(tmp, 'triplet_cpu'), stats, launches,
+                        card)
         with phase('a tile mask from GML rings (host)'):
             time_gml_mask(tmp)
     finally:
@@ -2832,11 +3216,12 @@ def main():
             'scan': (f'{csrc}/scan.cu', f'{pallas}:81'),
             'wta': (f'{csrc}/wta.cu', f'{pallas}:358')}
     table = {}
-    # the scene through main (its bucket), then stage 4's buckets A and B
-    # and the tile at 528 candidates
+    # the scene through main (its bucket), then stage 4's buckets A and B,
+    # the tile at 528 candidates and the triplet through main
     for suffix, run, tag in (('', 'scene', '_scene'), ('_a', 'flow_a', '_a'),
                              ('_b', 'flow_b', '_b'),
-                             ('_d528', 'wide', '_d528')):
+                             ('_d528', 'wide', '_d528'),
+                             ('_triplet', 'triplet', '_triplet')):
         for kern, (src, replaces) in flow.items():
             table[kern + suffix] = (src, replaces, run, kern, kern + tag)
     table.update({

@@ -1,7 +1,10 @@
 """Disparity-to-3D triangulation on the device.
 
-The port's counterpart of ``s2p_tpu/core/triangulation.py`` (stage 5 of
-the pair pipeline).  The per-pixel chain
+The port's counterpart of ``s2p_tpu/core/triangulation.py``: stage 5 of
+the pair pipeline, the height maps of the triplet's stage 5a
+(:func:`height_map_job`, :func:`height_map_resample`, :func:`height_map`)
+and the localization of its fused height maps in stage 5d
+(:func:`height_map_to_xyz`, host float64).  The per-pixel chain
 
     rectified pixel --H1^-1--> full-image pixel --+disparity, H2^-1-->
     secondary pixel --two-ray altitude solve--> (lon, lat, alt) + error
@@ -273,3 +276,109 @@ def disp_to_xyz_batch(jobs, out_crs=None, device=None):
             results[idx] = _post_triangulation(
                 tuple(o[k] for o in outs), preps[idx][1], out_crs)
     return results
+
+
+def stereo_corresp_to_xyz(rpc1, rpc2, pts1, pts2, out_crs=None, device=None):
+    """Triangulate explicit correspondences: (n, 2) pixels ``pts1`` of
+    image 1 and ``pts2`` of image 2.  Returns (xyz (n, 3) in ``out_crs``,
+    lon/lat/alt when None; err (n,) float32, the two-ray reprojection
+    distance in pixels).  The pixels are recentred on the mean of
+    ``pts1`` in float64 and solved in float32 on ``device`` (None: CUDA,
+    raising without it)."""
+    dev = resolve(device)
+    pts1 = np.asarray(pts1, dtype=np.float64)
+    pts2 = np.asarray(pts2, dtype=np.float64)
+    cx = pts1[:, 0].mean()
+    cy = pts1[:, 1].mean()
+    lon0, lat0 = rpc1.lon_offset, rpc1.lat_offset
+    r1 = params_to_torch([_recenter_params(rpc1.params(), cx, cy, lon0,
+                                           lat0)], dev)
+    r2 = params_to_torch([_recenter_params(rpc2.params(), cx, cy, lon0,
+                                           lat0)], dev)
+
+    def coord(v):
+        return torch.as_tensor(v.astype(np.float32), device=dev)
+    xa, ya = coord(pts1[:, 0] - cx), coord(pts1[:, 1] - cy)
+    xb, yb = coord(pts2[:, 0] - cx), coord(pts2[:, 1] - cy)
+    alt, err = triangulate_height(r1, r2, xa, ya, xb, yb)
+    lon, lat = localize(r1, xa, ya, alt)
+    lon = lon.cpu().numpy().astype(np.float64) + lon0
+    lat = lat.cpu().numpy().astype(np.float64) + lat0
+    alt = alt.cpu().numpy().astype(np.float64)
+    err = err.cpu().numpy()
+    if out_crs is not None and crsmod.CRS(out_crs) != crsmod.CRS(4979):
+        x, y, z = crsmod.transform(lon, lat, 4979, out_crs, alt)
+        return np.column_stack([x, y, z]), err
+    return np.column_stack([lon, lat, alt]), err
+
+
+def height_map_to_xyz(heights, rpc, off_x=0, off_y=0, out_crs=None):
+    """Localize a height map sampled on the original image grid, pixel
+    (i, j) at image column j + off_x and row i + off_y: every finite
+    height through ``rpc.localization`` on the host in float64, then the
+    conversion to ``out_crs``.  Returns (h, w, 3) float64."""
+    h_map = np.asarray(heights, dtype=np.float64)
+    h, w = h_map.shape
+    rows, cols = np.mgrid[0:h, 0:w]
+    lon = np.full_like(h_map, np.nan)
+    lat = np.full_like(h_map, np.nan)
+    m = np.isfinite(h_map)
+    if m.any():
+        lo, la = rpc.localization(cols[m] + off_x, rows[m] + off_y, h_map[m])
+        lon[m] = lo
+        lat[m] = la
+    if out_crs is not None and crsmod.CRS(out_crs) != crsmod.CRS(4979):
+        x, y, z = crsmod.transform(lon.ravel(), lat.ravel(), 4979,
+                                   out_crs, h_map.ravel())
+        return np.stack([x.reshape(h, w), y.reshape(h, w), z.reshape(h, w)],
+                        -1)
+    return np.stack([lon, lat, h_map], axis=-1)
+
+
+def height_map_resample(hmap, x, y, w, h, H1):
+    """Resample a rectified-frame altitude grid onto the w x h grid of the
+    reference image whose origin is (x, y) (scipy, host): bilinear on the
+    NaN-zeroed map, NaN where the nearest source pixel's 3 x 3
+    neighbourhood holds a NaN."""
+    from scipy import ndimage
+
+    T = np.array([[1, 0, x], [0, 1, y], [0, 0, 1]], dtype=np.float64)
+    H = np.asarray(H1, dtype=np.float64) @ T
+    out = ndimage.affine_transform(np.nan_to_num(hmap).T, H,
+                                   output_shape=(w, h), order=1).T
+    if np.isnan(hmap).any():
+        i = ndimage.affine_transform(np.isnan(hmap).T, H,
+                                     output_shape=(w, h), order=0).T
+        i = ndimage.binary_dilation(i, structure=np.ones((3, 3)))
+        out[i] = np.nan
+    return out
+
+
+def height_map_job(x, y, w, h, rpc1, rpc2, H1, H2, disp, mask, mask_orig,
+                   A=None):
+    """The :func:`disp_to_xyz` job of one height-map tile (shared by the
+    single-tile and batched stage-5a drivers): the tile's box and its
+    original mask padded by 1 px, which keeps the resample free of border
+    effects."""
+    p = 1
+    return dict(rpc1=rpc1, rpc2=rpc2, H1=H1, H2=H2, disp=disp,
+                mask_rect=mask,
+                img_bbx=(x - p, x + w + 2 * p, y - p, y + h + 2 * p),
+                mask_orig=np.pad(np.asarray(mask_orig), p,
+                                 constant_values=1),
+                A=A)
+
+
+def height_map(x, y, w, h, rpc1, rpc2, H1, H2, disp, mask, mask_orig, A=None,
+               device=None):
+    """Altitude map of one tile pair resampled onto the reference image's
+    grid: :func:`disp_to_xyz` in lon/lat/alt on ``device`` (None: CUDA,
+    raising without it), then :func:`height_map_resample` of the
+    altitudes."""
+    j = height_map_job(x, y, w, h, rpc1, rpc2, H1, H2, disp, mask,
+                       mask_orig, A)
+    xyz, _ = disp_to_xyz(j['rpc1'], j['rpc2'], j['H1'], j['H2'], j['disp'],
+                         j['mask_rect'], img_bbx=j['img_bbx'],
+                         mask_orig=j['mask_orig'], A=j['A'], out_crs=None,
+                         device=device)
+    return height_map_resample(xyz[:, :, 2], x, y, w, h, H1)

@@ -1,29 +1,38 @@
-"""The pipeline of the port: stages 1 to 7 of a pair scene and the entry
-that runs them from a config, :func:`main`.
+"""The pipeline of the port: stages 1 to 7 of a scene of two images (a
+pair) or more (a triplet, or any n), and the entry that runs them from a
+config, :func:`main`.
 
 Counterparts of ``main``, ``build_cfg``, ``pointing_correction_all``,
 ``global_pointing_correction``, ``rectification_all``,
-``stereo_matching_all``, ``disparity_to_ply_all``, ``plys_to_dsm`` and
+``stereo_matching_all``, ``disparity_to_ply_all``,
+``disparity_to_height_all``, ``mean_heights``, ``global_mean_heights``,
+``heights_fusion``, ``heights_to_ply_all``, ``plys_to_dsm`` and
 ``global_dsm`` in ``s2p_tpu/pipeline.py``.  The per-tile file contract is
 the JAX package's, so either package can run a stage on the other's
 files: :func:`main` writes the scene's ``config.json`` and ``tiles.txt``
 and, through :mod:`s2p_tpu_torch.tiling`, each tile's directory,
 ``config.json`` and ``mask.png``; stage 1 writes ``pointing.txt``,
 ``center_keypts_sec.txt`` and ``sift_matches.txt`` in each
-``<tile>/pair_<i>/``; stage 2 writes the scene's
-``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
+``<tile>/pair_<i>/`` (one per secondary image i); stage 2 writes the
+scene's ``global_pointing_pair_<i>.txt``; stage 3 writes ``H_ref.txt``,
 ``H_sec.txt``, ``disp_min_max.txt``, ``rectified_ref.tif`` and
 ``rectified_sec.tif``; stage 4 writes ``rectified_disp.tif``,
-``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them;
-stage 5 reads those with the homographies, the tile's ``mask.png`` and
-the scene's ``global_pointing_pair_1.txt`` and writes the tile's
-``cloud.ply``; stage 6 rasterizes each tile's cloud with its
-neighbours' into the tile's ``dsm.tif`` and ``confidence.tif``, and
+``rectified_mask.png`` and ``rectified_disp_confidence.tif`` beside them.
+With two images, stage 5 reads those with the homographies, the tile's
+``mask.png`` and the scene's ``global_pointing_pair_1.txt`` and writes the
+tile's ``cloud.ply``.  With more, stage 5 runs in four steps: 5a
+triangulates each pair into ``pair_<i>/height_map.tif`` on the reference
+image's grid, 5b writes each tile's ``local_mean_heights.txt``, 5c the
+scene's ``global_mean_height_pair_<i>.txt``, and 5d despeckles the pairs'
+maps, fuses them into the tile's ``height_map.tif`` and localizes that
+into the tile's ``cloud.ply``.  Stage 6 rasterizes each tile's cloud with
+its neighbours' into the tile's ``dsm.tif`` and ``confidence.tif``, and
 stage 7 mosaics those into the scene's.
 
-Stages 1, 3, 4 and 5 run on the device that :func:`main` resolves once
-(CUDA unless the caller names the CPU); stages 2, 6 and 7 are host numpy,
-as in the JAX package.
+Stages 1, 3, 4 and 5 (5a's triangulation, 5d's despeckling windows and
+neighbour counts) run on the device that :func:`main` resolves once (CUDA
+unless the caller names the CPU); stages 2, 6 and 7, 5b, 5c and the rest
+of 5d are host numpy and scipy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,8 +48,8 @@ import numpy as np
 
 from . import runner, tiling
 from .config import Config, ImageSpec, read_config_file  # noqa: F401 (API)
-from .core import (masking, matching, pointing, rectification, rpc_geom,
-                   triangulation)
+from .core import (fusion, masking, matching, pointing, rectification,
+                   rpc_geom, triangulation)
 from .device import resolve
 from .geo import crs as crsmod
 from .geo import geotiff
@@ -50,6 +59,7 @@ from .ops import rasterize
 from .ops.filtering import count_3d_neighbors_batch, filter_xyz
 from .ops.homography import warp_jobs_batched
 from .ops.mgm_flow import mgm_binary_match_batch
+from .ops.morphology import despeckle_height_map
 from .ops import sift as sift_ops
 
 
@@ -547,6 +557,234 @@ def _write_tile_cloud(path, xyz, colors, proj_com, confidence=None):
 
 
 # --------------------------------------------------------------------- #
+# Stage 5, three or more images: height maps, offsets, fusion, clouds
+# --------------------------------------------------------------------- #
+
+def disparity_to_height(cfg: Config, tile, i, device=None):
+    """Stage 5a for one tile pair: the pair's altitudes on the reference
+    image's grid (:func:`s2p_tpu_torch.core.triangulation.height_map` on
+    ``device``), written to ``pair_<i>/height_map.tif``."""
+    out_dir = os.path.join(tile['dir'], f'pair_{i}')
+    x, y, w, h = tile['coordinates']
+    rpc1, rpc2 = cfg.images[0].rpcm, cfg.images[i].rpcm
+    H_ref = np.loadtxt(os.path.join(out_dir, 'H_ref.txt'))
+    H_sec = np.loadtxt(os.path.join(out_dir, 'H_sec.txt'))
+    disp = geotiff.read(os.path.join(out_dir, 'rectified_disp.tif'))
+    mask_rect = geotiff.read_png(os.path.join(out_dir, 'rectified_mask.png'))
+    mask_orig = geotiff.read_png(os.path.join(tile['dir'], 'mask.png'))
+    pointing_file = os.path.join(cfg.out_dir, f'global_pointing_pair_{i}.txt')
+
+    hmap = triangulation.height_map(x, y, w, h, rpc1, rpc2, H_ref, H_sec,
+                                    disp, mask_rect, mask_orig,
+                                    A=np.loadtxt(pointing_file),
+                                    device=device)
+    geotiff.write(os.path.join(out_dir, 'height_map.tif'),
+                  hmap.astype(np.float32), nodata=float('nan'))
+    if cfg.clean_intermediate:
+        _clean_after_height_map(out_dir)
+
+
+def _clean_after_height_map(out_dir):
+    """A pair's homographies and stage-4 maps are dead once its height map
+    is written."""
+    _remove(os.path.join(out_dir, 'H_ref.txt'),
+            os.path.join(out_dir, 'H_sec.txt'),
+            os.path.join(out_dir, 'rectified_disp.tif'),
+            os.path.join(out_dir, 'rectified_mask.png'))
+
+
+def disparity_to_height_all(cfg: Config, tiles_pairs, timeout=600,
+                            nb_workers=None, device=None):
+    """Stage 5a for every (tile, pair index) in ``tiles_pairs``: every
+    tile pair triangulates in one batch per shape bucket on the device
+    (:func:`s2p_tpu_torch.core.triangulation.disp_to_xyz_batch`, lon/lat/
+    alt), then each pair's altitudes are resampled onto the reference
+    image's grid and written (scipy, host) on :func:`runner.launch_calls`
+    with ``nb_workers`` threads, ``timeout`` seconds for each from its own
+    start.  A tile pair whose stage-4 files are missing is skipped.
+    ``device`` None runs on CUDA and raises without it; "cpu" runs
+    there."""
+    dev = resolve(device)
+    jobs, live = [], []
+    for tile, i in tiles_pairs:
+        out_dir = os.path.join(tile['dir'], f'pair_{i}')
+        x, y, w, h = tile['coordinates']
+        try:
+            job = triangulation.height_map_job(
+                x, y, w, h, cfg.images[0].rpcm, cfg.images[i].rpcm,
+                np.loadtxt(os.path.join(out_dir, 'H_ref.txt')),
+                np.loadtxt(os.path.join(out_dir, 'H_sec.txt')),
+                geotiff.read(os.path.join(out_dir, 'rectified_disp.tif')),
+                geotiff.read_png(os.path.join(out_dir,
+                                              'rectified_mask.png')),
+                geotiff.read_png(os.path.join(tile['dir'], 'mask.png')),
+                A=np.loadtxt(os.path.join(
+                    cfg.out_dir, f'global_pointing_pair_{i}.txt')))
+        except (OSError, ValueError):
+            continue     # missing tile outputs tolerated
+        jobs.append(job)
+        live.append((tile, i))
+    if not jobs:
+        return
+    results = triangulation.disp_to_xyz_batch(jobs, out_crs=None, device=dev)
+
+    def finish(item, res):
+        (tile, i), job = item
+        xyz, _ = res
+        x, y, w, h = tile['coordinates']
+        hmap = triangulation.height_map_resample(xyz[:, :, 2], x, y, w, h,
+                                                 job['H1'])
+        geotiff.write(os.path.join(tile['dir'], f'pair_{i}',
+                                   'height_map.tif'),
+                      hmap.astype(np.float32), nodata=float('nan'))
+        if cfg.clean_intermediate:
+            _clean_after_height_map(os.path.join(tile['dir'], f'pair_{i}'))
+
+    runner.launch_calls(finish, list(zip(zip(live, jobs), results)),
+                        nb_workers, tilewise=False, timeout=timeout)
+
+
+def mean_heights(cfg: Config, tile):
+    """Stage 5b for one tile: the mean of each pair's height map over the
+    pixels where every pair has a height, in float64, written to the
+    tile's ``local_mean_heights.txt`` (NaN where there are none)."""
+    w, h = tile['coordinates'][2:]
+    n = len(cfg.images) - 1
+    maps = np.full((h, w, n), np.nan)
+    for i in range(n):
+        p = os.path.join(tile['dir'], f'pair_{i + 1}', 'height_map.tif')
+        if os.path.exists(p):
+            maps[:, :, i] = geotiff.read(p)
+    validity = maps.sum(axis=2)               # nan propagates
+    validity += 1 - validity                  # 1 on valid, nan on invalid
+    np.savetxt(os.path.join(tile['dir'], 'local_mean_heights.txt'),
+               [np.nanmean(validity * maps[:, :, i]) for i in range(n)])
+
+
+def global_mean_heights(cfg: Config, tiles):
+    """Stage 5c: each pair's mean over the tiles' local means, written to
+    the scene's ``global_mean_height_pair_<i>.txt``."""
+    locals_ = [np.loadtxt(os.path.join(t['dir'], 'local_mean_heights.txt'))
+               for t in tiles]
+    g = np.nanmean(np.atleast_2d(locals_), axis=0)
+    for i in range(len(cfg.images) - 1):
+        np.savetxt(os.path.join(cfg.out_dir,
+                                f'global_mean_height_pair_{i + 1}.txt'),
+                   [np.atleast_1d(g)[i]])
+
+
+def heights_fusion(cfg: Config, tile, device=None):
+    """Stage 5d's fusion for one tile: each pair's height map despeckled
+    (``cargarse_basura``; its window ops on ``device``, None: CUDA,
+    raising without it) and written back, then all merged with the
+    pairs' global mean offsets (``fusion_operator``, ``fusion_thresh``)
+    into the tile's ``height_map.tif``.  Under ``debug`` each pair's map
+    registered to the mean offset is saved beside it."""
+    dev = resolve(device)
+    tile_dir = tile['dir']
+    n = len(cfg.images) - 1
+    paths = [os.path.join(tile_dir, f'pair_{i + 1}', 'height_map.tif')
+             for i in range(n)]
+    maps = []
+    for p in paths:
+        hm = geotiff.read(p)
+        if cfg.cargarse_basura:
+            hm = despeckle_height_map(hm, device=dev)
+            geotiff.write(p, hm.astype(np.float32), nodata=float('nan'))
+        maps.append(hm)
+    offsets = [float(np.loadtxt(os.path.join(
+        cfg.out_dir, f'global_mean_height_pair_{i + 1}.txt')))
+        for i in range(n)]
+    if cfg.debug:
+        mean_off = float(np.mean(offsets))
+        for p, hm, off in zip(paths, maps, offsets):
+            geotiff.write(p[:-len('.tif')] + '_registered.tif',
+                          (hm - off + mean_off).astype(np.float32),
+                          nodata=float('nan'))
+    merged = fusion.merge_n_arrays(maps, offsets, cfg.fusion_operator,
+                                   cfg.fusion_thresh)
+    geotiff.write(os.path.join(tile_dir, 'height_map.tif'),
+                  merged.astype(np.float32), nodata=float('nan'))
+    if cfg.clean_intermediate:
+        _remove(*paths)
+
+
+def _heights_tile_xyz(cfg: Config, tile, device=None):
+    """Stage 5d's first half for one tile: :func:`heights_fusion`, the
+    colours (the ``clr`` image's window used raw, else the 8-bit
+    stretched crop of the reference image) and the fused map localized on
+    the host in float64 into ``out_crs``.  Returns (xyz, colours)."""
+    heights_fusion(cfg, tile, device)
+    out_dir = tile['dir']
+    x, y, w, h = tile['coordinates']
+    hmap = geotiff.read(os.path.join(out_dir, 'height_map.tif'))
+
+    if cfg.images[0].clr:
+        colors = geotiff.read(cfg.images[0].clr, window=(x, y, w, h))
+        colors = colors[None] if colors.ndim == 2 \
+            else np.moveaxis(colors, 2, 0)
+    else:
+        img = _image(cfg.images[0].img)[y:y + h, x:x + w]
+        colors = linear_stretching_and_quantization_8bit(img)[None]
+
+    xyz = triangulation.height_map_to_xyz(hmap, cfg.images[0].rpcm, x, y,
+                                          crsmod.CRS(cfg.out_crs))
+    return xyz, colors
+
+
+def _heights_tile_finish(cfg: Config, tile, xyz, colors, count=None):
+    """Stage 5d's tail for one tile: 3D filter, ``cloud.ply``, clean-up."""
+    out_dir = tile['dir']
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        filter_xyz(xyz, cfg.filtering_3d_r, cfg.filtering_3d_n, cfg.gsd,
+                   count=count)
+    _write_tile_cloud(os.path.join(out_dir, 'cloud.ply'), xyz, colors,
+                      'CRS {}'.format(cfg.out_crs))
+    if cfg.clean_intermediate:
+        _remove(os.path.join(out_dir, 'height_map.tif'),
+                os.path.join(out_dir, 'mask.png'))
+
+
+def heights_to_ply(cfg: Config, tile, device=None):
+    """Stage 5d for one tile: fusion, localization, 3D filter (its
+    neighbour count on ``device``) and ``cloud.ply``."""
+    dev = resolve(device)
+    xyz, colors = _heights_tile_xyz(cfg, tile, dev)
+    count = None
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+        count, = count_3d_neighbors_batch([xyz], cfg.filtering_3d_r, p, dev)
+    _heights_tile_finish(cfg, tile, xyz, colors, count)
+
+
+def heights_to_ply_all(cfg: Config, tiles, timeout=600, nb_workers=None,
+                       device=None):
+    """Stage 5d for every tile: fusion, colours and localization per tile
+    on :func:`runner.launch_calls` (``nb_workers`` threads, the first tile
+    alone and without a deadline, the others ``timeout`` seconds each),
+    the 3D filter's neighbour counts of all tiles as one batch on the
+    device, then the filter and ``cloud.ply`` per tile on the thread
+    pool.  ``device`` None runs on CUDA and raises without it; "cpu" runs
+    there."""
+    dev = resolve(device)
+    if not tiles:
+        return
+    prepped = runner.launch_calls(
+        lambda t: _heights_tile_xyz(cfg, t, dev), tiles, nb_workers,
+        timeout=timeout, debug=cfg.debug, warmup_first=True)
+    counts = [None] * len(tiles)
+    if cfg.filtering_3d_r and cfg.filtering_3d_n:
+        p = int(np.ceil(cfg.filtering_3d_r / cfg.gsd))
+        counts = count_3d_neighbors_batch([x for x, _ in prepped],
+                                          cfg.filtering_3d_r, p, dev)
+    runner.launch_calls(
+        lambda t, xc, cnt: _heights_tile_finish(cfg, t, xc[0], xc[1],
+                                                count=cnt),
+        list(zip(tiles, prepped, counts)), nb_workers, tilewise=False,
+        timeout=timeout)
+
+
+# --------------------------------------------------------------------- #
 # Stages 6 and 7: rasterization and mosaic (host numpy)
 # --------------------------------------------------------------------- #
 
@@ -749,6 +987,20 @@ def _stage(label, times):
         print('elapsed time: {:.3f} s'.format(times[label]))
 
 
+@contextlib.contextmanager
+def _step(label, times, show=True):
+    """A step inside a stage: its label printed (unless ``show`` is
+    false) and its seconds kept in ``times[label]``, with no elapsed-time
+    line, so that the stage's output stays the JAX package's."""
+    if show:
+        print(label)
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        times[label] = time.time() - t0
+
+
 # first per-tile input file each resumable stage reads; resuming a stage
 # whose inputs were swept by ``clean_intermediate`` must fail loudly, not
 # recompute on garbage.  Only the TOTAL absence of the file across tiles
@@ -778,11 +1030,6 @@ def _check_resume_inputs(start_from, tiles_pairs):
 
 def _check_supported(cfg: Config, start_from):
     """Refuse, before any file is written, a run the port cannot finish."""
-    if len(cfg.images) > 2:
-        raise NotImplementedError(
-            f'{len(cfg.images)} images: the multi-pair mode (height maps, '
-            'offsets and fusion in stage 5) is not ported yet (ROADMAP '
-            'M10); the port runs pairs')
     if start_from <= 1:
         _check_sift_device(cfg)
     if start_from <= 4:
@@ -790,19 +1037,29 @@ def _check_supported(cfg: Config, start_from):
 
 
 def main(user_cfg, start_from=0, device=None, stage_times=None):
-    """Run a pair scene from ``user_cfg`` (the s2p JSON schema as a dict,
-    e.g. from :func:`read_config_file`) through stages 1 to 7, from stage
+    """Run a scene from ``user_cfg`` (the s2p JSON schema as a dict, e.g.
+    from :func:`read_config_file`) through stages 1 to 7, from stage
     ``start_from`` on (the earlier stages' files must be there), and
     return the built :class:`Config`.
+
+    With two images stage 5 triangulates each tile into its
+    ``cloud.ply``.  With three or more (the triplet), stages 1-4 run for
+    every pair (reference image, image i) and stage 5 runs in four steps:
+    5a writes each pair's ``pair_<i>/height_map.tif``, 5b each tile's
+    ``local_mean_heights.txt``, 5c the scene's
+    ``global_mean_height_pair_<i>.txt``, and 5d each tile's fused
+    ``height_map.tif`` and ``cloud.ply`` (the file set is the JAX
+    package's, with and without ``clean_intermediate``).
 
     ``device`` is resolved once (None: CUDA, raising without it; "cpu":
     the kernels' plain versions) and passed to every stage that runs on a
     device.  The port runs in one process: the JAX package's multi-process
     hooks (``parallel/distributed``) and its JAX runtime set-up have no
-    counterpart here (ROADMAP M11).  Three or more images, SIFT's host
-    route and any matcher but ``mgm`` raise NotImplementedError before
-    anything is written.  A dict passed as ``stage_times`` receives each
-    stage's elapsed seconds under its banner."""
+    counterpart here (ROADMAP M11).  SIFT's host route and any matcher
+    but ``mgm`` raise NotImplementedError before anything is written.  A
+    dict passed as ``stage_times`` receives each stage's elapsed seconds
+    under its banner and, for a triplet, each of 5a-5d's under its own
+    label."""
     dev = resolve(device)
     cfg = build_cfg(user_cfg)
     _check_supported(cfg, start_from)
@@ -857,9 +1114,31 @@ def main(user_cfg, start_from=0, device=None, stage_times=None):
             stereo_matching_all(cfg, tiles_pairs, timeout=cfg.mgm_timeout,
                                 device=dev)
     if start_from <= 5:
-        with _stage('5) triangulating tiles...', times):
-            disparity_to_ply_all(cfg, tiles, timeout=timeout,
-                                 nb_workers=nb_workers, device=dev)
+        if n > 2:
+            with _stage('5) height maps, offsets, fusion, point clouds...',
+                        times):
+                # 5a prints no label of its own, as in the JAX package
+                with _step('5a) height maps...', times, show=False):
+                    disparity_to_height_all(cfg, tiles_pairs,
+                                            timeout=timeout,
+                                            nb_workers=nb_workers,
+                                            device=dev)
+                with _step('5b) computing local pairwise height offsets...',
+                           times):
+                    runner.launch_calls(functools.partial(mean_heights, cfg),
+                                        tiles, nb_workers, timeout=timeout,
+                                        debug=cfg.debug)
+                with _step('5c) computing global pairwise height '
+                           'offsets...', times):
+                    global_mean_heights(cfg, tiles)
+                with _step('5d) merging height maps and computing point '
+                           'clouds...', times):
+                    heights_to_ply_all(cfg, tiles, timeout=timeout,
+                                       nb_workers=nb_workers, device=dev)
+        else:
+            with _stage('5) triangulating tiles...', times):
+                disparity_to_ply_all(cfg, tiles, timeout=timeout,
+                                     nb_workers=nb_workers, device=dev)
     if start_from <= 6:
         with _stage('6) computing DSM by tile...', times):
             runner.launch_calls(functools.partial(plys_to_dsm, cfg), tiles,

@@ -76,7 +76,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s2p_tpu_torch import device, pipeline
     from s2p_tpu_torch.config import Config
     from s2p_tpu_torch.core.matching import compute_disparity_map
-    from s2p_tpu_torch.ops import homography, sift, sift_device
+    from s2p_tpu_torch.ops import homography, morphology, sift, sift_device
     from s2p_tpu_torch.ops.mgm_flow import (mgm_binary_match,
                                             mgm_binary_match_batch)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -101,6 +101,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         pipeline.pointing_correction_all(Config(), [])
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.disparity_to_ply(Config(), {})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.disparity_to_height_all(Config(), [])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.heights_to_ply_all(Config(), [])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.heights_fusion(Config(), {'dir': 'tile'})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        morphology.morphoop(a[0], 'min', 5)
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.main({'images': [{'img': 'a.tif'}, {'img': 'b.tif'}]})
     with pytest.raises(RuntimeError, match='CUDA'):

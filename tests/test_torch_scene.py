@@ -34,7 +34,6 @@ What is held, and how:
 ``pytest -s`` prints the measured figures.
 """
 
-import copy
 import dataclasses
 import filecmp
 import glob
@@ -356,15 +355,12 @@ def test_resume_on_a_fresh_dir_raises(scene, tmp_path):
 
 
 @pytest.mark.parametrize('change,match', [
-    ('triplet', 'M10'), (dict(sift_device='host'), 'M12'),
+    (dict(sift_device='host'), 'M12'),
     (dict(matching_algorithm='sgm'), 'M12')])
 def test_refused_up_front(scene, tmp_path, change, match):
     """What the port cannot run raises before anything is written."""
     d = _user_cfg(scene['base'], 'torch', str(tmp_path / 'out'))
-    if change == 'triplet':
-        d['images'] = d['images'] + [copy.deepcopy(d['images'][1])]
-    else:
-        d.update(change)
+    d.update(change)
     with pytest.raises(NotImplementedError, match=match):
         tpipe.main(d, device='cpu')
     assert not os.path.exists(tmp_path / 'out')
