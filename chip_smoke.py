@@ -129,6 +129,22 @@ the JAX package.  Phases, each timed on a line of its own:
      scene's altitude, the fused clouds' altitudes, dsm.tif as in 8b;
      then 5d's parts one tile after another (fusion, the host float64
      localization, the neighbour counts, the filter and PLY write);
+ 8e. (run right after 8d) the pair scene with ``mgm_multi``: a copy of
+     8b's tree through ``pipeline.main`` from stage 4 (stages 4 to 7 on
+     the card), stage 4's time beside 8b's ``mgm`` stage 4, its peak
+     device memory and the launches over main (K2 and K3, no K1); K2
+     direction by direction and K3 against their plain versions on the
+     inputs the cascade gives them at the scene's bucket (its finest
+     level), and K3 against its plain version and the port's torch
+     ``_wta_refine`` at every level; two tiles' stage 4 with
+     device="cpu", the three files byte for byte; the clouds' altitudes
+     and dsm.tif as in 8b; then the cascade on the single tile of phase
+     10 at full width (797 x 803, range -40..55, 6 levels) through
+     ``compute_disparity_map``, its known shift and wall time, and a
+     256 x 320 crop of it card against device="cpu" byte for byte; then
+     ``mgm_multi_lsd`` through stage 4's per-tile route on one of the
+     scene's tiles (the host LSD of its two images included), card
+     against device="cpu", the files byte for byte;
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -173,7 +189,8 @@ the JAX package.  Phases, each timed on a line of its own:
      that drives its path and the numbers of its comparison at that run's
      shapes: the flow's kernels in the scene through main (8b, its
      bucket), at stage 4's buckets A and B (5), at 528 candidates (8)
-     and in the triplet through main (8d, its bucket);
+     and in the triplet through main (8d, its bucket); K2 and K3 on the
+     mgm_multi cascade's levels in the scene through main (8e);
      W1 in the scene (8b), its mask dilation in the scene's stage 3 with
      a NaN band (8b); the classic matcher's (6 and 4); the pre-pass
      at a signed base (10 and 9); the WTA's edge modes (10); the folded
@@ -270,6 +287,15 @@ SCENE_NAN_ROWS = (1000, 1004)
 TRIPLET = dict(roi=(400, 200, 1600, 1600), h_term=0.005, seed=3,
                pointing=-0.5)
 TRIPLET_FILTER = (2.5, 8)
+# phase 8e: the pair scene with mgm_multi from stage 4; the lsd variant on
+# this many of its tiles (the host LSD of a tile's two 832 x 960 images
+# takes about 20 s on the H100 machine's host, in the card's run and again
+# in the CPU's); the single tile's crop that the card holds against the
+# CPU
+MULTI_LSD_TILES = 1
+MULTI_CROP = (256, 320)
+STAGE4_FILES = ('rectified_disp.tif', 'rectified_disp_confidence.tif',
+                'rectified_mask.png')
 TRIPLET_MEAN_TOL_M = 0.5
 # W1's division by 120 without a division (csrc/warp.cu div120): the
 # mismatches of the correction alone, without its guard, against the IEEE
@@ -2595,7 +2621,8 @@ def time_gml_mask(root):
 def run_scene(root, cpu_root, stats, launches, card):
     """The scene through the entry, ``pipeline.main`` of its config file
     on the card (stages 1 to 7), its stage times and the launch counts of
-    the port's kernels over it; then the checks."""
+    the port's kernels over it; then the checks.  Returns each stage's
+    seconds by its number."""
     import dataclasses
     import numpy as np
     import torch
@@ -2713,6 +2740,7 @@ def run_scene(root, cpu_root, stats, launches, card):
     time_scene_warp(cfg, tiles, stats)
     check_scene_nan_stage3(cfg, tiles, os.path.join(cpu_root, 'nan'),
                            launches)
+    return walls
 
 
 def render_triplet(root, scene_root):
@@ -3041,6 +3069,301 @@ def triplet_5d_parts(cfg, tiles, after_5a, root, t_5d):
           f"(host float64) in {parts['localization']:.3f} s", flush=True)
 
 
+def run_multi(scene_root, root, cpu_root, stats, launches, card, mgm_walls):
+    """Phase 8e: the pair scene (a copy of 8b's tree) through
+    ``pipeline.main`` from stage 4 with ``mgm_multi``; stage 4's time
+    beside 8b's ``mgm`` stage 4 (``mgm_walls``), its peak device memory
+    and the launches over main; two tiles' stage-4 files against
+    device="cpu"; K2 and K3 against their plain versions on the inputs
+    the cascade gives them at the scene's bucket; the clouds' altitudes
+    and the DSM as in 8b.  Then the cascade on the full single tile and a
+    crop of it against the CPU, and ``mgm_multi_lsd`` through stage 4's
+    per-tile route on MULTI_LSD_TILES of the scene's tiles against the
+    CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline, tiling
+    from s2p_tpu_torch.geo import geotiff, ply
+    from s2p_tpu_torch.ops import interp
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    shutil.copytree(scene_root, root)
+    user = pipeline.read_config_file(os.path.join(root, 'config.json'))
+    user['matching_algorithm'] = 'mgm_multi'
+    peak, driver = {}, pipeline.stereo_matching_all
+
+    def stage_4(cfg, tiles_pairs, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        driver(cfg, tiles_pairs, **kw)
+        torch.cuda.synchronize()
+        peak['bytes'] = torch.cuda.max_memory_allocated()
+        peak['before'] = before
+    sk.reset_launch_counts()
+    interp.reset_launch_counts()
+    stage_times = {}
+    pipeline.stereo_matching_all = stage_4
+    try:
+        t0 = time.perf_counter()
+        cfg = pipeline.main(user, start_from=4, stage_times=stage_times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.stereo_matching_all = driver
+    launches['multi'] = {**sk.launch_counts(), **interp.launch_counts()}
+    walls = {label.split(')')[0]: t for label, t in stage_times.items()}
+    for label, t in stage_times.items():
+        print(f'  mgm_multi {label} {t:.3f} s', flush=True)
+    print(f"  mgm_multi stage 4: {walls['4']:.3f} s against mgm's "
+          f"{mgm_walls['4']:.3f} s (8b) on {card}; main from stage 4 "
+          f'{wall:.3f} s', flush=True)
+    print(f"  mgm_multi stage 4 peak device memory: {peak['bytes']} bytes "
+          f"({peak['bytes'] / 2**20:.1f} MiB; {peak['before'] / 2**20:.1f} "
+          'MiB allocated before it)', flush=True)
+    lm = launches['multi']
+    print(f'  mgm_multi launches over main: {lm}', flush=True)
+    if lm['scan'] == 0 or lm['wta'] == 0 or lm['cost_prepass']:
+        raise AssertionError('the mgm_multi stage 4 must launch K2 and K3 '
+                             'and no K1')
+
+    tw, th = tiling.adjust_tile_size(cfg)
+    tiles = tiling.tiles_full_info(cfg, tw, th,
+                                   os.path.join(cfg.out_dir, 'tiles.txt'))
+    pairs = [(t, 1) for t in tiles]
+    check_multi_kernels(cfg, pairs, stats)
+
+    # two tiles' stage 4 with device="cpu" on the same stage-3 files
+    cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
+    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles[:2]]
+    names = ('rectified_ref.tif', 'rectified_sec.tif', 'disp_min_max.txt')
+    for a, b in zip(tiles, cpu_tiles):
+        os.makedirs(os.path.join(b['dir'], 'pair_1'))
+        for n in names:
+            shutil.copy(os.path.join(a['dir'], 'pair_1', n),
+                        os.path.join(b['dir'], 'pair_1'))
+    t0 = time.perf_counter()
+    pipeline.stereo_matching_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
+                                 device='cpu')
+    print(f'  mgm_multi stage 4 of two tiles with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    n = files_equal([(os.path.join(a['dir'], 'pair_1', f),
+                      os.path.join(b['dir'], 'pair_1', f))
+                     for a, b in zip(tiles, cpu_tiles) for f in STAGE4_FILES],
+                    'mgm_multi stage 4')
+    print(f'  mgm_multi stage 4: {n} files of two tiles equal the CPU run '
+          'byte for byte', flush=True)
+
+    alts = []
+    for t in tiles:
+        pdir = os.path.join(t['dir'], 'pair_1')
+        lo, hi = np.loadtxt(os.path.join(pdir, 'disp_min_max.txt'))
+        disp = geotiff.read(os.path.join(pdir, 'rectified_disp.tif'))
+        fin = np.isfinite(disp)
+        if fin.mean() < 0.5 or disp[fin].min() < lo or disp[fin].max() > hi:
+            raise AssertionError(f"mgm_multi stage 4: {t['dir']}: finite "
+                                 f'share {fin.mean():.3f}, disparities '
+                                 f'outside [{lo}, {hi}]')
+        pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
+        alts.append(np.abs(pts[:, 2] - SCENE_H0))
+        print(f'  mgm_multi {tile_name(t)}: disparity '
+              f'{np.percentile(disp[fin], 1):.3f} .. '
+              f'{np.percentile(disp[fin], 99):.3f} ({fin.mean():.4f} '
+              f'finite), {len(pts)} points', flush=True)
+    err = np.concatenate(alts)
+    med, p90 = float(np.median(err)), float(np.percentile(err, 90))
+    print(f'  mgm_multi cloud: {len(err)} points, |altitude - {SCENE_H0}| '
+          f'median {med:.3f} m, 90th percentile {p90:.3f} m (tolerances '
+          f'{SCENE_ALT_TOL_M})', flush=True)
+    if med > SCENE_ALT_TOL_M[0] or p90 > SCENE_ALT_TOL_M[1]:
+        raise AssertionError('mgm_multi: the cloud misses the altitude of '
+                             'the scene')
+    check_scene_dsm(cfg, tiles)
+
+    check_multi_single(cpu_root)
+
+    # mgm_multi_lsd through the per-tile route, card and CPU
+    lsd_tiles = tiles[:MULTI_LSD_TILES]
+    lcfg = dataclasses.replace(cfg, matching_algorithm='mgm_multi_lsd')
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipeline.stereo_matching_all(lcfg, [(t, 1) for t in lsd_tiles])
+    torch.cuda.synchronize()
+    print(f'  mgm_multi_lsd stage 4 of {len(lsd_tiles)} tile(s), per-tile '
+          f'route: {time.perf_counter() - t0:.3f} s (LSD on the host '
+          f'included); launches {sk.launch_counts()}', flush=True)
+    lsd_cpu = [moved(t, cfg.out_dir, os.path.join(cpu_root, 'lsd'))
+               for t in lsd_tiles]
+    for a, b in zip(lsd_tiles, lsd_cpu):
+        os.makedirs(os.path.join(b['dir'], 'pair_1'))
+        for f in names:
+            shutil.copy(os.path.join(a['dir'], 'pair_1', f),
+                        os.path.join(b['dir'], 'pair_1'))
+    t0 = time.perf_counter()
+    pipeline.stereo_matching_all(
+        dataclasses.replace(lcfg, out_dir=os.path.join(cpu_root, 'lsd')),
+        [(t, 1) for t in lsd_cpu], device='cpu')
+    print(f'  mgm_multi_lsd with device="cpu": {time.perf_counter() - t0:.3f}'
+          ' s', flush=True)
+    n = files_equal([(os.path.join(a['dir'], 'pair_1', f),
+                      os.path.join(b['dir'], 'pair_1', f))
+                     for a, b in zip(lsd_tiles, lsd_cpu)
+                     for f in STAGE4_FILES], 'mgm_multi_lsd stage 4')
+    print(f'  mgm_multi_lsd: {n} stage-4 files equal the CPU run byte for '
+          'byte', flush=True)
+
+
+def check_multi_kernels(cfg, tiles_pairs, stats):
+    """K2 and K3 on the cascade's inputs at the scene's bucket: the batch
+    again, with a spy on the aggregation that keeps each level's L-side
+    cost volume and P2; then, at the finest level, K2 direction by
+    direction against its plain version (timed, under ``scan_multi``) and
+    K3 against its plain version (``wta_multi``); at every level K3 against
+    the plain version and against ``mgm_flow._wta_refine``."""
+    import dataclasses
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    variant = dataclasses.replace(matching.mgm_variant_from_cfg(cfg),
+                                  median_order='none')
+    buckets = pipeline.matching_buckets(cfg, tiles_pairs)
+    if len(buckets) != 1:
+        raise AssertionError(f'the scene has {len(buckets)} stage-4 '
+                             'buckets, not 1')
+    (Hp, Wp, Dp), group = next(iter(buckets.items()))
+    n = len(group)
+    b1 = torch.full((n, Hp, Wp), float('nan'))
+    b2 = torch.full((n, Hp, Wp), float('nan'))
+    for k, j in enumerate(group):
+        b1[k, :j['rect1'].shape[0], :j['rect1'].shape[1]] = \
+            torch.from_numpy(j['rect1'])
+        b2[k, :j['rect2'].shape[0], :j['rect2'].shape[1]] = \
+            torch.from_numpy(j['rect2'])
+    levels, aggregate = [], mf._aggregate_scans
+
+    def spy(cost, v, p2_map=None, emit_votes=True):
+        if emit_votes:
+            levels.append((cost, p2_map))
+        return aggregate(cost, v, p2_map, emit_votes)
+    mf._aggregate_scans = spy
+    try:
+        mf.mgm_multi_match_batch(
+            b1.numpy(), b2.numpy(), [j['dmin'] for j in group], Dp,
+            [j['rect1'].shape[0] for j in group],
+            [j['rect1'].shape[1] for j in group],
+            [j['rect2'].shape[1] for j in group],
+            [j['dmax'] - j['dmin'] + 1 for j in group], variant)
+    finally:
+        mf._aggregate_scans = aggregate
+    print(f'  mgm_multi bucket {n} x {Hp} x {Wp}, {Dp} candidates: '
+          f'{len(levels)} levels, the finest level\'s cost volume '
+          f'{tuple(levels[-1][0].shape)}', flush=True)
+    for s, (cost, p2) in enumerate(levels):
+        S, _ = aggregate(cost, variant, p2, False)
+        off, d = sk.wta([S], variant.subpix, mf.BIG / 2)
+        off_p, d_p = sk.wta_plain([S], variant.subpix, mf.BIG / 2)
+        ref, d_r = mf._wta_refine(S.permute(0, 1, 3, 2), 0, variant)
+        ok = (equal(off, off_p)[0] and equal(d, d_p)[0]
+              and equal(d.to(torch.float32) + off, ref)[0]
+              and equal(d, d_r)[0])
+        rows = int(((S >= mf.BIG / 2).all(dim=2)).any(dim=2).sum())
+        print(f'  wta_multi level {len(levels) - 1 - s} '
+              f'{tuple(S.shape)}: K3 equals its plain version and '
+              f'_wta_refine bitwise: {ok} ({rows} rows with an '
+              'out-of-range pixel)', flush=True)
+        if not ok:
+            raise AssertionError("K3 differs on the cascade's volumes")
+    del S, off, d, off_p, d_p, ref, d_r
+
+    cost, p2 = levels[-1]
+    B, H, W, D = cost.shape
+    vols = {'v': cost.permute(0, 1, 3, 2).contiguous(),
+            'h': cost.permute(0, 2, 3, 1).contiguous()}
+    p2v = torch.full((B, H, W), variant.p2, device=cost.device)
+    p2s = {'v': p2v, 'h': p2v.transpose(1, 2).contiguous()}
+    dirs = mf._DIRS_8[:max(2, min(variant.nb_dir, 8))]
+    S, o = None, None
+    for dx, dy in dirs:
+        od = 'h' if dy == 0 else 'v'
+        if S is not None and od != o:
+            S = S.permute(0, 3, 2, 1).contiguous()
+        o = od
+        args = (vols[o], p2s[o], (0 if dy == 0 else dx,), variant.p1,
+                mf.BIG)
+        kw = dict(reverse=(dx if dy == 0 else dy) < 0, accum=S)
+        Sk, vk = sk.scan(*args, **kw)
+        Sp, vp = sk.scan_plain(*args, **kw)
+        ok, err = equal(Sk, Sp)
+        ok_v, err_v = equal(vk, vp)
+        vol = Sk.numel()
+        nbytes = (vols[o].numel() + 4 * p2s[o].numel() + 4 * vol
+                  + (4 * vol if S is not None else 0) + 4 * vk.numel())
+        record(stats, f'scan_multi ({dx},{dy})', '', ok and ok_v,
+               max(err, err_v), timed(lambda: sk.scan(*args, **kw), 5),
+               timed(lambda: sk.scan_plain(*args, **kw), 1), nbytes,
+               vol * 11)
+        S = Sk
+        del Sp, vp
+    if o == 'h':
+        S = S.permute(0, 3, 2, 1).contiguous()
+    off, d = sk.wta([S], variant.subpix, mf.BIG / 2)
+    off_p, d_p = sk.wta_plain([S], variant.subpix, mf.BIG / 2)
+    ok, err = equal(off, off_p)
+    ok_d, err_d = equal(d, d_p)
+    vol = S.numel()
+    record(stats, 'wta_multi', '', ok and ok_d, max(err, err_d),
+           timed(lambda: sk.wta([S], variant.subpix, mf.BIG / 2), 5),
+           timed(lambda: sk.wta_plain([S], variant.subpix, mf.BIG / 2), 2),
+           4 * vol + 4 * off.numel() + 4 * d.numel(), 2 * vol)
+    del levels, vols, S
+    torch.cuda.empty_cache()
+
+
+def check_multi_single(cpu_root):
+    """The cascade on the single tile at full width (6 levels) through
+    ``compute_disparity_map('mgm_multi')``: its known shift and wall
+    time; then a MULTI_CROP crop of it on the card against device="cpu",
+    all three outputs bitwise."""
+    import torch
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    from s2p_tpu_torch.state import config_from_state
+
+    cfg = config_from_state({'matching_algorithm': 'mgm_multi'})
+    im1, im2 = make_pair(SINGLE)
+    sk.reset_launch_counts()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        disp, mask, conf = matching.compute_disparity_map(
+            cfg, im1, im2, SINGLE['dmin'], SINGLE['dmax'])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"  mgm_multi single tile {SINGLE['h']} x {SINGLE['w1']}, range "
+          f"{SINGLE['dmin']}..{SINGLE['dmax']}: compute_disparity_map "
+          f'{walls[0]:.3f} s cold, {walls[1]:.3f} s warm; launches over '
+          f'both {sk.launch_counts()}', flush=True)
+    check_known_shift('mgm_multi compute_disparity_map', disp, SINGLE)
+    h, w = MULTI_CROP
+    a, b = im1[:h, :w], im2[:h, :w]
+    card = matching.compute_disparity_map(cfg, a, b, SINGLE['dmin'],
+                                          SINGLE['dmax'])
+    t0 = time.perf_counter()
+    cpu = matching.compute_disparity_map(cfg, a, b, SINGLE['dmin'],
+                                         SINGLE['dmax'], device='cpu')
+    same = all(x.dtype == y.dtype and x.tobytes() == y.tobytes()
+               for x, y in zip(card, cpu))
+    print(f'  mgm_multi {h} x {w} crop, card against device="cpu" '
+          f'({time.perf_counter() - t0:.3f} s on the CPU): disparity, mask '
+          f'and confidence byte for byte: {same}', flush=True)
+    if not same:
+        raise AssertionError('mgm_multi: the crop differs from the CPU run')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3161,14 +3484,21 @@ def main():
             check_outputs(gpu_root, [WIDE], cpu_root, {WIDE['index']})
         with phase('one scene through pipeline.main on the card (stages 1 '
                    'to 7)'):
-            run_scene(os.path.join(tmp, 'scene'),
-                      os.path.join(tmp, 'scene_cpu'), stats, launches, card)
+            mgm_walls = run_scene(os.path.join(tmp, 'scene'),
+                                  os.path.join(tmp, 'scene_cpu'), stats,
+                                  launches, card)
         with phase('a triplet through pipeline.main on the card (stages 1 '
                    'to 7, two pairs)'):
             run_triplet(os.path.join(tmp, 'triplet'),
                         os.path.join(tmp, 'scene'),
                         os.path.join(tmp, 'triplet_cpu'), stats, launches,
                         card)
+        with phase('the pair scene with mgm_multi through pipeline.main '
+                   '(stages 4 to 7), the cascade on a full tile, '
+                   'mgm_multi_lsd per tile'):
+            run_multi(os.path.join(tmp, 'scene'), os.path.join(tmp, 'multi'),
+                      os.path.join(tmp, 'multi_cpu'), stats, launches, card,
+                      mgm_walls)
         with phase('a tile mask from GML rings (host)'):
             time_gml_mask(tmp)
     finally:
@@ -3238,6 +3568,11 @@ def main():
                      'wta_edge', 'wta_edge'),
         'scan_sig_seg': (f'{csrc}/scan.cu', f'{pallas}:81', 'fold',
                          'scan_sig_seg', 'scan_sig_seg'),
+        # the mgm_multi cascade's levels: K2 one direction a launch, K3
+        'scan_multi': (f'{csrc}/scan.cu', f'{pallas}:81', 'multi', 'scan',
+                       'scan_multi'),
+        'wta_multi': (f'{csrc}/wta.cu', f'{pallas}:358', 'multi', 'wta',
+                      'wta_multi'),
         # W1 replaces a jitted jnp program, not a Pallas kernel
         'warp': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:145', 'scene',
                  'warp', 'warp'),

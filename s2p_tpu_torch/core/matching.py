@@ -2,17 +2,25 @@
 policy, the rejection mask and the single-pair matcher dispatch.
 
 Counterpart of ``mgm_variant_from_cfg``, ``compute_disparity_map`` (for
-``mgm``), ``finalize_disparity``, ``clamp_disparity_range`` and
-``MaxDisparityRangeError`` in ``s2p_tpu/core/matching.py``.  The other
-matchers are not ported yet (ROADMAP M12).
+``mgm``, ``mgm_multi`` and ``mgm_multi_lsd``), ``finalize_disparity``,
+``clamp_disparity_range`` and ``MaxDisparityRangeError`` in
+``s2p_tpu/core/matching.py``.  The other matchers are not ported yet
+(ROADMAP M12).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
+from .. import runner
 from ..config import Config
-from ..ops.mgm_flow import MgmVariant, mgm_binary_match
+from ..ops.lsd import lsd_weights
+from ..ops.mgm_flow import MgmVariant, mgm_binary_match, mgm_multi_match
+from ..ops.morphology import remove_small_disparity_speckles
+
+MATCHERS = ('mgm', 'mgm_multi', 'mgm_multi_lsd')
 
 
 class MaxDisparityRangeError(Exception):
@@ -47,21 +55,47 @@ def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
     Returns:
         (disp, mask, confidence) numpy arrays: float32 disparity (NaN
         invalid), the uint8 validity mask and the float32 consensus
-        confidence.  Only ``mgm`` is ported; any other matcher raises."""
+        confidence.  Any matcher but those of ``MATCHERS`` raises."""
     algo = algo or cfg.matching_algorithm
     im1 = np.asarray(im1, dtype=np.float32)
     im2 = np.asarray(im2, dtype=np.float32)
     disp_min, disp_max = clamp_disparity_range(cfg, im1.shape[1], disp_min,
                                                disp_max, max_disp_range)
-    if algo != 'mgm':
+    if algo not in MATCHERS:
         raise NotImplementedError(
             f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
-            'runs mgm')
-    disp, conf = mgm_binary_match(im1, im2, disp_min, disp_max,
-                                  mgm_variant_from_cfg(cfg), device=device)
+            f'runs {", ".join(MATCHERS)}')
+    variant = mgm_variant_from_cfg(cfg)
+    if algo == 'mgm':
+        disp, conf = mgm_binary_match(im1, im2, disp_min, disp_max, variant,
+                                      device=device)
+        disp = disp.cpu().numpy()
+        return finalize_disparity(disp, np.isfinite(disp), im1, im2) + (
+            conf.cpu().numpy(),)
+    # the mgm_multi binary's contract: the -S 6 cascade with half-pixel
+    # candidates, no median, the speckle filter on the result; the lsd
+    # variant lowers P2 on line segments (weight maps of both images),
+    # raises P1/P2 to 12/48 and runs the median before the LR test
+    runner.checkpoint()
+    kw = {'median_order': 'none'}
+    p2_map = p2_map_r = None
+    if algo == 'mgm_multi_lsd':
+        mult = cfg.stereo_regularity_multiplier
+        kw = {'median_order': 'before_lr', 'p1': 12.0 * mult,
+              'p2': 48.0 * mult}
+        p2_map = lsd_weights(im1) * kw['p2']
+        p2_map_r = lsd_weights(im2) * kw['p2']
+    disp, conf = mgm_multi_match(im1, im2, disp_min, disp_max,
+                                 dataclasses.replace(variant, **kw),
+                                 scales=6, subpix=2, p2_map=p2_map,
+                                 p2_map_r=p2_map_r, device=device)
     disp = disp.cpu().numpy()
-    return finalize_disparity(disp, np.isfinite(disp), im1, im2) + (
-        conf.cpu().numpy(),)
+    valid = np.isfinite(disp)
+    if cfg.stereo_speckle_filter:
+        valid = remove_small_disparity_speckles(
+            np.nan_to_num(disp), valid, cfg.stereo_speckle_filter, tol=1.0)
+        disp = np.where(valid, disp, np.nan)
+    return finalize_disparity(disp, valid, im1, im2) + (conf.cpu().numpy(),)
 
 
 def finalize_disparity(disp, valid, im1, im2):

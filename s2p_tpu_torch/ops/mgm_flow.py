@@ -2,7 +2,9 @@
 
 Counterpart of ``s2p_tpu/ops/mgm_flow.py`` for the single-tile entry
 :func:`mgm_binary_match`, the batch entry :func:`mgm_binary_match_batch`
-(with its lane-folded groups) and the pieces they run.  The semantics are
+(with its lane-folded groups), the mgm_multi cascade
+(:func:`mgm_multi_match`, :func:`mgm_multi_match_batch`) and the pieces
+they run.  The semantics are
 those of the JAX package, to the bit: census on raw values (NaN pixels
 give 0 bits), BIG = 1e9 for out-of-range candidates, the classic
 8-direction SGM recursion with the overcount fix, vfit subpixel, a 3x3
@@ -32,9 +34,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .sgm_kernels import (_PAD_BIT, _VALID_BIT, _popcount, _scan_loop,
+from .sgm_kernels import (_PAD_BIT, _VALID_BIT, _fma32, _popcount,
                           flow_one_side, flow_partials_folded,
-                          flow_partials_sides, unfold_lanes_v, wta)
+                          flow_partials_sides, scan, unfold_lanes_v, wta)
 
 BIG = float(np.float32(1e9))    # out-of-range sentinel (finite: argmin and
 #                                 the overcount fix stay NaN-free)
@@ -129,35 +131,59 @@ def census_cost_raw(im1, im2, disp_min: int, D: int, win: int, h1=None,
     return cost
 
 
-def _aggregate_flow(cost, v: MgmVariant):
-    """The classic independent scans (tsgm 1) over an (h, w, D) cost, one
-    direction at a time in direction order: (S, votes), S the sum of the
-    directions' volumes less the overcount ``(n - 1) * cost``."""
+def _cost_u8(cost):
+    """A float32 census cost (Hamming counts, 0 or BIG) as the kernels'
+    uint8 volume: 255 stands for BIG, every other value as it is."""
+    return torch.where(cost == BIG, 255, cost.to(torch.uint8)).to(torch.uint8)
+
+
+def _aggregate_scans(cost, v: MgmVariant, p2_map=None, emit_votes=True):
+    """The classic independent scans (tsgm 1) over a (B, H, W, D) uint8
+    cost (255 = BIG), one :func:`scan` per direction in the JAX package's
+    direction order, each adding the sum of the directions before it, then
+    the overcount fix ``S - (n - 1) * cost``: the JAX package's order of
+    float32 additions, which a per-pixel ``p2_map`` (B, H, W) makes
+    inexact.  CUDA tensors launch K2, CPU tensors run its plain version.
+
+    Returns (S (B, H, D, W) float32, votes: per direction a (B, H, W)
+    int32 map, None without ``emit_votes``)."""
     if v.tsgm != 1:
         raise NotImplementedError('tsgm >= 2 (the TSGM wavefront) is not '
                                   'ported yet (ROADMAP M12)')
-    D = cost.shape[2]
+    B, H, W, D = cost.shape
     dirs = _DIRS_8[:max(2, min(v.nb_dir, 8))]
-    S = torch.zeros_like(cost)
-    votes = []
+    vols = {'v': cost.permute(0, 1, 3, 2).contiguous(),     # (B, H, D, W)
+            'h': cost.permute(0, 2, 3, 1).contiguous()}     # (B, W, D, H)
+    p2 = (torch.full((B, H, W), v.p2, dtype=torch.float32, device=cost.device)
+          if p2_map is None else p2_map.to(torch.float32).contiguous())
+    p2s = {'v': p2, 'h': p2.transpose(1, 2).contiguous()}
+    S, o, votes = None, None, []
     for dx, dy in dirs:
-        if dy == 0:          # along x, the lanes are the rows
-            vol, lat, reverse = cost.permute(1, 2, 0), 0, dx < 0
-        else:
-            vol, lat, reverse = cost.permute(0, 2, 1), dx, dy < 0
-        p2 = torch.full((1, vol.shape[0], vol.shape[2]), v.p2,
-                        dtype=torch.float32, device=cost.device)
-        L, vo = _scan_loop(lambda n: vol[n][None], p2, ((lat,),), v.p1,
-                           reverse, 0.0, None, True, D)
-        if dy == 0:
-            L, vo = L[0].permute(2, 0, 1), vo[0, 0].t()
-        else:
-            L, vo = L[0].permute(0, 2, 1), vo[0, 0]
-        votes.append(vo)
-        S = S + L
+        o_dir = 'h' if dy == 0 else 'v'
+        if S is not None and o_dir != o:
+            S = S.permute(0, 3, 2, 1).contiguous()
+        o = o_dir
+        S, vo = scan(vols[o], p2s[o], (0 if dy == 0 else dx,), v.p1, BIG,
+                     reverse=(dx if dy == 0 else dy) < 0, accum=S,
+                     emit_votes=emit_votes)
+        votes.append(None if vo is None else
+                     vo[:, 0] if o == 'v' else vo[:, 0].transpose(1, 2))
+    if o == 'h':
+        S = S.permute(0, 3, 2, 1).contiguous()
     if v.overcount_fix:
-        S = S - (len(dirs) - 1) * cost
+        vol = vols['v'].to(torch.int32)
+        S = S - (len(dirs) - 1) * torch.where(vol == 255, BIG,
+                                              vol.to(torch.float32))
     return S, votes
+
+
+def _aggregate_flow(cost, v: MgmVariant, p2_map=None):
+    """:func:`_aggregate_scans` of one (h, w, D) float32 cost with the JAX
+    package's signature: (S (h, w, D), votes, each (h, w)); ``p2_map``
+    is an optional (h, w) per-pixel P2."""
+    S, votes = _aggregate_scans(_cost_u8(cost)[None], v,
+                                None if p2_map is None else p2_map[None])
+    return S[0].permute(0, 2, 1), [vo[0] for vo in votes]
 
 
 def _wta_refine(S, disp_min: int, v: MgmVariant):
@@ -539,3 +565,276 @@ def mgm_binary_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b,
     # consensus counts as uint8: count/n in f32 is rebuilt exactly
     return {'disp': disp, 'confidence': conf,
             'confidence_u8': (conf * nv).to(torch.uint8)}
+
+
+# --------------------------------------------------------------------- #
+# mgm_multi: the -S 6 multiscale cascade
+# --------------------------------------------------------------------- #
+#
+# The reference's production matcher for real scenes (mgm_multi -S 6 -s
+# vfit with SUBPIX=2 and no median; the lsd variant with weight maps,
+# MEDIAN=1 and P1/P2 12/48).  A gaussian pyramid; each level, coarse to
+# fine, runs both sides of the flow over half-pixel candidates restricted
+# per pixel to the coarser level's 3x3 range (+-2), then the left-right
+# test of both maps.  Every map is (B, H, W) and every per-tile scalar a
+# (B,) tensor: the single tile is a batch of one at its full extents.
+
+def _downsample2_img(img):
+    """Binomial 5-tap blur of (B, H, W) images with edge padding, then 2x
+    decimation; NaN spreads through the blur.  Each axis sums its taps as
+    the JAX package's jitted run does: the first product, then four fused
+    multiply-adds."""
+    k = [float(np.float32(c) / np.float32(16)) for c in (1, 4, 6, 4, 1)]
+
+    def blur(x, axis):
+        n = x.shape[axis]
+        idx = (torch.arange(-2, n + 2, device=x.device)).clamp(0, n - 1)
+        p = x.index_select(axis, idx)
+        v = p.narrow(axis, 0, n) * k[0]
+        for i in range(1, 5):
+            v = _fma32(p.narrow(axis, i, n), k[i], v)
+        return v
+
+    return blur(blur(img, 1), 2)[:, ::2, ::2]
+
+
+def _minmax3_nan(x):
+    """NaN-ignoring 3x3 min and max of (B, H, W) maps (all-NaN windows
+    give +inf and -inf)."""
+    B, h, w = x.shape
+    pad = torch.nn.functional.pad(x, (1, 1, 1, 1), value=float('nan'))
+    lo = torch.full_like(x, float('inf'))
+    hi = torch.full_like(x, float('-inf'))
+    for dy in range(3):
+        for dx in range(3):
+            t = pad[:, dy:dy + h, dx:dx + w]
+            fin = torch.isfinite(t)
+            lo = torch.minimum(lo, torch.where(fin, t, float('inf')))
+            hi = torch.maximum(hi, torch.where(fin, t, float('-inf')))
+    return lo, hi
+
+
+def _upsample2_vals(d, out_h, out_w):
+    """Nearest 2x upsample of coarse (B, h, w) maps, cropped to the fine
+    shape."""
+    up = d.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    return up[:, :out_h, :out_w]
+
+
+def _range_maps_from_coarse(d_coarse, out_h, out_w, lo_glob, hi_glob,
+                            margin: float = 2.0):
+    """Per-pixel disparity interval of the finer level: 2x the coarse
+    disparities, min and max over a 3x3 window, +- ``margin``, within each
+    tile's global range (``lo_glob``, ``hi_glob``: (B,) float32); pixels
+    with no coarse information take the global range."""
+    up = 2.0 * _upsample2_vals(d_coarse, out_h, out_w)
+    lo, hi = _minmax3_nan(up)
+    lo_g = lo_glob.to(torch.float32)[:, None, None]
+    hi_g = hi_glob.to(torch.float32)[:, None, None]
+    lo = torch.where(torch.isfinite(lo), torch.maximum(lo - margin, lo_g),
+                     lo_g)
+    hi = torch.where(torch.isfinite(hi), torch.minimum(hi + margin, hi_g),
+                     hi_g)
+    return lo, hi
+
+
+def _ceil_div(a, b: int):
+    """Python's ceiling division of int tensors, negative values too."""
+    return -torch.div(-a, b, rounding_mode='floor')
+
+
+def _floor_div(a, b: int):
+    return torch.div(a, b, rounding_mode='floor')
+
+
+_FRAC_CHUNK = 16        # candidates of one phase gathered at a time
+
+
+def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
+                      w1, w2, d_true, lo_map=None, hi_map=None):
+    """(B, H, W, D) uint8 census cost over the fractional candidates
+    ``disp_min + k / sd`` of (B, H, W) pairs; 255 stands for BIG.
+
+    Phase ``f = k % sd`` matches the secondary shifted by ``f / sd`` px
+    (linear interpolation of columns x2 and x2 + 1, so a fractional
+    candidate needs both inside the true width ``w2``).  Candidates out of
+    range, at or past each tile's ``d_true``, or outside the per-pixel
+    window ``[lo_map - 1e-4, hi_map + 1e-4]`` cost BIG; the cost is 0 over
+    the reference's padding beyond ``(h1, w1)``.  ``disp_min``, the
+    extents and ``d_true`` are (B,) int tensors; the maps (B, H, W)
+    float32 or None."""
+    B, H, W = im1.shape
+    dev = im1.device
+    sig1 = census_bits_raw(im1, win)
+    n_per = -(-D // sd)
+    cost = torch.empty((B, H, W, n_per * sd), dtype=torch.uint8, device=dev)
+    x0 = torch.arange(W, device=dev)[None, :, None] + disp_min[:, None, None]
+    for f in range(sd):
+        src = im2
+        if f:
+            frac = f / sd
+            nxt = torch.cat([im2[:, :, 1:],
+                             torch.full_like(im2[:, :, :1], float('nan'))], 2)
+            src = (1.0 - frac) * im2 + frac * nxt
+        sig2 = census_bits_raw(src, win)
+        last_ok = (w2 - (1 if f else 0))[:, None, None]
+        for j0 in range(0, n_per, _FRAC_CHUNK):
+            js = torch.arange(j0, min(n_per, j0 + _FRAC_CHUNK), device=dev)
+            ks = f + sd * js
+            xs = x0 + js                                     # (B, W, c)
+            inb = ((xs >= 0) & (xs < last_ok) & (ks < D)
+                   & (ks < d_true[:, None, None]))
+            idx = xs.clamp(0, W - 1).reshape(B, 1, -1).expand(B, H, -1)
+            g = torch.gather(sig2, 2, idx).reshape(B, H, W, len(js))
+            ham = _popcount((sig1[..., None] ^ g).long()).to(torch.uint8)
+            cost[..., f + sd * j0:f + sd * (j0 + len(js)):sd] = \
+                torch.where(inb[:, None], ham, 255)
+    cost = cost[..., :D]
+    if lo_map is not None:
+        eps = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+        vals = (disp_min.to(torch.float32)[:, None]
+                + torch.arange(D, device=dev).to(torch.float32)[None] / sd)
+        vals = vals[:, None, None, :]
+        ok = ((vals >= (lo_map - eps)[..., None])
+              & (vals <= (hi_map + eps)[..., None]))
+        cost = torch.where(ok, cost, 255)
+    pad = _pad_mask(H, W, h1, w1, dev)
+    return torch.where(pad[..., None], 0, cost).to(torch.uint8)
+
+
+def _one_side_frac(im1, im2, disp_min, D: int, sd: int, v: MgmVariant, h1,
+                   w1, w2, d_true, lo_map, hi_map, p2_map=None,
+                   emit_votes=True):
+    """One side of a cascade level: (disp, d_int, votes) of (B, H, W)
+    pairs, disp = disp_min + (WTA index + subpixel offset) / sd, NaN
+    beyond ``(h1, w1)``.  The scans are K2 and the WTA K3 on CUDA tensors,
+    their plain versions on CPU tensors."""
+    cost = _census_cost_frac(im1, im2, disp_min, D, sd, v.census_win, h1,
+                             w1, w2, d_true, lo_map, hi_map)
+    S, votes = _aggregate_scans(cost, v, p2_map, emit_votes)
+    off, d_int = wta([S], v.subpix, BIG / 2, edge_subpix=v.edge_subpix,
+                     plateau_zero=v.subpix_plateau == 'zero')
+    disp = (disp_min.to(torch.float32)[:, None, None]
+            + (d_int.to(torch.float32) + off) / sd)
+    pad = _pad_mask(im1.shape[1], im1.shape[2], h1, w1, im1.device)
+    return torch.where(pad, float('nan'), disp), d_int, votes
+
+
+def _multi_core(a, b, dm, D: int, v: MgmVariant, scales: int, sd: int, h1,
+                w1, w2, dt, p2_map=None, p2_map_r=None):
+    """The -S cascade of (B, H, W) pairs with per-tile bases ``dm``, true
+    extents and candidate counts ``dt`` ((B,) int tensors): (disp,
+    confidence).  The level count is static: the pyramid stops where a
+    level's smaller side halved is below 4 census windows."""
+    levels, exts, p2s = [(a, b)], [(h1, w1, w2)], [(p2_map, p2_map_r)]
+    for _ in range(1, scales):
+        a, b = levels[-1]
+        if min(a.shape[1:]) // 2 < 4 * v.census_win:
+            break
+        levels.append((_downsample2_img(a), _downsample2_img(b)))
+        exts.append(tuple(_ceil_div(e, 2) for e in exts[-1]))
+        p2s.append(tuple(None if p is None else p[:, ::2, ::2]
+                         for p in p2s[-1]))
+    dmax_val = dm + dt - 1
+    dL = dR = None
+    for s in range(len(levels) - 1, -1, -1):
+        a, b = levels[s]
+        eh, ew1, ew2 = exts[s]
+        pa, pb = p2s[s]
+        dmin_s = _floor_div(dm, 2 ** s)
+        dmax_s = _ceil_div(dmax_val, 2 ** s)
+        # the level's candidate capacity covers any tile's base
+        D_s = (D - 1) // (2 ** s) + 2
+        d_true_s = (dmax_s - dmin_s) * sd + 1
+        D_cost = (D_s - 1) * sd + 1
+        lo_g, hi_g = dmin_s.to(torch.float32), dmax_s.to(torch.float32)
+        if dL is None:
+            loL = hiL = loR = hiR = None
+        else:
+            h_s, w_s = a.shape[1:]
+            loL, hiL = _range_maps_from_coarse(dL, h_s, w_s, lo_g, hi_g)
+            loR, hiR = _range_maps_from_coarse(dR, h_s, w_s, -hi_g, -lo_g)
+        dL, d_int, votes = _one_side_frac(a, b, dmin_s, D_cost, sd, v, eh,
+                                          ew1, ew2, d_true_s, loL, hiL, pa)
+        dR, _, _ = _one_side_frac(b, a, -dmax_s, D_cost, sd, v, eh, ew2, ew1,
+                                  d_true_s, loR, hiR, pb, emit_votes=False)
+        if v.median_order == 'before_lr' and v.lr_enabled:
+            dL, dR = _median3x3(dL, v), _median3x3(dR, v)
+        if v.lr_enabled:
+            # landing windows: dL lies in [dmin_s, dmax_s], dR in
+            # [-dmax_s, -dmin_s], and dmax_s - dmin_s <= D_s + 1
+            dL, dR = (_lr_kill(dL, dR, v, ew2, dmin_s - 1, D_s + 4),
+                      _lr_kill(dR, dL, v, ew1, -dmax_s - 1, D_s + 4))
+        if v.median_order == 'after_lr':
+            dL, dR = _median3x3(dL, v), _median3x3(dR, v)
+    consensus = sum((torch.abs(w - d_int) <= 1).to(torch.int32)
+                    for w in votes)
+    # count * f32(1 / n): the JAX package's jitted division rounds so here
+    # too (a true division differs at nb_dir 6 and 7)
+    recip = float(np.float32(1 / len(votes)))
+    return dL, consensus.to(torch.float32) * recip
+
+
+def mgm_multi_match(im1, im2, disp_min: int, disp_max: int,
+                    variant: MgmVariant, scales: int = 6, subpix: int = 2,
+                    p2_map=None, p2_map_r=None, device=None):
+    """Disparity of one rectified pair with the mgm_multi binary's
+    semantics: the -S ``scales`` cascade with 1/``subpix`` candidate steps.
+
+    Args:
+        im1, im2: (h, w) float32 rectified pair of one shape, NaN outside
+            the domain.
+        disp_min, disp_max: the disparity range (ints).
+        p2_map, p2_map_r: optional (h, w) per-pixel P2 of the left and the
+            right scans (the lsd variant's weight maps times P2).
+        device: None for CUDA (raises without it), or "cpu".
+    Returns:
+        (disp, confidence), (h, w) float32 tensors on the device.  The
+        caller applies the speckle filter (``core/matching.py``)."""
+    _check_variant(variant, single_tile=True)
+    dev = resolve(device)
+    im1 = np.asarray(im1, np.float32)
+    im2 = np.asarray(im2, np.float32)
+    if im1.shape != im2.shape:
+        raise ValueError(f'the pair must share one shape: {im1.shape} and '
+                         f'{im2.shape}')
+    h, w = im1.shape
+    D = int(disp_max) - int(disp_min) + 1
+
+    def ints(x):
+        return torch.tensor([x], dtype=torch.int64, device=dev)
+
+    def maps(x):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x, np.float32), device=dev)[None]
+
+    disp, conf = _multi_core(
+        torch.as_tensor(im1, device=dev)[None],
+        torch.as_tensor(im2, device=dev)[None], ints(int(disp_min)), D,
+        variant, scales, subpix, ints(h), ints(w), ints(w), ints(D),
+        maps(p2_map), maps(p2_map_r))
+    return disp[0], conf[0]
+
+
+def mgm_multi_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b, w2_b,
+                          d_b, variant: MgmVariant = MgmVariant(),
+                          scales: int = 6, subpix: int = 2, device=None):
+    """The mgm_multi cascade over one bucket of tiles (cf.
+    :func:`mgm_binary_match_batch`): (B, Hp, Wp) NaN-padded pairs, per-tile
+    bases ``disp_min_b``, true extents and candidate counts ``d_b``, the
+    bucket's padded candidate count ``D``.  Returns a dict of (B, Hp, Wp)
+    float32 tensors on the device: 'disp' (NaN = rejected) and
+    'confidence'."""
+    _check_variant(variant, single_tile=True)
+    dev = resolve(device)
+
+    def ints(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int64,
+                               device=dev).reshape(-1)
+
+    disp, conf = _multi_core(
+        torch.as_tensor(np.asarray(im1_b, np.float32), device=dev),
+        torch.as_tensor(np.asarray(im2_b, np.float32), device=dev),
+        ints(disp_min_b), int(D), variant, scales, subpix, ints(h_b),
+        ints(w1_b), ints(w2_b), ints(d_b))
+    return {'disp': disp, 'confidence': conf}

@@ -58,8 +58,9 @@ from .geo import rpc_io
 from .ops import rasterize
 from .ops.filtering import count_3d_neighbors_batch, filter_xyz
 from .ops.homography import warp_jobs_batched
-from .ops.mgm_flow import mgm_binary_match_batch
-from .ops.morphology import despeckle_height_map
+from .ops.mgm_flow import mgm_binary_match_batch, mgm_multi_match_batch
+from .ops.morphology import (despeckle_height_map,
+                             remove_small_disparity_speckles)
 from .ops import sift as sift_ops
 
 
@@ -312,10 +313,42 @@ def rectification_all(cfg: Config, tiles_pairs, timeout=600,
 
 def _check_matcher(cfg: Config):
     algo = cfg.matching_algorithm
-    if algo != 'mgm':
+    if algo not in matching.MATCHERS:
         raise NotImplementedError(
             f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
-            'runs stage 4 with mgm')
+            f'runs stage 4 with {", ".join(matching.MATCHERS)}')
+
+
+def stereo_matching(cfg: Config, tile, i, device=None):
+    """Stage 4 of one tile pair through :func:`matching.compute_disparity_map`:
+    reads the pair's rectified images and range, writes its disparity,
+    mask and confidence.  ``device`` None runs on CUDA and raises
+    without it."""
+    dev = resolve(device)
+    out_dir = os.path.join(tile['dir'], f'pair_{i}')
+    rect1 = geotiff.read(os.path.join(out_dir, 'rectified_ref.tif'))
+    rect2 = geotiff.read(os.path.join(out_dir, 'rectified_sec.tif'))
+    disp_min, disp_max = np.loadtxt(os.path.join(out_dir,
+                                                 'disp_min_max.txt'))
+    disp, mask, conf = matching.compute_disparity_map(
+        cfg, rect1, rect2, disp_min, disp_max, device=dev)
+    _write_matching(cfg, out_dir, disp, mask, conf)
+
+
+def _write_matching(cfg: Config, out_dir, disp, mask, conf):
+    """A tile pair's stage-4 files, after the optional mask erosion."""
+    if cfg.msk_erosion >= 2:
+        mask = masking.erosion(mask.astype(bool), cfg.msk_erosion) \
+            .astype(np.uint8)
+        disp = np.where(mask, disp, np.nan).astype(np.float32)
+    geotiff.write(os.path.join(out_dir, 'rectified_disp.tif'), disp,
+                  nodata=float('nan'))
+    geotiff.write_png(os.path.join(out_dir, 'rectified_mask.png'),
+                      (mask * 255).astype(np.uint8))
+    geotiff.write(os.path.join(out_dir, 'rectified_disp_confidence.tif'),
+                  conf.astype(np.float32))
+    if cfg.clean_intermediate:
+        _clean_after_matching(cfg, out_dir)
 
 
 def _clean_after_matching(cfg: Config, out_dir):
@@ -359,16 +392,30 @@ def matching_buckets(cfg: Config, tiles_pairs):
 def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
     """Stage 4 for every (tile, pair index) in ``tiles_pairs``.
 
-    Tiles are bucketed by padded shape (:func:`matching_buckets`).  Each
-    bucket runs as one batch through :func:`mgm_binary_match_batch` with
+    ``mgm`` and ``mgm_multi`` bucket the tiles by padded shape
+    (:func:`matching_buckets`) and run each bucket as one batch
+    (:func:`mgm_binary_match_batch`, :func:`mgm_multi_match_batch`) with
     per-tile disparity bases and true extents, so each tile's output
-    equals its unpadded run.  ``timeout`` is the JAX package's parameter, which only its
-    per-tile matchers use; the ``mgm`` batch here, like the JAX package's,
-    runs without a deadline.  ``device`` None runs on CUDA and raises
-    without it; "cpu" runs the kernels' plain versions."""
+    equals its unpadded run; the batches, like the JAX package's, run
+    without a deadline.  Every other matcher runs tile by tile
+    (:func:`stereo_matching`) on ``runner.launch_calls`` with
+    ``cfg.max_processes_stereo_matching`` workers (default 1) and a
+    deadline of ``timeout`` seconds a call.  ``device`` None runs on CUDA
+    and raises without it; "cpu" runs the kernels' plain versions."""
     _check_matcher(cfg)
     dev = resolve(device)
+    algo = cfg.matching_algorithm
+    if algo not in ('mgm', 'mgm_multi'):
+        runner.launch_calls(
+            lambda t, i: stereo_matching(cfg, t, i, device=dev), tiles_pairs,
+            cfg.max_processes_stereo_matching or 1, timeout=timeout,
+            debug=cfg.debug)
+        return
     variant = matching.mgm_variant_from_cfg(cfg)
+    if algo == 'mgm_multi':
+        # the -S 6 cascade's contract: no median, the speckle filter on
+        # the result
+        variant = dataclasses.replace(variant, median_order='none')
     nv = max(2, min(variant.nb_dir, 8))
     for (Hp, Wp, Dp), group in matching_buckets(cfg, tiles_pairs).items():
         n = len(group)
@@ -377,36 +424,33 @@ def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
         for k, j in enumerate(group):
             b1[k, :j['rect1'].shape[0], :j['rect1'].shape[1]] = j['rect1']
             b2[k, :j['rect2'].shape[0], :j['rect2'].shape[1]] = j['rect2']
-        out = mgm_binary_match_batch(
+        batch = (mgm_multi_match_batch if algo == 'mgm_multi'
+                 else mgm_binary_match_batch)
+        out = batch(
             b1, b2, [j['dmin'] for j in group], Dp,
             [j['rect1'].shape[0] for j in group],
             [j['rect1'].shape[1] for j in group],
             [j['rect2'].shape[1] for j in group],
             [j['dmax'] - j['dmin'] + 1 for j in group], variant, device=dev)
         disp_b = out['disp'].cpu().numpy()
-        # uint8 consensus counts -> the device's exact f32 division
-        conf_b = (out['confidence_u8'].cpu().numpy().astype(np.float32)
-                  / np.float32(nv))
+        if algo == 'mgm_multi':
+            conf_b = out['confidence'].cpu().numpy()
+        else:
+            # uint8 consensus counts -> the device's exact f32 division
+            conf_b = (out['confidence_u8'].cpu().numpy().astype(np.float32)
+                      / np.float32(nv))
         for k, j in enumerate(group):
             h, w = j['rect1'].shape
             disp = disp_b[k, :h, :w]
-            conf = conf_b[k, :h, :w]
+            valid = np.isfinite(disp)
+            if algo == 'mgm_multi' and cfg.stereo_speckle_filter:
+                valid = remove_small_disparity_speckles(
+                    np.nan_to_num(disp), valid, cfg.stereo_speckle_filter,
+                    tol=1.0)
+                disp = np.where(valid, disp, np.nan)
             disp, mask = matching.finalize_disparity(
-                disp, np.isfinite(disp), j['rect1'], j['rect2'])
-            if cfg.msk_erosion >= 2:
-                mask = masking.erosion(mask.astype(bool), cfg.msk_erosion) \
-                    .astype(np.uint8)
-                disp = np.where(mask, disp, np.nan).astype(np.float32)
-            geotiff.write(os.path.join(j['out_dir'], 'rectified_disp.tif'),
-                          disp, nodata=float('nan'))
-            geotiff.write_png(os.path.join(j['out_dir'],
-                                           'rectified_mask.png'),
-                              (mask * 255).astype(np.uint8))
-            geotiff.write(os.path.join(j['out_dir'],
-                                       'rectified_disp_confidence.tif'),
-                          conf.astype(np.float32))
-            if cfg.clean_intermediate:
-                _clean_after_matching(cfg, j['out_dir'])
+                disp, valid, j['rect1'], j['rect2'])
+            _write_matching(cfg, j['out_dir'], disp, mask, conf_b[k, :h, :w])
 
 
 # --------------------------------------------------------------------- #
@@ -1056,7 +1100,8 @@ def main(user_cfg, start_from=0, device=None, stage_times=None):
     device.  The port runs in one process: the JAX package's multi-process
     hooks (``parallel/distributed``) and its JAX runtime set-up have no
     counterpart here (ROADMAP M11).  SIFT's host route and any matcher
-    but ``mgm`` raise NotImplementedError before anything is written.  A
+    but ``mgm``, ``mgm_multi`` and ``mgm_multi_lsd`` raise
+    NotImplementedError before anything is written.  A
     dict passed as ``stage_times`` receives each stage's elapsed seconds
     under its banner and, for a triplet, each of 5a-5d's under its own
     label."""

@@ -78,7 +78,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s2p_tpu_torch.core.matching import compute_disparity_map
     from s2p_tpu_torch.ops import homography, morphology, sift, sift_device
     from s2p_tpu_torch.ops.mgm_flow import (mgm_binary_match,
-                                            mgm_binary_match_batch)
+                                            mgm_binary_match_batch,
+                                            mgm_multi_match,
+                                            mgm_multi_match_batch)
+    from s2p_tpu_torch.ops.mgm_flow import MgmVariant
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.stereo_matching_all(Config(), [])
@@ -89,6 +92,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         mgm_binary_match(a[0], a[0], 0, 3)
     with pytest.raises(RuntimeError, match='CUDA'):
         compute_disparity_map(Config(), a[0], a[0], 0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mgm_multi_match(a[0], a[0], 0, 3, MgmVariant())
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mgm_multi_match_batch(a, a, [0], 4, [8], [8], [8], [4])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.stereo_matching(Config(), {'dir': 'tile'}, 1)
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.rectification_all(Config(), [])
     with pytest.raises(RuntimeError, match='CUDA'):

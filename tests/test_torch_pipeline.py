@@ -149,7 +149,7 @@ def test_clean_intermediate_removes_dead_inputs(tmp_path, n_images):
 def test_unported_matcher_raises():
     with pytest.raises(NotImplementedError, match='M12'):
         tpipe.stereo_matching_all(
-            state.config_from_state({'matching_algorithm': 'mgm_multi'}), [],
+            state.config_from_state({'matching_algorithm': 'sgbm'}), [],
             device='cpu')
 
 

@@ -29,6 +29,9 @@ What is held, and how:
     readers, their profiles equal;
   * end to end: the two ``dsm.tif`` at the reference's pair tolerances
     (``tests/test_end2end.py`` ``compare_dsm``);
+  * ``main`` from stage 4 with ``mgm_multi`` and ``mgm_multi_lsd``:
+    ``dsm.tif`` within stated bounds of the mgm run's, and ``mgm_multi``'s
+    stage-4 files byte for byte against the JAX package's driver;
   * ``main``'s resume contracts and its refusals.
 
 ``pytest -s`` prints the measured figures.
@@ -364,6 +367,45 @@ def test_refused_up_front(scene, tmp_path, change, match):
     with pytest.raises(NotImplementedError, match=match):
         tpipe.main(d, device='cpu')
     assert not os.path.exists(tmp_path / 'out')
+
+
+@pytest.mark.parametrize('algo', ['mgm_multi', 'mgm_multi_lsd'])
+def test_cascade_matchers_through_main(scene, tmp_path, algo):
+    """``main`` from stage 4 with the cascade matchers on a copy of the
+    JAX run's tree writes ``dsm.tif``, within the JAX package's mgm_multi
+    sanity bounds of the mgm run's (``tests/test_end2end.py``: |mean|
+    0.05 m, p99 2 m, valid counts within 5%); with ``mgm_multi`` its
+    stage-4 files equal the JAX package's batch driver's on the same
+    stage-3 files."""
+    out = str(tmp_path / algo)
+    shutil.copytree(scene['jax'], out)
+    d = _user_cfg(scene['base'], 'jax', out)
+    d['matching_algorithm'] = algo
+    tpipe.main(d, start_from=4, device='cpu')
+    if algo == 'mgm_multi':
+        ref = str(tmp_path / 'jax_stage4')
+        shutil.copytree(scene['jax'], ref)
+        jpipe.stereo_matching_all(
+            jconfig.Config(out_dir=ref, matching_algorithm=algo),
+            [({'dir': t}, 1) for t in _tiles(ref)])
+        for a, b in zip(_tiles(ref), _tiles(out)):
+            for n in STAGE4:
+                assert _read(os.path.join(a, 'pair_1', n)) == \
+                    _read(os.path.join(b, 'pair_1', n)), n
+            _same(tgeotiff.read_png(os.path.join(b, 'pair_1',
+                                                 'rectified_mask.png')),
+                  jgeotiff.read_png(os.path.join(a, 'pair_1',
+                                                 'rectified_mask.png')))
+    got = tgeotiff.read_with_nans(os.path.join(out, 'dsm.tif'))
+    want = tgeotiff.read_with_nans(os.path.join(scene[4], 'dsm.tif'))
+    assert got.shape == want.shape and np.isfinite(got).mean() > 0.5
+    np.testing.assert_allclose(np.isfinite(got).sum(),
+                               np.isfinite(want).sum(), rtol=0.05)
+    diff = (got - want)[np.isfinite(got - want)]
+    print(f'{algo} against mgm: mean {diff.mean():.4g} m, p99 '
+          f'{np.percentile(np.abs(diff), 99):.4g} m')
+    assert abs(diff.mean()) <= 0.05
+    assert np.percentile(np.abs(diff), 99) <= 2.0
 
 
 def test_main_without_a_device_needs_cuda(scene, tmp_path, monkeypatch):
