@@ -51,8 +51,8 @@ the JAX package.  Phases, each timed on a line of its own:
      padded to 832 x 896 with 96 candidates) through
      ``pipeline.stereo_matching_all`` on the card, one call per bucket
      (the launches of each counted apart); the files it writes are
-     checked for shape and for the known shift of each tile, and two
-     tiles of each bucket are held bitwise against the same entry run
+     checked for shape and for the known shift of each tile, and one
+     tile of each bucket is held bitwise against the same entry run
      with device="cpu" (the plain versions);
   5b. stage 5 on bucket A's 8 tiles after stage 4 wrote them
      (``pipeline.disparity_to_ply_all`` with the 3D filter on, two
@@ -136,7 +136,7 @@ the JAX package.  Phases, each timed on a line of its own:
      direction by direction and K3 against their plain versions on the
      inputs the cascade gives them at the scene's bucket (its finest
      level), and K3 against its plain version and the port's torch
-     ``_wta_refine`` at every level; two tiles' stage 4 with
+     ``_wta_refine`` at every level; one tile's stage 4 with
      device="cpu", the three files byte for byte; the clouds' altitudes
      and dsm.tif as in 8b; then the cascade on the single tile of phase
      10 at full width (797 x 803, range -40..55, 6 levels) through
@@ -145,6 +145,29 @@ the JAX package.  Phases, each timed on a line of its own:
      ``mgm_multi_lsd`` through stage 4's per-tile route on one of the
      scene's tiles (the host LSD of its two images included), card
      against device="cpu", the files byte for byte;
+ 8f. (run right after 8e) two processes on the one card over a gloo
+     group (both on cuda:0, each building the kernels into one shared
+     empty directory, so the build's file lock is exercised):
+     ``pipeline.main`` of the pair scene from stage 2 with
+     ``clean_intermediate`` on, and of the triplet from stage 5, on copies
+     of 8b's and 8d's trees; each process's tiles and stage times; the
+     blocks disjoint and covering ``tiles.txt``; both dsm.tif bitwise
+     against the one-process runs; then ``parallel/mesh.py`` and
+     ``parallel/halo.py`` (the matcher on 4 tiles of 256 x 256 with the
+     MGM wavefront and with the kernels, the rasterizer on a 2 x 2 grid
+     of 256-cell tiles with 200,000 points each, the global mean, the
+     pointing fit) in both processes against one process on the card:
+     the matcher bitwise, the rest at the JAX tests' tolerances;
+ 8g. the MGM wavefront (``ops/mgm.mgm_aggregate``, eager torch) at the
+     scene bucket's shape (832 x 960, 16 candidates, float costs, P1 2.4
+     and P2 9.6) on the card against device="cpu": S and the votes
+     bitwise; both wall times;
+ 8h. ``sgbm`` through ``pipeline.main`` from stage 4 on a copy of 8b's
+     tree (stages 4 to 7 on the card): each stage's time, the profiler's
+     CUDA launches over a 128 x 320 crop of one tile (and per wavefront
+     step), no confidence file, one
+     tile's stage 4 with device="cpu" byte for byte, the clouds'
+     altitudes and dsm.tif's valid share;
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -180,7 +203,10 @@ the JAX package.  Phases, each timed on a line of its own:
      797 x 803 tile; a 128 x 160 crop with edge_subpix against
      device="cpu" byte for byte, and the WTA calls of the card's run (its
      single-tile modes) against their plain version on the partials that
-     run gave them; the 800 x 800 call's wall time;
+     run gave them; the 800 x 800 call's wall time; at non-integer
+     penalties (P1 2.4, P2 9.6: ``stereo_regularity_multiplier`` 0.3) a
+     128 x 160 crop byte for byte against device="cpu" and the 800 x 800
+     tile bitwise against the batch entry on the card;
  11. the lane-folded batch: bucket A's 8 tiles with S2P_TPU_LANE_FOLD=2
      (the fold of phase 9's check: 4 groups of 2), then 3 (two groups of
      3 and a 2-tile tail), each bitwise per tile against the unfolded
@@ -3073,7 +3099,7 @@ def run_multi(scene_root, root, cpu_root, stats, launches, card, mgm_walls):
     """Phase 8e: the pair scene (a copy of 8b's tree) through
     ``pipeline.main`` from stage 4 with ``mgm_multi``; stage 4's time
     beside 8b's ``mgm`` stage 4 (``mgm_walls``), its peak device memory
-    and the launches over main; two tiles' stage-4 files against
+    and the launches over main; one tile's stage-4 files against
     device="cpu"; K2 and K3 against their plain versions on the inputs
     the cascade gives them at the scene's bucket; the clouds' altitudes
     and the DSM as in 8b.  Then the cascade on the full single tile and a
@@ -3134,9 +3160,9 @@ def run_multi(scene_root, root, cpu_root, stats, launches, card, mgm_walls):
     pairs = [(t, 1) for t in tiles]
     check_multi_kernels(cfg, pairs, stats)
 
-    # two tiles' stage 4 with device="cpu" on the same stage-3 files
+    # one tile's stage 4 with device="cpu" on the same stage-3 files
     cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
-    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles[:2]]
+    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles[:1]]
     names = ('rectified_ref.tif', 'rectified_sec.tif', 'disp_min_max.txt')
     for a, b in zip(tiles, cpu_tiles):
         os.makedirs(os.path.join(b['dir'], 'pair_1'))
@@ -3146,13 +3172,13 @@ def run_multi(scene_root, root, cpu_root, stats, launches, card, mgm_walls):
     t0 = time.perf_counter()
     pipeline.stereo_matching_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
                                  device='cpu')
-    print(f'  mgm_multi stage 4 of two tiles with device="cpu": '
+    print(f'  mgm_multi stage 4 of one tile with device="cpu": '
           f'{time.perf_counter() - t0:.3f} s', flush=True)
     n = files_equal([(os.path.join(a['dir'], 'pair_1', f),
                       os.path.join(b['dir'], 'pair_1', f))
                      for a, b in zip(tiles, cpu_tiles) for f in STAGE4_FILES],
                     'mgm_multi stage 4')
-    print(f'  mgm_multi stage 4: {n} files of two tiles equal the CPU run '
+    print(f'  mgm_multi stage 4: {n} files of one tile equal the CPU run '
           'byte for byte', flush=True)
 
     alts = []
@@ -3364,6 +3390,427 @@ def check_multi_single(cpu_root):
         raise AssertionError('mgm_multi: the crop differs from the CPU run')
 
 
+# --------------------------------------------------------------------- #
+# several processes on the card (parallel/), the lax matcher routes
+# --------------------------------------------------------------------- #
+
+# the repair of the single tile: non-integer penalties (m 0.3)
+M03 = dict(p1=8.0 * 0.3, p2=32.0 * 0.3)
+# mesh and halo across ranks: the matcher's tiles, the rasterizer's grid
+MESH_TILES = dict(n=4, h=256, w=256, dmin=-2, dmax=13, shift=3.0)
+HALO_GRID = dict(nty=2, ntx=2, gw=256, gh=256, halo=4, res=0.5, radius=2,
+                 sigma=0.8, n_pts=200_000)
+DSM_TOL = dict(rtol=1e-4, atol=1e-3)     # tests/test_parallel_mesh.py
+SGBM_CROP = (128, 320)                   # sgbm's launches, counted here
+
+_WORKER = r"""
+import json, os, sys, time
+spec = json.load(open(sys.argv[1]))
+sys.path.insert(0, spec['repo'])
+import numpy as np
+import torch
+from s2p_tpu_torch.ops import _build
+_build._BUILD = spec['build']            # an empty directory, shared
+from s2p_tpu_torch import pipeline
+from s2p_tpu_torch.parallel import distributed as dist
+from s2p_tpu_torch.parallel import mesh as tmesh
+import chip_smoke
+rank = spec['rank']
+dist.init(f"localhost:{spec['port']}", 2, rank)
+report = {'rank': rank}
+for name, start in (('pair', 2), ('triplet', 5)):
+    if not spec.get(name):
+        continue
+    user = json.load(open(spec[name]))
+    times = {}
+    t0 = time.perf_counter()
+    pipeline.main(user, start_from=start, stage_times=times)
+    torch.cuda.synchronize()
+    with open(os.path.join(user['out_dir'], 'tiles.txt')) as f:
+        tiles = [line.strip() for line in f if line.strip()]
+    report[name] = {'tiles': dist.partition_tiles(tiles), 'times': times,
+                    'wall': time.perf_counter() - t0,
+                    'device': str(torch.cuda.current_device())}
+t0 = time.perf_counter()
+res = chip_smoke.parallel_cases(tmesh.TileMesh())
+report['mesh_wall'] = time.perf_counter() - t0
+np.savez(spec['out'] + '.npz', **res)
+with open(spec['out'] + '.json', 'w') as f:
+    json.dump(report, f)
+dist.barrier('done')
+"""
+
+
+def parallel_inputs():
+    """The inputs of the mesh and halo cases, made from seeds."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    m = MESH_TILES
+    tex = rng.rand(m['n'], m['h'], m['w'] + 8).astype(np.float32) * 200
+    tex = (tex + np.roll(tex, 1, 1) + np.roll(tex, 1, 2)) / 3
+    im2 = tex[:, :, :m['w']].copy()
+    im1 = np.roll(tex, -int(m['shift']), axis=2)[:, :, :m['w']].copy()
+    im1[:, :4] = np.nan
+    im2[:, :, -6:] = np.nan
+    g = HALO_GRID
+    n = g['nty'] * g['ntx']
+    spill = (g['halo'] - g['radius']) * g['res']
+    x0, y0 = 5000.0, 200.0
+    pts = np.zeros((n, g['n_pts'], 3), np.float32)
+    xoffs, yoffs = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    for k in range(n):
+        ty, tx = divmod(k, g['ntx'])
+        xoffs[k] = x0 + tx * g['gw'] * g['res']
+        yoffs[k] = y0 - ty * g['gh'] * g['res']
+        x = xoffs[k] + rng.uniform(-spill, g['gw'] * g['res'] + spill,
+                                   g['n_pts'])
+        y = yoffs[k] - rng.uniform(-spill, g['gh'] * g['res'] + spill,
+                                   g['n_pts'])
+        x = np.clip(x, x0, x0 + g['ntx'] * g['gw'] * g['res'] - 1e-3)
+        y = np.clip(y, y0 - g['nty'] * g['gh'] * g['res'] + 1e-3, y0)
+        pts[k] = np.column_stack([x, y, rng.uniform(10, 50, g['n_pts'])])
+    dsm = dict(tile_points=pts,
+               tile_valid=rng.rand(n, g['n_pts']) > 0.02, xoffs=xoffs,
+               yoffs=yoffs, res=g['res'], gw=g['gw'], gh=g['gh'],
+               halo=g['halo'], grid_shape=(g['nty'], g['ntx']),
+               radius=g['radius'], sigma=g['sigma'])
+    alts = rng.rand(4, 512, 512).astype(np.float32) * 100
+    alts[1, :40] = np.nan
+    centers = rng.uniform(0, 20000, (64, 2))
+    M = np.array([[1.0, 0.001, 3.0], [-0.002, 0.999, -7.0], [0, 0, 1.0]])
+    corrected = (np.column_stack([centers, np.ones(64)]) @ M.T)[:, :2]
+    return dict(im1=im1, im2=im2, dsm=dsm, alts=alts, centers=centers,
+                corrected=corrected)
+
+
+def parallel_cases(mesh):
+    """The mesh and halo functions on ``mesh`` (its ranks on the card):
+    {name: numpy result}, with each function's wall time printed."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.ops.sgm import SgmParams
+    from s2p_tpu_torch.parallel import halo, mesh as tmesh
+    ins = parallel_inputs()
+    m = MESH_TILES
+    out = {}
+    for name, params in (('match_mgm', SgmParams()),
+                         ('match_classic', SgmParams(mgm=False))):
+        t0 = time.perf_counter()
+        r = tmesh.sharded_matching_step(mesh, ins['im1'], ins['im2'],
+                                        m['dmin'], m['dmax'], params)
+        print(f'  rank {mesh.rank} of {mesh.n}: sharded_matching_step '
+              f'({name}) {time.perf_counter() - t0:.3f} s', flush=True)
+        for k, v in r.items():
+            out[f'{name}_{k}'] = v
+    t0 = time.perf_counter()
+    out['dsm'] = halo.sharded_dsm(mesh, **ins['dsm'])
+    torch.cuda.synchronize()
+    print(f'  rank {mesh.rank} of {mesh.n}: sharded_dsm '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    out['mean'] = np.float64(tmesh.global_mean_height_allreduce(
+        mesh, ins['alts']))
+    out['fit'] = halo.distributed_pointing_fit(mesh, ins['centers'],
+                                               ins['corrected'])
+    return out
+
+
+def check_parallel(got, want, what):
+    """Two ranks' results against one rank's: the matcher bitwise, the
+    rasterizer (atomic sums on the card) at the JAX tests' tolerances, the
+    mean and the fit likewise."""
+    import numpy as np
+    import torch
+    for name in ('match_mgm', 'match_classic'):
+        for k in ('disp', 'valid', 'confidence'):
+            ok, err = equal(torch.from_numpy(np.asarray(got[f'{name}_{k}'])),
+                            torch.from_numpy(np.asarray(want[f'{name}_{k}'])))
+            if not ok:
+                raise AssertionError(f'{what}: {name} {k} differs from one '
+                                     f'rank (max abs error {err})')
+        d = want[f'{name}_disp'][:, 8:-8, 8:-8]
+        fin = np.isfinite(d)
+        shift = float(np.median(np.abs(d[fin] - MESH_TILES['shift'])))
+        if fin.mean() < 0.5 or shift > 0.3:
+            raise AssertionError(f'{what}: {name} misses the shift')
+    a, b = got['dsm'], want['dsm']
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f'{what}: the DSM tiles differ in shape or NaN')
+    fin = ~np.isnan(b)
+    np.testing.assert_allclose(a[fin], b[fin], **DSM_TOL)
+    if not np.isclose(float(got['mean']), float(want['mean']), rtol=1e-5):
+        raise AssertionError(f'{what}: global mean {got["mean"]} against '
+                             f'{want["mean"]}')
+    np.testing.assert_allclose(got['fit'], want['fit'], rtol=1e-3, atol=1e-3)
+    print(f'  {what}: matcher (mgm and classic) bitwise, DSM tiles within '
+          f'{DSM_TOL} (max abs {float(np.abs(a[fin] - b[fin]).max())}, '
+          f'{int(fin.sum())} cells), mean and fit within tolerance',
+          flush=True)
+
+
+def run_two_processes(tmp, card):
+    """Two processes on the one card over a gloo group (both on cuda:0),
+    each from an empty shared build directory: ``pipeline.main`` of the
+    pair scene from stage 2 and of the triplet from stage 5 on copies of
+    the one-process runs' trees (``clean_intermediate`` on for the pair),
+    then the mesh and halo functions.  Each process's tiles and stage
+    times; both dsm.tif bitwise against the one-process runs; the blocks
+    disjoint and covering the tiling; mesh and halo against one process
+    on the card."""
+    import socket
+    import numpy as np
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.geo import geotiff
+    from s2p_tpu_torch.parallel import mesh as tmesh
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = {'repo': repo, 'build': os.path.join(tmp, 'build_two')}
+    os.makedirs(spec['build'])
+    for name, src in (('pair', 'scene'), ('triplet', 'triplet')):
+        root = os.path.join(tmp, f'{src}_two')
+        shutil.copytree(os.path.join(tmp, src), root)
+        user = pipeline.read_config_file(os.path.join(root, 'config.json'))
+        user['clean_intermediate'] = name == 'pair'
+        os.remove(os.path.join(user['out_dir'], 'dsm.tif'))
+        spec[name] = os.path.join(tmp, f'{name}_two.json')
+        with open(spec[name], 'w') as f:
+            json.dump(user, f)
+        spec[name + '_out'] = user['out_dir']
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        spec['port'] = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for k in (0, 1):
+        path = os.path.join(tmp, f'worker_{k}.json')
+        with open(path, 'w') as f:
+            json.dump(dict(spec, rank=k,
+                           out=os.path.join(tmp, f'worker_{k}')), f)
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', _WORKER, path], cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for k, (p, log) in enumerate(zip(procs, logs)):
+        lines = [ln.strip() for ln in log.splitlines()
+                 if ln.startswith('  rank')]
+        print(f'  process {k}: exit {p.returncode}; ' + '; '.join(lines),
+              flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f'process {k} failed:\n{log[-4000:]}')
+    reports = [json.load(open(os.path.join(tmp, f'worker_{k}.json')))
+               for k in (0, 1)]
+    print(f'  two processes: {wall:.3f} s of wall time from their start '
+          f'(an empty build directory each, {len(os.listdir(spec["build"]))}'
+          f' entries after) on {card}', flush=True)
+    for name, src in (('pair', 'scene'), ('triplet', 'triplet')):
+        out = spec[name + '_out']
+        with open(os.path.join(out, 'tiles.txt')) as f:
+            tiles = [ln.strip() for ln in f if ln.strip()]
+        blocks = [r[name]['tiles'] for r in reports]
+        if (not all(blocks) or set(blocks[0]) & set(blocks[1])
+                or sorted(blocks[0] + blocks[1]) != sorted(tiles)):
+            raise AssertionError(f'{name}: the blocks {blocks} do not '
+                                 f'split the tiling {tiles}')
+        for r in reports:
+            rep = r[name]
+            stages = {k.split(')')[0]: round(v, 3)
+                      for k, v in rep['times'].items()}
+            print(f"  {name}, process {r['rank']} (cuda:{rep['device']}): "
+                  f"tiles {[t.split('/')[1:3] for t in rep['tiles']]}, "
+                  f"main {rep['wall']:.3f} s, stage seconds {stages}",
+                  flush=True)
+        one = os.path.join(tmp, src)
+        one_user = pipeline.read_config_file(os.path.join(one,
+                                                          'config.json'))
+        a = geotiff.read_with_nans(os.path.join(out, 'dsm.tif'))
+        b = geotiff.read_with_nans(os.path.join(one_user['out_dir'],
+                                                'dsm.tif'))
+        if a.shape != b.shape or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f'{name}: the two-process dsm.tif differs '
+                                 'from the one-process run')
+        print(f'  {name}: the two-process dsm.tif ({a.shape}, '
+              f'{int(np.isfinite(a).sum())} valid cells) equals the '
+              'one-process run bitwise', flush=True)
+    t0 = time.perf_counter()
+    one = parallel_cases(tmesh.TileMesh())
+    print(f'  mesh and halo in one process: {time.perf_counter() - t0:.3f} '
+          's; in two: ' + ', '.join(f"{r['mesh_wall']:.3f} s"
+                                    for r in reports), flush=True)
+    for k in (0, 1):
+        got = dict(np.load(os.path.join(tmp, f'worker_{k}.npz')))
+        check_parallel(got, one, f'mesh and halo, rank {k} of 2')
+
+
+def check_wavefront():
+    """``ops.mgm.mgm_aggregate`` (eager torch, no kernel of its own) on
+    the card against device="cpu" at the scene bucket's shape (832 x 960,
+    16 candidates), float costs and non-integer penalties: S and the
+    votes bitwise; both wall times (its launches are counted in
+    :func:`run_sgbm`, whose tiles run it)."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.ops import mgm
+    rng = np.random.RandomState(5)
+    cost = torch.from_numpy((rng.rand(832, 960, 16) * 20).astype(np.float32))
+    args = (2.4, 9.6, 8, 3)
+    t0 = time.perf_counter()
+    S_c, v_c = mgm.mgm_aggregate(cost, *args)
+    t_cpu = time.perf_counter() - t0
+    gpu = cost.cuda()
+    mgm.mgm_aggregate(gpu[:64, :64], *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S_g, v_g = mgm.mgm_aggregate(gpu, *args)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    ok, err = equal(S_g.cpu(), S_c)
+    ok_v, _ = equal(v_g.cpu(), v_c)
+    print(f'  mgm_aggregate 832 x 960 x 16 (tsgm 3, 8 traversals): card '
+          f'{t_gpu:.3f} s, CPU {t_cpu:.3f} s; S bitwise {ok} (max abs '
+          f'error {err}), votes bitwise {ok_v}', flush=True)
+    if not (ok and ok_v):
+        raise AssertionError('mgm_aggregate: the card differs from the CPU')
+
+
+def run_sgbm(scene_root, root, cpu_root, card):
+    """``sgbm`` through ``pipeline.main`` from stage 4 on a copy of 8b's
+    tree (stages 4 to 7 on the card): stage 4's time, its launches (the
+    wavefront is eager torch: the profiler's count over SGBM_CROP of one
+    tile, and per wavefront step), no confidence file; one tile's stage 4
+    with device="cpu", the disparity and mask byte for byte; the clouds'
+    altitudes and the dsm.tif's valid share."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline, tiling
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.geo import geotiff, ply
+
+    shutil.copytree(scene_root, root)
+    user = pipeline.read_config_file(os.path.join(root, 'config.json'))
+    user['matching_algorithm'] = 'sgbm'
+    for d in os.listdir(os.path.join(user['out_dir'], 'tiles')):
+        for c in os.listdir(os.path.join(user['out_dir'], 'tiles', d)):
+            conf = os.path.join(user['out_dir'], 'tiles', d, c, 'pair_1',
+                                'rectified_disp_confidence.tif')
+            if os.path.exists(conf):
+                os.remove(conf)
+    stage_times = {}
+    t0 = time.perf_counter()
+    cfg = pipeline.main(user, start_from=4, stage_times=stage_times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for label, t in stage_times.items():
+        print(f'  sgbm {label} {t:.3f} s', flush=True)
+    print(f'  sgbm: main from stage 4 {wall:.3f} s on {card}', flush=True)
+    tw, th = tiling.adjust_tile_size(cfg)
+    tiles = tiling.tiles_full_info(cfg, tw, th,
+                                   os.path.join(cfg.out_dir, 'tiles.txt'))
+    # the profiler over a crop of one tile (over a whole tile it takes
+    # about two minutes): the wavefront's launches per step
+    pdir = os.path.join(tiles[0]['dir'], 'pair_1')
+    h, w = SGBM_CROP
+    crop = [geotiff.read(os.path.join(pdir, f'rectified_{n}.tif'))[:h, :w]
+            for n in ('ref', 'sec')]
+    lo, hi = np.loadtxt(os.path.join(pdir, 'disp_min_max.txt'))
+    full = geotiff.read(os.path.join(pdir, 'rectified_ref.tif')).shape
+    t0 = time.perf_counter()
+    kernels, dev_ms = count_launches(
+        lambda: matching.compute_disparity_map(cfg, *crop, lo, hi))
+    t_prof = time.perf_counter() - t0
+    if kernels is None:
+        raise AssertionError('sgbm: the profiler saw no CUDA launch')
+
+    def steps(shape):
+        # match_pair pads to multiples of 64; a half pass steps over the
+        # skewed diagonals t = x + 2y
+        hp, wp = (-(-n // 64) * 64 for n in shape)
+        return wp + 2 * (hp - 1)
+    per_step = kernels / (2 * steps(crop[0].shape))
+    print(f'  sgbm stage 4 of a {h} x {w} crop of one tile (range [{lo}, '
+          f'{hi}]) under the profiler: {kernels} CUDA launches, {dev_ms} '
+          f'ms of device time, {t_prof:.3f} s of wall time; '
+          f'{per_step:.1f} launches a wavefront step ({steps(crop[0].shape)}'
+          f' steps a half pass; a {full[0]} x {full[1]} tile has '
+          f'{steps(full)}); {len(tiles)} tiles in the scene', flush=True)
+    cpu_cfg = dataclasses.replace(cfg, out_dir=cpu_root)
+    cpu_tiles = [moved(t, cfg.out_dir, cpu_root) for t in tiles[:1]]
+    for a, b in zip(tiles, cpu_tiles):
+        os.makedirs(os.path.join(b['dir'], 'pair_1'))
+        for n in ('rectified_ref.tif', 'rectified_sec.tif',
+                  'disp_min_max.txt'):
+            shutil.copy(os.path.join(a['dir'], 'pair_1', n),
+                        os.path.join(b['dir'], 'pair_1'))
+    t0 = time.perf_counter()
+    pipeline.stereo_matching_all(cpu_cfg, [(t, 1) for t in cpu_tiles],
+                                 device='cpu')
+    print(f'  sgbm stage 4 of one tile with device="cpu": '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    n = files_equal([(os.path.join(a['dir'], 'pair_1', f),
+                      os.path.join(b['dir'], 'pair_1', f))
+                     for a, b in zip(tiles, cpu_tiles)
+                     for f in ('rectified_disp.tif', 'rectified_mask.png')],
+                    'sgbm stage 4')
+    alts = []
+    for t in tiles:
+        pdir = os.path.join(t['dir'], 'pair_1')
+        if os.path.exists(os.path.join(pdir, STAGE4_FILES[1])):
+            raise AssertionError('sgbm wrote a confidence file')
+        pts, _ = ply.read_ply(os.path.join(t['dir'], 'cloud.ply'))
+        alts.append(np.abs(pts[:, 2] - SCENE_H0))
+    err = np.concatenate(alts)
+    med = float(np.median(err))
+    dsm = geotiff.read_with_nans(os.path.join(cfg.out_dir, 'dsm.tif'))
+    share = float(np.isfinite(dsm).mean())
+    print(f'  sgbm: {n} stage-4 files of one tile equal the CPU run byte '
+          f'for byte, no confidence file; cloud {len(err)} points, '
+          f'|altitude - {SCENE_H0}| median {med:.3f} m; dsm.tif '
+          f'{dsm.shape}, {share:.4f} valid', flush=True)
+    if med > SCENE_ALT_TOL_M[0] or share < 0.5:
+        raise AssertionError('sgbm: the cloud or the DSM misses the scene')
+
+
+def check_single_m03(pairs):
+    """The single tile at non-integer penalties (m 0.3): a 128 x 160 crop
+    on the card against device="cpu" byte for byte, and the 800 x 800
+    tile on the card against the batch entry on the card, bitwise."""
+    import numpy as np
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    v = mf.MgmVariant(**M03)
+    im1, im2 = (im[:128, :160].copy() for im in pairs[SINGLE['index']])
+    gpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v)
+    cpu = mf.mgm_binary_match(im1, im2, SINGLE['dmin'], SINGLE['dmax'], v,
+                              device='cpu')
+    for name, x, y in zip(('disp', 'confidence'), gpu, cpu):
+        ok, err = equal(x.cpu(), y)
+        if not ok:
+            raise AssertionError(f'single tile at m 0.3: {name} differs '
+                                 f'from the CPU run (max abs error {err})')
+    spec = SINGLE_800
+    im1, im2 = pairs[spec['index']]
+    D = spec['dmax'] - spec['dmin'] + 1
+    disp, conf = mf.mgm_binary_match(im1, im2, spec['dmin'], spec['dmax'], v)
+    ref = mf.mgm_binary_match_batch(im1[None], im2[None], [spec['dmin']], D,
+                                    [spec['h']], [spec['w1']], [spec['w2']],
+                                    [D], v)
+    for name, x, y in (('disp', disp, ref['disp'][0]),
+                       ('confidence', conf, ref['confidence'][0])):
+        ok, err = equal(x, y)
+        if not ok:
+            raise AssertionError(f'single tile at m 0.3: {name} differs '
+                                 f'from the batch entry ({err})')
+    fin = np.isfinite(disp.cpu().numpy()).mean()
+    print(f'  m 0.3 (P1 {M03["p1"]}, P2 {M03["p2"]}): crop 128 x 160 equal '
+          'to the CPU run byte for byte; 800 x 800 equal to the batch '
+          f'entry bitwise ({fin:.4f} finite)', flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3437,7 +3884,7 @@ def main():
         tiles = {b: [(write_tile(gpu_root, s, *pairs[s['index']]), 1)
                      for s in group]
                  for b, group in (('a', specs_a), ('b', specs_b))}
-        cpu_specs = specs_a[:2] + specs_b[:2]
+        cpu_specs = specs_a[:1] + specs_b[:1]
         cpu_tiles = [(write_tile(cpu_root, s, *pairs[s['index']]), 1)
                      for s in cpu_specs]
         with phase('stage 4 on the card (buckets A and B)'):
@@ -3450,7 +3897,7 @@ def main():
                 print(f'  stereo_matching_all, bucket {b.upper()}: '
                       f'{len(group)} tiles in {time.perf_counter() - t0:.3f}'
                       f" s; launches {launches[f'flow_{b}']}", flush=True)
-        with phase('stage 4 on the CPU (2 tiles of each bucket)'):
+        with phase('stage 4 on the CPU (1 tile of each bucket)'):
             pipeline.stereo_matching_all(cfg, cpu_tiles, device='cpu')
         with phase('stage 4 checks'):
             check_outputs(gpu_root, specs, cpu_root,
@@ -3499,6 +3946,17 @@ def main():
             run_multi(os.path.join(tmp, 'scene'), os.path.join(tmp, 'multi'),
                       os.path.join(tmp, 'multi_cpu'), stats, launches, card,
                       mgm_walls)
+        with phase('two processes on the card (gloo): main of the pair '
+                   'from stage 2 and of the triplet from stage 5, mesh and '
+                   'halo'):
+            run_two_processes(tmp, card)
+        with phase('the MGM wavefront on the card against the CPU (the '
+                   "scene bucket's shape)"):
+            check_wavefront()
+        with phase('sgbm through pipeline.main (stages 4 to 7), card and '
+                   'CPU'):
+            run_sgbm(os.path.join(tmp, 'scene'), os.path.join(tmp, 'sgbm'),
+                     os.path.join(tmp, 'sgbm_cpu'), card)
         with phase('a tile mask from GML rings (host)'):
             time_gml_mask(tmp)
     finally:
@@ -3512,6 +3970,7 @@ def main():
         check_single_path(pairs, single)
         del single
         check_single_crop(pairs, stats, launches)
+        check_single_m03(pairs)
     with phase('the lane-folded batch on the card'):
         from s2p_tpu_torch.ops import mgm_flow as mf
         b1, b2 = bucket_arrays(specs_a, BUCKET_A, pairs)

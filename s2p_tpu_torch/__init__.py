@@ -14,8 +14,10 @@ through :func:`s2p_tpu_torch.pipeline.main` (or ``python3 -m
 s2p_tpu_torch.cli config.json``): the config, RPC loading, the tiling and
 its masks, stages 1 to 5 on the device (SIFT pointing, the global
 pointing fit, rectification, ``mgm`` matching, triangulation) and stages
-6 and 7 on the host (the tile DSMs and their mosaic); also the
-single-tile ``mgm`` entry and the classic SGM census matcher
-(``ops/mgm_flow.py``, ``ops/sgm.py``).  Not yet: three or more images,
-SIFT's host route and the other matchers.
+6 and 7 on the host (the tile DSMs and their mosaic), for two images
+or more; the matchers ``mgm``, ``mgm_multi``, ``mgm_multi_lsd``, ``sgbm``
+and the ``hirschmuller08`` variants (``ops/mgm_flow.py``, ``ops/sgm.py``
+with the MGM wavefront of ``ops/mgm.py``); and several processes over one
+scene on a gloo group (``parallel/``).  Not yet: SIFT's host route and
+the matchers ``hirschmuller02``, ``msmw*`` and ``tvl1``.
 """

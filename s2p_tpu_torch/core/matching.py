@@ -2,10 +2,11 @@
 policy, the rejection mask and the single-pair matcher dispatch.
 
 Counterpart of ``mgm_variant_from_cfg``, ``compute_disparity_map`` (for
-``mgm``, ``mgm_multi`` and ``mgm_multi_lsd``), ``finalize_disparity``,
+``mgm``, ``mgm_multi``, ``mgm_multi_lsd``, ``sgbm`` and the three
+``hirschmuller08`` variants), ``finalize_disparity``,
 ``clamp_disparity_range`` and ``MaxDisparityRangeError`` in
-``s2p_tpu/core/matching.py``.  The other matchers are not ported yet
-(ROADMAP M12).
+``s2p_tpu/core/matching.py``.  ``hirschmuller02``, ``msmw*`` and ``tvl1``
+are not ported yet (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -19,8 +20,12 @@ from ..config import Config
 from ..ops.lsd import lsd_weights
 from ..ops.mgm_flow import MgmVariant, mgm_binary_match, mgm_multi_match
 from ..ops.morphology import remove_small_disparity_speckles
+from ..ops.sgm import SgmParams, match_pair
 
-MATCHERS = ('mgm', 'mgm_multi', 'mgm_multi_lsd')
+# OpenCV's SGBM behind the reference's prefilters (callSGBM*.sh)
+SGBM_MATCHERS = ('sgbm', 'hirschmuller08', 'hirschmuller08_laplacian',
+                 'hirschmuller08_cauchy')
+MATCHERS = ('mgm', 'mgm_multi', 'mgm_multi_lsd') + SGBM_MATCHERS
 
 
 class MaxDisparityRangeError(Exception):
@@ -42,6 +47,23 @@ def mgm_variant_from_cfg(cfg: Config) -> MgmVariant:
     )
 
 
+def _laplacian(img):
+    """Laplacian-of-gaussian prefilter (sigma 1), NaN where the input is
+    not finite."""
+    from scipy.ndimage import gaussian_laplace
+    out = gaussian_laplace(np.nan_to_num(img), sigma=1.0)
+    out[~np.isfinite(img)] = np.nan
+    return out
+
+
+def _cauchy_prefilter(img, scale=32.0):
+    """Cauchy influence prefilter: compresses large intensity excursions
+    around the image's median."""
+    med = np.nanmedian(img)
+    out = scale * np.arctan((img - med) / scale)
+    return out.astype(np.float32)
+
+
 def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
                           disp_max=None, algo=None, max_disp_range=None,
                           device=None):
@@ -53,9 +75,10 @@ def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
             by :func:`clamp_disparity_range`.
         device: None for CUDA (raises without it), or "cpu".
     Returns:
-        (disp, mask, confidence) numpy arrays: float32 disparity (NaN
-        invalid), the uint8 validity mask and the float32 consensus
-        confidence.  Any matcher but those of ``MATCHERS`` raises."""
+        (disp, mask, confidence): numpy float32 disparity (NaN invalid),
+        the uint8 validity mask and the float32 consensus confidence, None
+        for the SGBM matchers.  Any matcher but those of ``MATCHERS``
+        raises."""
     algo = algo or cfg.matching_algorithm
     im1 = np.asarray(im1, dtype=np.float32)
     im2 = np.asarray(im2, dtype=np.float32)
@@ -65,6 +88,23 @@ def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
         raise NotImplementedError(
             f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
             f'runs {", ".join(MATCHERS)}')
+    if algo in SGBM_MATCHERS:
+        # OpenCV-style SGBM: Birchfield-Tomasi over a 3x3 block, P1/P2
+        # 8/32 times the block area, parabola subpixel, uniqueness ratio
+        # 10, no median, then the speckle filter (50 px, range 1)
+        if algo == 'hirschmuller08_laplacian':
+            im1, im2 = _laplacian(im1), _laplacian(im2)
+        elif algo == 'hirschmuller08_cauchy':
+            im1, im2 = _cauchy_prefilter(im1), _cauchy_prefilter(im2)
+        params = SgmParams(census_win=3, cost='bt', p1=8.0 * 9, p2=32.0 * 9,
+                           nb_dir=8, subpix='parabola', median=False,
+                           lr_tau=1.0, lr_enabled=True, uniqueness_ratio=10.0)
+        disp, valid, _ = match_pair(im1, im2, disp_min, disp_max, params,
+                                    device=device)
+        valid = remove_small_disparity_speckles(
+            np.nan_to_num(disp), valid, 50, tol=1.0)
+        disp = np.where(valid, disp, np.nan)
+        return finalize_disparity(disp, valid, im1, im2) + (None,)
     variant = mgm_variant_from_cfg(cfg)
     if algo == 'mgm':
         disp, conf = mgm_binary_match(im1, im2, disp_min, disp_max, variant,

@@ -11,11 +11,14 @@ give 0 bits), BIG = 1e9 for out-of-range candidates, the classic
 NaN-discarding median on both maps before the left-right test, and the
 consensus confidence of the L side's per-direction votes.
 
-The single tile runs on the kernels for CUDA tensors
-(``sgm_kernels.flow_one_side``) and on its plain reference for CPU
-tensors: the (h, w, D) cost volume (:func:`census_cost_raw`), the scans
-direction by direction (:func:`_aggregate_flow`) and the WTA
-(:func:`_wta_refine`), the JAX package's lax route.
+The single tile runs the kernels' route (``sgm_kernels.flow_one_side``:
+the pre-pass, the four scans, the WTA) on both devices, the kernels for
+CUDA tensors and their plain versions for CPU tensors, so that both sum
+the directions in one order, the kernels' (the JAX package's TPU route).
+With ``tsgm >= 2`` every entry runs the JAX package's lax route on the
+tensors' device: the (h, w, D) cost volume (:func:`census_cost_raw`), the
+MGM wavefront (:func:`_aggregate_flow`, ``ops/mgm.py``) and the WTA
+(:func:`_wta_refine`), tile by tile.
 
 Batched tiles share a padded (B, H, W) shape.  Every tile is rebased to
 disparity base 0: its base rides a column shift of the secondary
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from .mgm import mgm_aggregate
 from .sgm_kernels import (_PAD_BIT, _VALID_BIT, _fma32, _popcount,
                           flow_one_side, flow_partials_folded,
                           flow_partials_sides, scan, unfold_lanes_v, wta)
@@ -148,8 +152,9 @@ def _aggregate_scans(cost, v: MgmVariant, p2_map=None, emit_votes=True):
     Returns (S (B, H, D, W) float32, votes: per direction a (B, H, W)
     int32 map, None without ``emit_votes``)."""
     if v.tsgm != 1:
-        raise NotImplementedError('tsgm >= 2 (the TSGM wavefront) is not '
-                                  'ported yet (ROADMAP M12)')
+        raise NotImplementedError('the cascade with tsgm >= 2 (the MGM '
+                                  'wavefront per level) is not ported yet '
+                                  '(ROADMAP M12)')
     B, H, W, D = cost.shape
     dirs = _DIRS_8[:max(2, min(v.nb_dir, 8))]
     vols = {'v': cost.permute(0, 1, 3, 2).contiguous(),     # (B, H, D, W)
@@ -178,9 +183,16 @@ def _aggregate_scans(cost, v: MgmVariant, p2_map=None, emit_votes=True):
 
 
 def _aggregate_flow(cost, v: MgmVariant, p2_map=None):
-    """:func:`_aggregate_scans` of one (h, w, D) float32 cost with the JAX
+    """The aggregation of one (h, w, D) float32 cost with the JAX
     package's signature: (S (h, w, D), votes, each (h, w)); ``p2_map``
-    is an optional (h, w) per-pixel P2."""
+    is an optional (h, w) per-pixel P2.  The classic scans of
+    :func:`_aggregate_scans` for tsgm 1, the MGM wavefront
+    (:func:`mgm.mgm_aggregate`) for ``tsgm >= 2``."""
+    if v.tsgm >= 2:
+        S, votes = mgm_aggregate(cost, v.p1, v.p2, nb_dir=v.nb_dir,
+                                 tsgm=v.tsgm, p2_map=p2_map,
+                                 overcount_fix=v.overcount_fix, fan=v.fan)
+        return S, list(votes)
     S, votes = _aggregate_scans(_cost_u8(cost)[None], v,
                                 None if p2_map is None else p2_map[None])
     return S[0].permute(0, 2, 1), [vo[0] for vo in votes]
@@ -315,12 +327,10 @@ def _flow_post(dL, dR, d_int, votes, v: MgmVariant, w2_true, k_lo, k_cnt):
 
 def _check_variant(v: MgmVariant, single_tile=False):
     """Raise on a variant that the port does not run (no other route)."""
-    if v.tsgm != 1:
-        raise NotImplementedError('tsgm >= 2 (the TSGM wavefront) is not '
-                                  'ported yet (ROADMAP M12)')
     if v.census_win ** 2 - 1 > _VALID_BIT:
-        raise NotImplementedError(f'census_win {v.census_win}: the kernels '
-                                  'take windows up to 5x5')
+        raise NotImplementedError(f'census_win {v.census_win}: census '
+                                  'windows above 5x5 are not ported to the '
+                                  'flow yet (ROADMAP M12)')
     if not single_tile and (v.edge_subpix or v.subpix_plateau != 'clip'):
         raise NotImplementedError('edge_subpix and subpix_plateau belong to '
                                   'the single-tile flow (mgm_binary_match)')
@@ -348,10 +358,11 @@ def _side_sigs(sig_ref, sig_sec, base, h_ref, w_ref, w_sec, extra,
 def _mgm_one_side(im1, im2, disp_min: int, D: int, v: MgmVariant, h1=None,
                   w1=None, w2=None, d_true=None, need_votes=True):
     """One side of the single-tile flow on (H, W) images of equal shape:
-    (disp, d_int, votes), NaN beyond ``(h1, w1)``.  CUDA tensors run the
-    kernels, CPU tensors the plain reference."""
+    (disp, d_int, votes), NaN beyond ``(h1, w1)``.  The kernels' route
+    on both devices (the kernels for CUDA tensors, their plain versions
+    for CPU tensors); the lax route with the wavefront for ``tsgm >= 2``."""
     H, W = im1.shape
-    if im1.device.type == 'cuda':
+    if v.tsgm == 1:
         ext = None
         if any(x is not None for x in (h1, w1, w2, d_true)):
             ext = (H if h1 is None else h1, W if w1 is None else w1,
@@ -366,6 +377,7 @@ def _mgm_one_side(im1, im2, disp_min: int, D: int, v: MgmVariant, h1=None,
         cost = census_cost_raw(im1, im2, disp_min, D, v.census_win, h1, w1,
                                w2, d_true)
         S, votes = _aggregate_flow(cost, v)
+        votes = votes if need_votes else [None] * len(votes)
         disp, d_int = _wta_refine(S, disp_min, v)
     if h1 is not None or w1 is not None:
         pad = _pad_mask(H, W, H if h1 is None else h1,
@@ -532,7 +544,9 @@ def mgm_binary_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b,
         d_b: (B,) true candidate counts (default D).
         device: None for CUDA (raises without it), or "cpu".
     With ``S2P_TPU_LANE_FOLD`` above 1, groups of that many tiles run
-    lane-folded (:func:`lane_fold_plan`) and the rest tile by tile.
+    lane-folded (:func:`lane_fold_plan`) and the rest tile by tile.  With
+    ``tsgm >= 2`` every tile runs the lax route (the MGM wavefront) on
+    its own, as the JAX package's batch does.
     Returns:
         dict of (B, Hp, Wp) tensors on the device: 'disp' (float32, NaN =
         rejected), 'confidence' (float32) and 'confidence_u8' (the
@@ -551,7 +565,15 @@ def mgm_binary_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b,
     args = (a, b, dm, int(D), ints(h_b), ints(w1_b), ints(w2_b), d_b,
             variant)
     fold, seg_w = lane_fold_plan(a.shape[2], int(D), a.shape[0])
-    if fold > 1:
+    if variant.tsgm >= 2:
+        # the lax route of the JAX package's batch, tile by tile
+        h_b, w1_b, w2_b = (x.tolist() for x in args[4:7])
+        outs = [_flow_core(a[k], b[k], int(dm[k]), int(D), variant, h_b[k],
+                           w1_b[k], w2_b[k], d_true=int(d_b[k]))
+                for k in range(a.shape[0])]
+        disp = torch.stack([o[0] for o in outs])
+        conf = torch.stack([o[1] for o in outs])
+    elif fold > 1:
         k = a.shape[0] // fold * fold
         head = [x[:k] if torch.is_tensor(x) else x for x in args]
         disp, conf = _flow_lane_folded(*head, fold, seg_w)

@@ -1,22 +1,26 @@
-"""Semi-global matching: the classic SGM census matcher on the kernels.
+"""Semi-global matching: the classic SGM matcher and its lax route.
 
-Counterpart of ``s2p_tpu/ops/sgm.py`` for the route its ``_use_pallas``
-sends to the Pallas kernels: census cost, the independent-scan SGM
-aggregation (:func:`sgm_kernels.match_kernels`: the four passes with the
-cost built in the scan, K4a, then the fused WTA with the right-reference
-disparity, K5), the direction-consensus confidence, the left-right test
-(``lr_mode`` 'volume' from K5's right map, 'full' from a second match with
-the images swapped) and the NaN-aware median variants.  The results equal
-the JAX package's to the bit.
+Counterpart of ``s2p_tpu/ops/sgm.py``.  :func:`sgm_match` takes the route
+the JAX package's ``_use_pallas`` would take with the Pallas backend:
 
-The JAX package sends the rest to its lax path, which is not ported: this
-module raises ``NotImplementedError`` (ROADMAP M12) for ``mgm=True`` (the
-wavefront recursion of ``ops/mgm.py``), the Birchfield-Tomasi cost,
-census windows above 5x5, and a direct :func:`sgm_match` call on a pair of
-unequal shapes or with H, W or D not a multiple of 8.  :func:`match_pair`
-pads, so only the first three reach it.  As in the JAX package, the
-kernel route has no aggregated volume, so ``uniqueness_ratio`` is not
-applied.
+  * the kernels (:func:`sgm_kernels.match_kernels`: the four passes with
+    the census cost built in the scan, K4a, then the fused WTA with the
+    right-reference disparity, K5) for ``mgm=False`` with the census
+    cost, windows up to 5x5, a pair of equal shape and H, W and D
+    multiples of 8;
+  * the lax route everywhere else: the cost volume (census over any
+    window, :func:`census.census_cost_volume_dyn`, or Birchfield-Tomasi,
+    :func:`census.birchfield_tomasi_cost_volume`), then either the MGM
+    wavefront (``mgm=True``, :func:`mgm.mgm_aggregate`) or eight
+    independent scans (:func:`_scan_pass`), and the WTA with its subpixel
+    fit in plain torch on the tensors' device.
+
+Then the direction-consensus confidence, the left-right test
+(``lr_mode`` 'volume' from the right-reference map, 'full' from a second
+match with the images swapped) and the NaN-aware median variants.  As in
+the JAX package, ``uniqueness_ratio`` applies on the lax route only: the
+kernel route keeps no aggregated volume.  The results equal the JAX
+package's to the bit (its jitted run on the lax route).
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .sgm_kernels import _VALID_BIT, match_kernels
+from .census import bt_cost_sum, census_cost_volume_dyn
+from .mgm import mgm_aggregate
+from .sgm_kernels import _VALID_BIT, _fma32, match_kernels
 
 _DIRS_8 = ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1), (1, -1), (-1, 1))
 
@@ -143,37 +149,179 @@ def _p2_map(im1, params, p2_scale=None):
     return p2_vol
 
 
-def _check_kernel_route(shape1, shape2, D, params):
-    """Raise where the JAX package would leave the kernels for its lax
-    path, which the port does not have."""
+def _min_convolution(L, p1, p2):
+    """SGM penalty term of a predecessor row, (N, D) -> (N, D):
+    min(L[d], L[d +- 1] + P1, min_d L + P2) - min_d L; ``p2`` is a scalar
+    or an (N, 1) per-pixel penalty."""
+    inf = torch.full_like(L[:, :1], float('inf'))
+    lm = torch.cat([inf, L[:, :-1]], dim=1)
+    lp = torch.cat([L[:, 1:], inf], dim=1)
+    m = L.amin(dim=1, keepdim=True)
+    return torch.minimum(torch.minimum(L, torch.minimum(lm, lp) + p1),
+                         m + p2) - m
+
+
+def _scan_pass(cost, dx, dy, p1, p2, p2_vol=None):
+    """One classic SGM direction L_r over an (H, W, D) volume: a loop over
+    the scan axis (y when ``dy`` != 0, else x) whose carry, shifted
+    laterally by the diagonal's offset, feeds the min-convolution; the
+    first line and the lanes shifted in from outside get no penalty term.
+    ``p2_vol`` is an optional (H, W) per-pixel P2."""
+    if dy == 0:
+        vol = cost.transpose(0, 1)                   # (W, H, D)
+        flip, lat = dx < 0, 0
+    else:
+        vol = cost
+        flip, lat = dy < 0, dx
+    if flip:
+        vol = vol.flip(0)
+    n, m, D = vol.shape
+    dev = vol.device
+    p1 = torch.tensor(p1, dtype=torch.float32, device=dev)
+    if p2_vol is None:
+        p2_rows = torch.tensor(p2, dtype=torch.float32,
+                               device=dev).expand(n, m, 1)
+    else:
+        pv = p2_vol.transpose(0, 1) if dy == 0 else p2_vol
+        p2_rows = (pv.flip(0) if flip else pv)[..., None]
+    edge = torch.zeros(m, dtype=torch.bool, device=dev)
+    if lat > 0:
+        edge[:lat] = True
+    elif lat < 0:
+        edge[lat:] = True
+    out = torch.empty_like(vol)
+    L = torch.zeros((m, D), dtype=torch.float32, device=dev)
+    for i in range(n):
+        if i == 0:
+            L = vol[0] + torch.zeros_like(L)
+        else:
+            Lp = torch.roll(L, lat, dims=0) if lat else L
+            c = _min_convolution(Lp, p1, p2_rows[i])
+            L = vol[i] + torch.where(edge[:, None], 0.0, c)
+        out[i] = L
+    if flip:
+        out = out.flip(0)
+    return out.transpose(0, 1) if dy == 0 else out
+
+
+def _argmin_last(S):
+    """Lowest index of the minimum over the last axis (int64)."""
+    D = S.shape[-1]
+    mn = S.amin(dim=-1, keepdim=True)
+    ids = torch.arange(D, device=S.device)
+    return torch.where(S == mn, ids, D).amin(dim=-1)
+
+
+def _subpixel(S, d_int, mode):
+    """Subpixel offset from the aggregated costs around the WTA index of
+    an (..., D) volume: a V fit ('vfit') or a parabola ('parabola'),
+    clipped to +-0.5, zero at the range's ends; non-finite neighbours
+    count as the minimum plus 1e6."""
+    D = S.shape[-1]
+
+    def at(idx):
+        return torch.gather(S, -1, idx.unsqueeze(-1)).squeeze(-1)
+
+    c1 = at(d_int)
+    c0 = at((d_int - 1).clamp(min=0))
+    c2 = at((d_int + 1).clamp(max=D - 1))
+    big = c1 + 1e6
+    c0 = torch.where(torch.isfinite(c0), c0, big)
+    c2 = torch.where(torch.isfinite(c2), c2, big)
+    interior = (d_int > 0) & (d_int < D - 1)
+    eps = torch.tensor(1e-9, dtype=torch.float32, device=S.device)
+    if mode == 'vfit':
+        den = 2.0 * (torch.maximum(c0, c2) - c1)
+        off = (c0 - c2) / torch.maximum(den, eps)
+    elif mode == 'parabola':
+        den = c0 - 2.0 * c1 + c2
+        off = 0.5 * (c0 - c2) / torch.maximum(den, eps)
+    else:
+        return torch.zeros_like(c1)
+    return torch.where(interior, off.clamp(-0.5, 0.5), 0.0)
+
+
+def _right_disparity(S, disp_min: int, subpix_mode='vfit'):
+    """Right-reference disparity from the left volume: the WTA of
+    S_R[y, x2, k] = S[y, x2 - (disp_min + k), k] (inf outside the image)
+    with its subpixel fit, negated."""
+    h, w, D = S.shape
+    dev = S.device
+    ks = torch.arange(D, device=dev)
+    xs = torch.arange(w, device=dev)[:, None] - (disp_min + ks)[None, :]
+    inb = (xs >= 0) & (xs < w)
+    S_R = S[:, xs.clamp(0, w - 1), ks[None, :]]
+    S_R = torch.where(inb[None], S_R, float('inf'))
+    kR = _argmin_last(S_R)
+    off = _subpixel(S_R, kR, subpix_mode)
+    return -((float(disp_min) + kR.to(torch.float32)) + off)
+
+
+def _use_kernels(shape1, shape2, D, params) -> bool:
+    """The JAX package's ``_use_pallas`` with the Pallas backend: the
+    kernels take the classic scans of a census cost over windows up to
+    5x5 on a pair of equal shape, with H, W and D multiples of 8."""
+    return (not params.mgm and params.cost == 'census'
+            and params.census_win ** 2 - 1 <= _VALID_BIT
+            and tuple(shape1) == tuple(shape2)
+            and shape1[0] % 8 == 0 and shape1[1] % 8 == 0 and D % 8 == 0)
+
+
+def _aggregate(im1, im2, disp_min: int, D: int, params, p2_scale=None):
+    """The lax route's cost volume and aggregation: (S (H, W, D), valid1
+    (H, W), votes list of (H, W) int maps in direction order)."""
+    p2_vol = _p2_map(im1, params, p2_scale)
+    if params.cost == 'bt':
+        base, scale, val1 = bt_cost_sum(im1, im2, disp_min,
+                                        disp_min + D - 1, params.census_win)
+        cost = base if scale == 1.0 else base * scale
+    else:
+        cost, val1 = census_cost_volume_dyn(im1, im2, disp_min, D,
+                                            params.census_win)
+        base, scale = cost, 1.0
     if params.mgm:
-        raise NotImplementedError(
-            'mgm=True runs the MGM wavefront recursion (s2p_tpu/ops/mgm.py), '
-            'which is not ported yet (ROADMAP M12); use mgm=False')
-    if params.cost != 'census':
-        raise NotImplementedError(f'cost {params.cost!r} runs on the lax '
-                                  'path, not ported yet (ROADMAP M12)')
-    if params.census_win ** 2 - 1 > _VALID_BIT:
-        raise NotImplementedError(f'census_win {params.census_win}: the '
-                                  'kernels take windows up to 5x5; larger '
-                                  'ones run on the lax path, not ported '
-                                  'yet (ROADMAP M12)')
-    if (tuple(shape1) != tuple(shape2) or shape1[0] % 8 or shape1[1] % 8
-            or D % 8):
-        raise NotImplementedError(
-            f'shapes {tuple(shape1)} / {tuple(shape2)} with {D} candidates: '
-            'the kernels need equal shapes and H, W and D multiples of 8; '
-            'the rest runs on the lax path, not ported yet (ROADMAP M12); '
-            'match_pair pads to such shapes')
+        pm = None if p2_vol is None else p2_vol.expand(im1.shape)
+        S, votes = mgm_aggregate(cost, params.p1, params.p2,
+                                 nb_dir=params.nb_dir,
+                                 tsgm=params.mgm_neighbors, p2_map=pm,
+                                 overcount_fix=False)
+        if params.overcount_fix:
+            # S - (n - 1) * cost as the JAX package's jitted run computes
+            # it: behind the box mean, the constants folded into
+            # base * f32((n - 1) * scale) and the subtraction fused with
+            # that product; elsewhere as written
+            n = votes.shape[0]
+            if scale == 1.0:
+                S = S - (n - 1) * cost
+            else:
+                S = _fma32(base, -float(np.float32(n - 1)
+                                        * np.float32(scale)), S)
+        return S, val1, list(votes)
+    S, votes = None, []
+    for dx, dy in _DIRS_8[:max(2, min(params.nb_dir, 8))]:
+        L = _scan_pass(cost, dx, dy, params.p1, params.p2, p2_vol)
+        votes.append(_argmin_last(L))
+        S = L if S is None else S + L
+    return S, val1, votes
 
 
 def _match_core(im1, im2, disp_min: int, D: int, params: SgmParams,
                 p2_scale=None, p2_scale_r=None):
-    """The kernel branch of the JAX package's matcher body."""
-    r = match_kernels(im1, im2, disp_min, disp_min + D - 1, params,
-                      _p2_map(im1, params, p2_scale))
-    d_int, votes, valid = r['d_int'], r['votes'], r['valid1']
-    disp = r['disp_raw']
+    """The matcher body of the JAX package, on the kernels or the lax
+    route (:func:`_use_kernels`)."""
+    kernels = _use_kernels(im1.shape, im2.shape, D, params)
+    S = None
+    if kernels:
+        r = match_kernels(im1, im2, disp_min, disp_min + D - 1, params,
+                          _p2_map(im1, params, p2_scale))
+        d_int, votes, valid = r['d_int'], r['votes'], r['valid1']
+        disp = r['disp_raw']
+    else:
+        S, valid, votes = _aggregate(im1, im2, disp_min, D, params,
+                                     p2_scale)
+        d_int = _argmin_last(S)
+        disp = ((float(disp_min) + d_int.to(torch.float32))
+                + _subpixel(S, d_int, params.subpix))
 
     nv = len(_DIRS_8[:max(2, min(params.nb_dir, 8))])
     consensus = sum((torch.abs(v - d_int) <= 1).to(torch.int32)
@@ -183,8 +331,16 @@ def _match_core(im1, im2, disp_min: int, D: int, params: SgmParams,
 
     if params.min_confidence > 0:
         valid = valid & (confidence >= params.min_confidence)
-    # uniqueness_ratio needs the aggregated volume, which the kernel route
-    # does not keep: the JAX package skips it there, and so does the port
+    if params.uniqueness_ratio > 0 and S is not None:
+        # OpenCV SGBM uniqueness: every candidate farther than 1 from the
+        # WTA must cost more than the minimum by the given margin; the
+        # kernel route keeps no volume and skips it, as the JAX package's
+        ks = torch.arange(S.shape[-1], device=S.device)
+        far = torch.abs(ks - d_int[..., None]) > 1
+        second = torch.where(far, S, float('inf')).amin(dim=-1)
+        minS = torch.gather(S, -1, d_int[..., None])[..., 0]
+        valid = valid & (second * (100.0 - params.uniqueness_ratio)
+                         >= minS * 100.0)
 
     if params.median and params.median_first:
         disp = torch.where(valid, _nan_median3(
@@ -196,10 +352,20 @@ def _match_core(im1, im2, disp_min: int, D: int, params: SgmParams,
             # the true RL pass over the mirrored range, with the secondary
             # image's weight map
             dmin_r = -(disp_min + D - 1)
-            dR = match_kernels(im2, im1, dmin_r, -disp_min, params,
-                               _p2_map(im2, params, p2_scale_r))['disp_raw']
-        else:
+            if kernels:
+                dR = match_kernels(im2, im1, dmin_r, -disp_min, params,
+                                   _p2_map(im2, params, p2_scale_r)
+                                   )['disp_raw']
+            else:
+                S_R, _, _ = _aggregate(im2, im1, dmin_r, D, params,
+                                       p2_scale_r)
+                kR = _argmin_last(S_R)
+                dR = ((float(dmin_r) + kR.to(torch.float32))
+                      + _subpixel(S_R, kR, params.subpix))
+        elif kernels:
             dR = r['dR']
+        else:
+            dR = _right_disparity(S, disp_min)
         if params.median and params.median_first:
             dR = _nan_median3(dR)
         w = im1.shape[1]
@@ -231,11 +397,10 @@ def sgm_match(im1, im2, disp_min: int, disp_max: int, params: SgmParams,
     """Dense disparity of a rectified pair by census + SGM aggregation.
 
     Args:
-        im1, im2: rectified reference/secondary images (NaN = invalid), of
-            equal shape with H and W multiples of 8.
-        disp_min, disp_max: inclusive integer disparity bounds; the count
-            must be a multiple of 8.
-        params: aggregation parameters (``mgm=False``).
+        im1, im2: rectified reference/secondary images (NaN = invalid),
+            of one height.
+        disp_min, disp_max: inclusive integer disparity bounds.
+        params: aggregation parameters.
         p2_scale, p2_scale_r: optional multiplicative P2 weight maps of
             the reference and (for ``lr_mode='full'``) the secondary.
         device: None for CUDA (raises without it), or "cpu".
@@ -244,7 +409,6 @@ def sgm_match(im1, im2, disp_min: int, disp_max: int, params: SgmParams,
         dict of tensors on the device: 'disp' (float32, NaN invalid),
         'valid' (bool) and 'confidence' (float32 in [0, 1])."""
     D = int(disp_max) - int(disp_min) + 1
-    _check_kernel_route(np.shape(im1), np.shape(im2), D, params)
     dev = resolve(device)
 
     def to_dev(a):

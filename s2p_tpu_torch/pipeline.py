@@ -32,7 +32,9 @@ stage 7 mosaics those into the scene's.
 Stages 1, 3, 4 and 5 (5a's triangulation, 5d's despeckling windows and
 neighbour counts) run on the device that :func:`main` resolves once (CUDA
 unless the caller names the CPU); stages 2, 6 and 7, 5b, 5c and the rest
-of 5d are host numpy and scipy, as in the JAX package.
+of 5d are host numpy and scipy, as in the JAX package.  :func:`main` may
+run in several processes over one ``out_dir`` (``parallel/distributed``),
+each on its own block of tiles.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from . import runner, tiling
 from .config import Config, ImageSpec, read_config_file  # noqa: F401 (API)
@@ -322,8 +325,8 @@ def _check_matcher(cfg: Config):
 def stereo_matching(cfg: Config, tile, i, device=None):
     """Stage 4 of one tile pair through :func:`matching.compute_disparity_map`:
     reads the pair's rectified images and range, writes its disparity,
-    mask and confidence.  ``device`` None runs on CUDA and raises
-    without it."""
+    mask and (where the matcher has one) confidence.  ``device`` None
+    runs on CUDA and raises without it."""
     dev = resolve(device)
     out_dir = os.path.join(tile['dir'], f'pair_{i}')
     rect1 = geotiff.read(os.path.join(out_dir, 'rectified_ref.tif'))
@@ -336,7 +339,8 @@ def stereo_matching(cfg: Config, tile, i, device=None):
 
 
 def _write_matching(cfg: Config, out_dir, disp, mask, conf):
-    """A tile pair's stage-4 files, after the optional mask erosion."""
+    """A tile pair's stage-4 files, after the optional mask erosion; no
+    confidence file where ``conf`` is None."""
     if cfg.msk_erosion >= 2:
         mask = masking.erosion(mask.astype(bool), cfg.msk_erosion) \
             .astype(np.uint8)
@@ -345,8 +349,11 @@ def _write_matching(cfg: Config, out_dir, disp, mask, conf):
                   nodata=float('nan'))
     geotiff.write_png(os.path.join(out_dir, 'rectified_mask.png'),
                       (mask * 255).astype(np.uint8))
-    geotiff.write(os.path.join(out_dir, 'rectified_disp_confidence.tif'),
-                  conf.astype(np.float32))
+    if conf is not None:
+        # the SGBM matchers have no confidence: no file, as in the JAX
+        # package (stage 5 and 6 then carry none)
+        geotiff.write(os.path.join(out_dir, 'rectified_disp_confidence.tif'),
+                      conf.astype(np.float32))
     if cfg.clean_intermediate:
         _clean_after_matching(cfg, out_dir)
 
@@ -1095,102 +1102,143 @@ def main(user_cfg, start_from=0, device=None, stage_times=None):
     ``height_map.tif`` and ``cloud.ply`` (the file set is the JAX
     package's, with and without ``clean_intermediate``).
 
-    ``device`` is resolved once (None: CUDA, raising without it; "cpu":
-    the kernels' plain versions) and passed to every stage that runs on a
-    device.  The port runs in one process: the JAX package's multi-process
-    hooks (``parallel/distributed``) and its JAX runtime set-up have no
-    counterpart here (ROADMAP M11).  SIFT's host route and any matcher
-    but ``mgm``, ``mgm_multi`` and ``mgm_multi_lsd`` raise
-    NotImplementedError before anything is written.  A
-    dict passed as ``stage_times`` receives each stage's elapsed seconds
-    under its banner and, for a triplet, each of 5a-5d's under its own
-    label."""
+    Several processes: with ``S2P_TPU_COORDINATOR``,
+    ``S2P_TPU_NUM_PROCESSES`` and ``S2P_TPU_PROCESS_ID`` set (or the group
+    already up, :func:`parallel.distributed.init`), the processes share
+    ``out_dir`` over a gloo group.  The primary writes the scene's files
+    and the tiles' and the others reload ``tiles.txt``; each process runs
+    stages 1, 3, 4, 5 (5a, 5b and 5d for a triplet) and 6 on its own
+    contiguous block of tiles; stages 2, 5c and 7 run on the primary; every
+    stage ends at a barrier.  Each process drives one device and owns each
+    of its tiles' whole chain, so the DSM equals a one-process run's.  The
+    JAX package also shards a bucket over the local devices of one process
+    (stages 1 and 3-5); the port does not: run one process per GPU.
+
+    ``device`` is resolved once (None: CUDA device ``process index %
+    device count``, raising without CUDA; "cpu": the kernels' plain
+    versions) and passed to every stage that runs on a device.  SIFT's
+    host route and any matcher not in ``matching.MATCHERS`` raise
+    NotImplementedError before anything is written.  A dict passed as
+    ``stage_times`` receives each stage's elapsed seconds under its banner
+    and, for a triplet, each of 5a-5d's under its own label."""
+    from .parallel import distributed as dist
+
     dev = resolve(device)
+    dist.init()
+    if device is None:
+        dev = torch.device('cuda',
+                           dist.process_index() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     cfg = build_cfg(user_cfg)
     _check_supported(cfg, start_from)
     times = {} if stage_times is None else stage_times
 
+    # the scene's and the tiles' initial files are written once, by the
+    # primary; the others wait and reload the tile list
     nb_workers = cfg.max_processes or min(8, os.cpu_count() or 1)
     tw, th = tiling.adjust_tile_size(cfg)
     tiles_txt = os.path.join(cfg.out_dir, 'tiles.txt')
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    cfg.dump_json(os.path.join(cfg.out_dir, 'config.json'))
-    tiles = tiling.tiles_full_info(
-        cfg, tw, th, tiles_txt, create_masks=True,
-        runner=runner.PoolRunner(nb_workers, cfg.timeout))
-    if not tiles:
-        raise RuntimeError(
-            'the ROI is not seen in two images or is totally masked')
-    if start_from > 0:
-        assert os.path.exists(tiles_txt), (
-            f'start_from set to {start_from} but tiles.txt not found in '
-            f'{cfg.out_dir!r}')
-    else:
-        with open(tiles_txt, 'w') as f:
-            for t in tiles:
-                print(t['json'], file=f)
+    if dist.is_primary():
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        cfg.dump_json(os.path.join(cfg.out_dir, 'config.json'))
+        tiles = tiling.tiles_full_info(
+            cfg, tw, th, tiles_txt, create_masks=True,
+            runner=runner.PoolRunner(nb_workers, cfg.timeout))
+        if not tiles:
+            raise RuntimeError(
+                'the ROI is not seen in two images or is totally masked')
+        if start_from > 0:
+            assert os.path.exists(tiles_txt), (
+                f'start_from set to {start_from} but tiles.txt not found in '
+                f'{cfg.out_dir!r}')
+        else:
+            with open(tiles_txt, 'w') as f:
+                for t in tiles:
+                    print(t['json'], file=f)
+    dist.barrier('initialization')
+    if not dist.is_primary():
+        tiles = tiling.tiles_full_info(cfg, tw, th, tiles_txt,
+                                       create_masks=False)
+        if not tiles:
+            raise RuntimeError(
+                'the ROI is not seen in two images or is totally masked')
 
     n = len(cfg.images)
-    tiles_pairs = [(t, i) for i in range(1, n) for t in tiles]
     timeout = cfg.timeout
+    my_tiles = dist.partition_tiles(tiles)
+    my_pairs = [(t, i) for i in range(1, n) for t in my_tiles]
     if start_from > 0:
-        _check_resume_inputs(start_from, tiles_pairs)
+        _check_resume_inputs(start_from, my_pairs)
 
     if start_from <= 1:
         with _stage('1) correcting pointing locally...', times):
-            pointing_correction_all(cfg, tiles_pairs, timeout=timeout,
+            pointing_correction_all(cfg, my_pairs, timeout=timeout,
                                     nb_workers=nb_workers, device=dev)
+        dist.barrier('pointing')
     if start_from <= 2:
         with _stage('2) correcting pointing globally...', times):
-            global_pointing_correction(cfg, tiles)
+            if dist.is_primary():
+                global_pointing_correction(cfg, tiles)
+        dist.barrier('global_pointing')
     if start_from <= 3:
         with _stage('3) rectifying tiles...', times):
-            rectification_all(cfg, tiles_pairs, timeout=timeout,
+            rectification_all(cfg, my_pairs, timeout=timeout,
                               nb_workers=nb_workers, device=dev)
+        dist.barrier('rectification')
         if cfg.clean_intermediate:
-            # swept after the stage, not during it, so that the
-            # neighbours' matches stage 3 reads are all still there
-            for t, i in tiles_pairs:
+            # swept after the barrier, not during the stage, so that the
+            # neighbours' matches stage 3 reads (in any process) are all
+            # still there
+            for t, i in my_pairs:
                 d = os.path.join(t['dir'], f'pair_{i}')
                 _remove(os.path.join(d, 'pointing.txt'),
                         os.path.join(d, 'sift_matches.txt'))
     if start_from <= 4:
         with _stage('4) running stereo matching...', times):
-            stereo_matching_all(cfg, tiles_pairs, timeout=cfg.mgm_timeout,
+            stereo_matching_all(cfg, my_pairs, timeout=cfg.mgm_timeout,
                                 device=dev)
+        dist.barrier('matching')
     if start_from <= 5:
         if n > 2:
             with _stage('5) height maps, offsets, fusion, point clouds...',
                         times):
                 # 5a prints no label of its own, as in the JAX package
                 with _step('5a) height maps...', times, show=False):
-                    disparity_to_height_all(cfg, tiles_pairs,
+                    disparity_to_height_all(cfg, my_pairs,
                                             timeout=timeout,
                                             nb_workers=nb_workers,
                                             device=dev)
                 with _step('5b) computing local pairwise height offsets...',
                            times):
                     runner.launch_calls(functools.partial(mean_heights, cfg),
-                                        tiles, nb_workers, timeout=timeout,
-                                        debug=cfg.debug)
+                                        my_tiles, nb_workers,
+                                        timeout=timeout, debug=cfg.debug)
+                    dist.barrier('mean_heights')
                 with _step('5c) computing global pairwise height '
                            'offsets...', times):
-                    global_mean_heights(cfg, tiles)
+                    if dist.is_primary():
+                        global_mean_heights(cfg, tiles)
+                    dist.barrier('global_mean_heights')
                 with _step('5d) merging height maps and computing point '
                            'clouds...', times):
-                    heights_to_ply_all(cfg, tiles, timeout=timeout,
+                    heights_to_ply_all(cfg, my_tiles, timeout=timeout,
                                        nb_workers=nb_workers, device=dev)
         else:
             with _stage('5) triangulating tiles...', times):
-                disparity_to_ply_all(cfg, tiles, timeout=timeout,
+                disparity_to_ply_all(cfg, my_tiles, timeout=timeout,
                                      nb_workers=nb_workers, device=dev)
+        dist.barrier('clouds')
     if start_from <= 6:
         with _stage('6) computing DSM by tile...', times):
-            runner.launch_calls(functools.partial(plys_to_dsm, cfg), tiles,
-                                nb_workers, timeout=timeout, debug=cfg.debug)
+            runner.launch_calls(functools.partial(plys_to_dsm, cfg),
+                                my_tiles, nb_workers, timeout=timeout,
+                                debug=cfg.debug)
+        dist.barrier('tile_dsm')
     if start_from <= 7:
         with _stage('7) computing global DSM...', times):
-            global_dsm(cfg, tiles)
+            if dist.is_primary():
+                global_dsm(cfg, tiles)
+        dist.barrier('global_dsm')
 
     clear_image_cache()
     return cfg

@@ -56,6 +56,23 @@ def test_no_banned_import_anywhere_in_source(path):
         assert not any(_banned(n) for n in names), (path, names)
 
 
+def test_new_modules_are_scanned():
+    """The modules of the multi-process slice and the lax matcher routes
+    are among the scanned sources, and import with JAX blocked (below)."""
+    rels = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ('s2p_tpu_torch/parallel/__init__.py',
+                's2p_tpu_torch/parallel/distributed.py',
+                's2p_tpu_torch/parallel/mesh.py',
+                's2p_tpu_torch/parallel/halo.py',
+                's2p_tpu_torch/ops/mgm.py', 'chip_smoke.py'):
+        assert rel.replace('/', os.sep) in rels, rel
+    mods = _modules()
+    for m in ('s2p_tpu_torch.parallel', 's2p_tpu_torch.parallel.distributed',
+              's2p_tpu_torch.parallel.mesh', 's2p_tpu_torch.parallel.halo',
+              's2p_tpu_torch.ops.mgm'):
+        assert m in mods, m
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         'import sys\n'
@@ -126,6 +143,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         sift.matches_on_rpc_roi_batch([])
     with pytest.raises(RuntimeError, match='CUDA'):
         sift.keypoints_match(np.ones((2, 132)), np.ones((2, 132)))
+    from s2p_tpu_torch.ops import sgm
+    from s2p_tpu_torch.parallel import mesh
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sgm.sgm_match(a[0], a[0], 0, 3, sgm.SgmParams())
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compute_disparity_map(Config(matching_algorithm='sgbm'), a[0], a[0],
+                              0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mesh.TileMesh()
     with pytest.raises(RuntimeError, match='CUDA'):
         device.resolve('cuda')
     assert device.resolve('cpu') == torch.device('cpu')

@@ -173,8 +173,21 @@ def test_variant_state_carries_across():
 
 
 def test_unported_variants_raise():
+    """Census windows above 5x5 still raise in the flow; ``tsgm=2``,
+    which raised before the wavefront was ported, runs each tile on the
+    lax route and equals the JAX package's batch there."""
     a = np.zeros((1, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='census windows'):
         tf.mgm_binary_match_batch(a, a, [0], 4, [8], [8], [8],
-                                  variant=tf.MgmVariant(tsgm=2),
+                                  variant=tf.MgmVariant(census_win=7),
                                   device='cpu')
+    b1, b2, hs, w1s, w2s = _bucket(Hp=40, Wp=48, n=2)
+    dmins, dts, Dp = [-2, -4], [10, 12], 16
+    ref = mf.mgm_binary_match_batch(
+        jnp.asarray(b1), jnp.asarray(b2), dmins, Dp, hs, w1s, w2s, dts,
+        variant=mf.MgmVariant(backend='lax', tsgm=2))
+    out = tf.mgm_binary_match_batch(b1, b2, dmins, Dp, hs, w1s, w2s, dts,
+                                    tf.MgmVariant(tsgm=2), device='cpu')
+    assert np.isfinite(ref['disp']).mean() > 0.5
+    for k in ('disp', 'confidence', 'confidence_u8'):
+        _same(out[k].numpy(), ref[k])

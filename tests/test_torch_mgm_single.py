@@ -237,13 +237,62 @@ def test_compute_disparity_map_matches_jax():
 
 
 def test_unported_single_tile_routes_raise():
+    """What stays unported raises: flow windows above 5x5, the batch's
+    edge knobs, the cascade with ``tsgm >= 2`` and the matchers of M12.  ``tsgm=2`` and ``sgbm``, which
+    raised before the wavefront and the lax matcher were ported, equal
+    the JAX package's lax route."""
     a = np.zeros((8, 8), np.float32)
+    with pytest.raises(NotImplementedError, match='census windows'):
+        tf.mgm_binary_match(a, a, 0, 3, tf.MgmVariant(census_win=7),
+                            device='cpu')
     with pytest.raises(NotImplementedError, match='M12'):
-        tf.mgm_binary_match(a, a, 0, 3, tf.MgmVariant(tsgm=2), device='cpu')
-    with pytest.raises(NotImplementedError, match='M12'):
-        tm.compute_disparity_map(Config(matching_algorithm='sgbm'), a, a,
-                                 0, 3, device='cpu')
+        tm.compute_disparity_map(Config(matching_algorithm='hirschmuller02'),
+                                 a, a, 0, 3, device='cpu')
     with pytest.raises(NotImplementedError, match='single-tile'):
         tf.mgm_binary_match_batch(a[None], a[None], [0], 4, [8], [8], [8],
                                   variant=tf.MgmVariant(edge_subpix=True),
                                   device='cpu')
+    with pytest.raises(NotImplementedError, match='M12'):
+        tf.mgm_multi_match(a, a, 0, 3, tf.MgmVariant(tsgm=2), device='cpu')
+    im1, im2 = _nan_pair(37, 45, 2.0, seed=4)
+    ref = mf.mgm_binary_match(im1, im2, -3, 8,
+                              mf.MgmVariant(backend='lax', tsgm=2))
+    disp, conf = tf.mgm_binary_match(im1, im2, -3, 8, tf.MgmVariant(tsgm=2),
+                                     device='cpu')
+    _same(disp.numpy(), ref[0])
+    _same(conf.numpy(), ref[1])
+    ref = jm.compute_disparity_map(JaxConfig(matching_algorithm='sgbm'),
+                                   im1, im2, -3, 8)
+    ours = tm.compute_disparity_map(Config(matching_algorithm='sgbm'), im1,
+                                    im2, -3, 8, device='cpu')
+    _same(ours[0], ref[0])
+    _same(ours[1], ref[1])
+    assert ours[2] is None and ref[2] is None
+
+
+def test_non_integer_penalties_sum_in_the_kernels_order():
+    """At ``stereo_regularity_multiplier`` 0.3 (P1 2.4, P2 9.6) float32
+    sums depend on their order.  The single tile sums in the kernels'
+    order on both devices: it equals the batch entry on the same tile and
+    the JAX package's interpret (Pallas) route, and differs from its lax
+    route (931 of 6,144 disparities on this tile)."""
+    im1, im2 = _pair(64, 96, 2.0, seed=3)
+    kw = dict(p1=8.0 * 0.3, p2=32.0 * 0.3)
+    disp, conf = tf.mgm_binary_match(im1, im2, -3, 12, tf.MgmVariant(**kw),
+                                     device='cpu')
+    batch = tf.mgm_binary_match_batch(im1[None], im2[None], [-3], 16, [64],
+                                      [96], [96], [16], tf.MgmVariant(**kw),
+                                      device='cpu')
+    _same(disp.numpy(), batch['disp'][0].numpy())
+    _same(conf.numpy(), batch['confidence'][0].numpy())
+    pal = mf.mgm_binary_match(im1, im2, -3, 12,
+                              mf.MgmVariant(backend='interpret', **kw))
+    _same(disp.numpy(), pal[0])
+    _same(conf.numpy(), pal[1])
+    lax = np.asarray(mf.mgm_binary_match(
+        im1, im2, -3, 12, mf.MgmVariant(backend='lax', **kw))[0])
+    d = disp.numpy()
+    differ = ~((d == lax) | (np.isnan(d) & np.isnan(lax)))
+    print(f'm 0.3: {differ.sum()} of {differ.size} disparities differ from '
+          'the lax route')
+    assert differ.sum() == 931

@@ -32,6 +32,12 @@ What is held, and how:
   * ``main`` from stage 4 with ``mgm_multi`` and ``mgm_multi_lsd``:
     ``dsm.tif`` within stated bounds of the mgm run's, and ``mgm_multi``'s
     stage-4 files byte for byte against the JAX package's driver;
+  * ``main`` from stage 2 in two OS processes over a gloo group, with
+    ``clean_intermediate`` on: disjoint blocks of tiles that cover
+    ``tiles.txt``, and the one-process ``dsm.tif`` bitwise;
+  * ``main`` from stage 4 with ``sgbm``: stage 4's files against the JAX
+    package's per-tile stage 4 on the same stage-3 files, no confidence
+    file, a ``dsm.tif``;
   * ``main``'s resume contracts and its refusals.
 
 ``pytest -s`` prints the measured figures.
@@ -43,6 +49,9 @@ import glob
 import json
 import os
 import shutil
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -406,6 +415,106 @@ def test_cascade_matchers_through_main(scene, tmp_path, algo):
           f'{np.percentile(np.abs(diff), 99):.4g} m')
     assert abs(diff.mean()) <= 0.05
     assert np.percentile(np.abs(diff), 99) <= 2.0
+
+
+_MAIN_WORKER = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[4])
+torch.set_num_threads(1)
+from s2p_tpu_torch import pipeline
+from s2p_tpu_torch.parallel import distributed as dist
+port, k, cfg_path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init(f'localhost:{port}', 2, k)
+cfg = json.load(open(cfg_path))
+times = {}
+pipeline.main(cfg, start_from=2, device='cpu', stage_times=times)
+with open(cfg['out_dir'] + '/tiles.txt') as f:
+    tiles = [line.strip() for line in f if line.strip()]
+with open(cfg['out_dir'] + f'/worker_tiles_{k}.json', 'w') as f:
+    json.dump({'tiles': dist.partition_tiles(tiles), 'times': times}, f)
+"""
+
+
+def test_two_processes_give_the_one_process_dsm(scene, tmp_path):
+    """``main`` from stage 2 in two OS processes (gloo over a free
+    localhost port) on a copy of the one-process run's tree, with
+    ``clean_intermediate`` on: the blocks are disjoint and cover the
+    tiling, both processes work, and ``dsm.tif`` equals the one-process
+    run's bitwise."""
+    out = str(tmp_path / 'two')
+    shutil.copytree(scene['torch'], out)
+    os.remove(os.path.join(out, 'dsm.tif'))
+    d = _user_cfg(scene['base'], 'torch', out)
+    d['clean_intermediate'] = True
+    cfg_path = str(tmp_path / 'two.json')
+    with open(cfg_path, 'w') as f:
+        json.dump(d, f)
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', _MAIN_WORKER, str(port), str(k), cfg_path,
+         root], cwd=root, env=dict(os.environ, OMP_NUM_THREADS='1'),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for k in (0, 1)]
+    logs = [p.communicate(timeout=900)[0].decode() for p in procs]
+    for k, p in enumerate(procs):
+        assert p.returncode == 0, f'process {k} failed:\n{logs[k][-4000:]}'
+    parts = [json.load(open(os.path.join(out, f'worker_tiles_{k}.json')))
+             for k in (0, 1)]
+    with open(os.path.join(out, 'tiles.txt')) as f:
+        tiles = [line.strip() for line in f if line.strip()]
+    a, b = parts[0]['tiles'], parts[1]['tiles']
+    assert a and b and not set(a) & set(b)
+    assert sorted(a + b) == sorted(tiles) and len(tiles) == 4
+    for k, part in enumerate(parts):
+        print(f'process {k}: tiles {part["tiles"]}, stage seconds '
+              f'{ {n[:2]: round(t, 2) for n, t in part["times"].items()} }')
+    _same(tgeotiff.read_with_nans(os.path.join(out, 'dsm.tif')),
+          tgeotiff.read_with_nans(os.path.join(scene['torch'], 'dsm.tif')))
+    # the sweeps of clean_intermediate ran in both processes
+    for t in _tiles(out):
+        assert not os.path.exists(os.path.join(t, 'pair_1', 'pointing.txt'))
+        assert not os.path.exists(os.path.join(t, 'pair_1',
+                                               'rectified_disp.tif'))
+
+
+def test_sgbm_through_main(scene, tmp_path):
+    """``main`` from stage 4 with ``sgbm`` on a copy of the JAX run's
+    tree: stage 4's disparity and mask equal the JAX package's per-tile
+    stage 4 (``stereo_matching_all``) on the same stage-3 files, no
+    confidence file is written (the matcher has none), and ``dsm.tif``
+    is."""
+    out = str(tmp_path / 'sgbm')
+    shutil.copytree(scene['jax'], out)
+    d = _user_cfg(scene['base'], 'jax', out)
+    d['matching_algorithm'] = 'sgbm'
+    for t in _tiles(out):
+        os.remove(os.path.join(t, 'pair_1', STAGE4[1]))
+    times = {}
+    tpipe.main(d, start_from=4, device='cpu', stage_times=times)
+    ref = str(tmp_path / 'jax_stage4')
+    shutil.copytree(scene['jax'], ref)
+    for t in _tiles(ref):
+        os.remove(os.path.join(t, 'pair_1', STAGE4[1]))
+    jpipe.stereo_matching_all(
+        jconfig.Config(out_dir=ref, matching_algorithm='sgbm'),
+        [({'dir': t}, 1) for t in _tiles(ref)])
+    for a, b in zip(_tiles(ref), _tiles(out)):
+        assert _read(os.path.join(a, 'pair_1', STAGE4[0])) == \
+            _read(os.path.join(b, 'pair_1', STAGE4[0]))
+        _same(tgeotiff.read_png(os.path.join(b, 'pair_1',
+                                             'rectified_mask.png')),
+              jgeotiff.read_png(os.path.join(a, 'pair_1',
+                                             'rectified_mask.png')))
+        for t in (a, b):
+            assert not os.path.exists(os.path.join(t, 'pair_1', STAGE4[1]))
+    got = tgeotiff.read_with_nans(os.path.join(out, 'dsm.tif'))
+    assert np.isfinite(got).mean() > 0.3
+    print(f'sgbm through main: stage 4 '
+          f'{times["4) running stereo matching..."]:.2f} s, '
+          f'{np.isfinite(got).mean():.3f} of dsm.tif valid')
 
 
 def test_main_without_a_device_needs_cuda(scene, tmp_path, monkeypatch):

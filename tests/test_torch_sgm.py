@@ -195,19 +195,42 @@ def test_sgm_params_from_state():
         state.sgm_params_from_state(dict(d, bogus=1))
 
 
-def test_lax_only_routes_raise():
+_LAX = {
+    'mgm': dict(mgm=True),
+    'bt': dict(mgm=False, cost='bt'),
+    'census_win7': dict(mgm=False, census_win=7),
+}
+
+
+@pytest.mark.parametrize('route', sorted(_LAX) + ['unequal_widths',
+                                                  'height_30', 'd_4',
+                                                  'match_pair_mgm'])
+def test_lax_only_routes_raise(route):
+    """The routes the JAX package sends to its lax path (they raised
+    before the port had it) equal its jitted lax route bitwise: the MGM
+    wavefront, the Birchfield-Tomasi cost, a 7x7 census, and the classic
+    scans off the kernels' shapes."""
     im1, im2 = _pair()
-    for kw in (dict(mgm=True), dict(mgm=False, cost='bt'),
-               dict(mgm=False, census_win=7)):
-        with pytest.raises(NotImplementedError, match='M12'):
-            ts.sgm_match(im1, im2, -8, 7, ts.SgmParams(**kw), device='cpu')
-    p = ts.SgmParams(mgm=False)
-    for a, b, dmax in ((im1, im2[:, :24], 7), (im1[:30], im2[:30], 7),
-                       (im1, im2, 3)):
-        with pytest.raises(NotImplementedError, match='M12'):
-            ts.sgm_match(a, b, -8, dmax, p, device='cpu')
-    with pytest.raises(NotImplementedError, match='M12'):
-        ts.match_pair(im1, im2, -8, 7, ts.SgmParams(mgm=True), device='cpu')
+    kw, a, b, dmax = _LAX.get(route, dict(mgm=False)), im1, im2, 7
+    if route == 'unequal_widths':
+        b = im2[:, :24]
+    elif route == 'height_30':
+        a, b = im1[:30], im2[:30]
+    elif route == 'd_4':
+        dmax = -5
+    jp = js.SgmParams(backend='lax', **kw)
+    if route == 'match_pair_mgm':
+        ref = js.match_pair(a, b, -8, dmax, jp)
+        ours = ts.match_pair(a, b, -8, dmax, ts.SgmParams(**kw),
+                             device='cpu')
+        for o, r in zip(ours, ref):
+            _same(o, r)
+        return
+    ref = js.sgm_match(jnp.asarray(a), jnp.asarray(b), -8, dmax, jp)
+    out = ts.sgm_match(a, b, -8, dmax, ts.SgmParams(**kw), device='cpu')
+    for k in ('disp', 'valid', 'confidence'):
+        _same(out[k].numpy(), ref[k])
+    assert 0.2 < np.isfinite(np.asarray(ref['disp'])).mean() < 1.0
 
 
 def test_match_pair_raises_without_cuda(monkeypatch):
