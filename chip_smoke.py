@@ -168,6 +168,32 @@ the JAX package.  Phases, each timed on a line of its own:
      step), no confidence file, one
      tile's stage 4 with device="cpu" byte for byte, the clouds'
      altitudes and dsm.tif's valid share;
+ 8i. (run right after 8c) the matchers of the last slice: hirschmuller02,
+     msmw and tvl1 through ``compute_disparity_map`` on a 256 x 320 pair
+     with a known shift, then through ``pipeline.stereo_matching_all`` on
+     the scene's 6 rectified tiles (8b's stage-3 files): each matcher's
+     stage-4 time and launches (B1 for the msmw engines), no confidence
+     file, the median of |its disparity - mgm's| per tile; 256 x 320
+     crops of two tiles card against device="cpu" (byte for byte, or
+     the CPU tests' criterion: tests/test_torch_msmw.py and
+     tests/test_torch_tvl1.py); B1 (``csrc/box.cu``) bitwise against its
+     plain version on the largest vertical and horizontal volumes msmw's
+     stage 4 gave it, timed beside the plain version and avg_pool2d;
+ 8j. SIFT's host route (``sift_device='host'``) against the device route
+     on two 150 x 150 crops of the scene's image 1 by the JAX package's
+     host-against-device criterion (tests/test_sift.py), then stage 1
+     with 'host' on two tiles of 300 px (the host pyramid takes about
+     40 s an 800 x 800 crop), their translations against the rendered
+     pointing error, its seconds;
+ 8k. K2's 16-bit source (``s2p_scan16``, uint16 costs of a 17 x 17
+     census window on a 128 x 160 crop of the single tile) bitwise
+     against its plain version, both orientations, forward and backward
+     with accum; the flow at census windows 7 and 17 on that crop
+     (``compute_disparity_map``, whose launches count K2 and its 16-bit
+     source, the batch and the cascade) and the cascade with tsgm 2,
+     card against device="cpu" byte for byte; ``ops.sgm.sgm_match_batch``
+     on two 256 x 320 tiles with different bases, bitwise against the
+     per-tile lax route and the CPU; the seconds of 8i-8k together;
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -211,13 +237,14 @@ the JAX package.  Phases, each timed on a line of its own:
      (the fold of phase 9's check: 4 groups of 2), then 3 (two groups of
      3 and a 2-tile tail), each bitwise per tile against the unfolded
      batch on the card;
- 12. a JSON line with, per kernel and mode, its launches during the run
-     that drives its path and the numbers of its comparison at that run's
-     shapes: the flow's kernels in the scene through main (8b, its
-     bucket), at stage 4's buckets A and B (5), at 528 candidates (8)
-     and in the triplet through main (8d, its bucket); K2 and K3 on the
-     mgm_multi cascade's levels in the scene through main (8e);
-     W1 in the scene (8b), its mask dilation in the scene's stage 3 with
+ 12. the whole run's seconds; a JSON line with, per kernel and mode, its
+     launches during the run that drives its path and the numbers of its
+     comparison at that run's shapes: the flow's kernels in the scene
+     through main (8b, its bucket), at stage 4's buckets A and B (5), at
+     528 candidates (8) and in the triplet through main (8d, its bucket);
+     K2 and K3 on the mgm_multi cascade's levels in the scene through main
+     (8e); B1 in msmw's stage 4 (8i); K2's 16-bit source in the flow at
+     17 x 17 (8k); W1 in the scene (8b), its mask dilation in the scene's stage 3 with
      a NaN band (8b); the classic matcher's (6 and 4); the pre-pass
      at a signed base (10 and 9); the WTA's edge modes (10); the folded
      scan (11 at fold 2, and 9); its error against the plain version,
@@ -345,6 +372,37 @@ SCENE_POINTING_TOL_PX = 0.1
 STAGE1_CPU_TOL_PX = 0.01
 KP_DIST, KP_SHARE, COUNT_SHARE = 1e-2, 0.995, 0.01
 DESC_EQ_SHARE, DESC_1_SHARE, DESC_MAX = 0.995, 0.9999, 4
+# the matchers of the last slice: hirschmuller02 and msmw (B1) and tvl1
+# through stage 4 on this many of the scene's tiles; the crop of two of
+# them that the card holds against the CPU; their known shift on a
+# synthetic pair (px); the bound on the median of |their disparity -
+# mgm's| per scene tile (px); the CPU tests' criteria for the card against
+# the CPU where the bytes differ (tests/test_torch_msmw.py and
+# tests/test_torch_tvl1.py)
+NEW_MATCHERS = ('hirschmuller02', 'msmw', 'tvl1')
+NEW_MATCHER_TILES = 6
+NEW_MATCHER_CROP = (256, 320)
+KNOWN = dict(index=400, h=256, w1=320, w2=320, dmin=-8, dmax=8, shift=3.0,
+             seed=400)
+KNOWN_SHIFT_TOL_PX = 0.25
+NEW_MATCHER_MGM_TOL_PX = 0.5
+MSMW_VALID_SHARE, MSMW_DISP_TOL = 0.995, 1e-3
+TVL1_TOL = dict(valid=0.995, median=1e-3, p99=0.02, max=0.5)
+# the flow at census windows above 5x5 (17 x 17 on K2's 16-bit source) on
+# a crop of the single tile, card against CPU
+WIDE_WINDOWS = (7, 17)
+WIDE_CROP = (128, 160)
+# sgm_match_batch: two tiles with different bases (tests/
+# test_batch_matching.py's parameters)
+SGM_BATCH = dict(h=256, w=320, dmins=(-8, -16), D=32, shift=3.0, seed=7)
+SGM_BATCH_PARAMS = dict(mgm=False, p1=12.0, p2=48.0, p2_edge_scale=0.5,
+                        lr_tau=1.0, median_first=True, median_fill=True)
+# SIFT's host route: crops (x, y, w, h) of the scene's image 1 against the
+# device route, and stage 1 with 'host' on two tiles of SIFT_HOST_TILE px
+# at these corners (the host pyramid takes about 40 s a crop of 800 px)
+SIFT_HOST_CROPS = ((400, 400, 150, 150), (1600, 1100, 150, 150))
+SIFT_HOST_TILE = 300
+SIFT_HOST_TILES = ((300, 300), (1500, 1000))
 
 
 @contextmanager
@@ -421,6 +479,11 @@ def equal(a, b):
     same = a == b
     err = (a.long() - b.long()).abs().max().item() if a.numel() else 0
     return bool(same.all()), float(err)
+
+
+def one_word(census):
+    """(signature, valid) of ``census_transform`` with its one word."""
+    return census[0][..., 0], census[1]
 
 
 def timed(fn, reps):
@@ -529,8 +592,10 @@ def check_kernels(specs, pairs, stats, bucket, tag, variant=None,
     dm = ints('dmin')
     dt = ints('dmax') - dm + 1
     h, w1, w2 = ints('h'), ints('w1'), ints('w2')
-    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev), v.census_win)
-    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev), v.census_win)
+    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev),
+                            v.census_win)[..., 0]
+    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev),
+                            v.census_win)[..., 0]
     allowed = (torch.arange(D, device=dev)[None, :] < dt[:, None]) \
         .to(torch.int32)
     nbits = v.census_win ** 2 - 1
@@ -1324,8 +1389,8 @@ def check_sgm_kernels(stats):
     dmin = SGM_PAIR['dmin']
     D = SGM_PAIR['dmax'] - dmin + 1
     H, W = im1.shape
-    sig = [sk._pack(*census_transform(torch.as_tensor(im, device=dev), 5))
-           [None] for im in (im1, im2)]
+    sig = [sk._pack(*one_word(census_transform(
+        torch.as_tensor(im, device=dev), 5)))[None] for im in (im1, im2)]
     p2 = torch.full((1, H, W), 32.0, dtype=torch.float32, device=dev)
     ins = {'v': (sig[0], sig[1], p2),
            'h': tuple(t.transpose(1, 2).contiguous()
@@ -1394,8 +1459,8 @@ def check_mgm_tile():
     dmin = spec['dmin']
     D = spec['dmax'] - dmin + 1
     H, W = im1.shape
-    sig = [sk._pack(*census_transform(torch.as_tensor(im, device=dev), 5))
-           [None] for im in (im1, im2)]
+    sig = [sk._pack(*one_word(census_transform(
+        torch.as_tensor(im, device=dev), 5)))[None] for im in (im1, im2)]
     p2 = torch.full((1, H, W), 32.0, dtype=torch.float32, device=dev)
     ins = {'v': (sig[0], sig[1], p2),
            'h': tuple(t.transpose(1, 2).contiguous()
@@ -1554,8 +1619,10 @@ def check_fold_kernels(specs, pairs, stats):
 
     dm = ints('dmin')
     dt = ints('dmax') - dm + 1
-    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev), v.census_win)
-    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev), v.census_win)
+    s1 = mf.census_bits_raw(torch.as_tensor(b1, device=dev),
+                            v.census_win)[..., 0]
+    s2 = mf.census_bits_raw(torch.as_tensor(b2, device=dev),
+                            v.census_win)[..., 0]
     sr, ss, _ = mf._side_sigs(s1, s2, dm, ints('h'), ints('w1'),
                               ints('w2'), extra=seg_w - W, ref_pad=seg_w - W)
     allowed = (torch.arange(D, device=dev)[None, :] < dt[:, None]) \
@@ -3776,6 +3843,448 @@ def run_sgbm(scene_root, root, cpu_root, card):
         raise AssertionError('sgbm: the cloud or the DSM misses the scene')
 
 
+# --------------------------------------------------------------------- #
+# The matchers of the last slice: msmw and hirschmuller02 (B1), tvl1,
+# the flow at wide census windows (K2's 16-bit source), the cascade with
+# tsgm 2, sgm_match_batch and SIFT's host route
+# --------------------------------------------------------------------- #
+
+def matcher_crop(tile, size):
+    """A crop of a tile's rectified pair at its origin, and its range."""
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff
+    pdir = os.path.join(tile['dir'], 'pair_1')
+    h, w = size
+    ims = [geotiff.read(os.path.join(pdir, f'rectified_{n}.tif'))[:h, :w]
+           .astype(np.float32) for n in ('ref', 'sec')]
+    lo, hi = np.loadtxt(os.path.join(pdir, 'disp_min_max.txt'))
+    return ims, (lo, hi)
+
+
+def same_or_within(name, got, want, criterion):
+    """Card against CPU: byte for byte, else the CPU tests' criterion
+    (``criterion`` (disp, valid) pairs -> (ok, figures)); fails if
+    neither holds."""
+    import numpy as np
+    (d, m), (dr, mr) = got, want
+    if d.tobytes() == dr.tobytes() and m.tobytes() == mr.tobytes():
+        return 'byte for byte'
+    ok, figures = criterion((d, m > 0), (dr, mr > 0))
+    if not ok:
+        raise AssertionError(f'{name}: the card differs from the CPU beyond '
+                             f'the tests\' criterion ({figures})')
+    return f'within the tests\' criterion ({figures})'
+
+
+def msmw_criterion(ours, ref):
+    """tests/test_torch_msmw.py's criterion."""
+    import numpy as np
+    (d, v), (dr, vr) = ours, ref
+    agree = float((v == vr).mean())
+    both = v & vr
+    err = float(np.abs(d[both] - dr[both]).max()) if both.any() else 0.0
+    return (agree >= MSMW_VALID_SHARE and err <= MSMW_DISP_TOL,
+            f'masks agree on {agree}, max |error| {err} px')
+
+
+def tvl1_criterion(ours, ref):
+    """tests/test_torch_tvl1.py's criterion."""
+    import numpy as np
+    (d, v), (dr, vr) = ours, ref
+    agree = float((v == vr).mean())
+    both = v & vr
+    err = np.abs(d[both] - dr[both]) if both.any() else np.zeros(1)
+    med, p99, top = (float(np.median(err)), float(np.percentile(err, 99)),
+                     float(err.max()))
+    return (agree >= TVL1_TOL['valid'] and med <= TVL1_TOL['median']
+            and p99 <= TVL1_TOL['p99'] and top <= TVL1_TOL['max'],
+            f'masks agree on {agree}, |error| median {med}, p99 {p99}, '
+            f'max {top} px')
+
+
+def check_box_kernel(inputs, stats):
+    """B1 against its plain version on the card, bitwise, on the volumes
+    the msmw stage 4 gave it (its largest vertical and horizontal calls),
+    timed beside the plain version and avg_pool2d with the same window
+    (the library's box sum)."""
+    import torch
+    from s2p_tpu_torch.ops import msmw
+    for (x, r, vertical, scale) in inputs:
+        got = msmw.box_sum(x, r, vertical, scale)
+        want = msmw.box_sum_plain(x, r, vertical, scale)
+        ok, err = equal(got, want)
+        k = 2 * r + 1
+        win, pad = ((k, 1), (r, 0)) if vertical else ((1, k), (0, r))
+        div = round(1 / scale) if scale else 1
+
+        def library():
+            return torch.nn.functional.avg_pool2d(
+                x[:, None], win, stride=1, padding=pad,
+                count_include_pad=True, divisor_override=div)
+        n = x.numel()
+        record(stats, f"box {'v' if vertical else 'h'} r{r} "
+               f'{tuple(x.shape)}', '', ok, err,
+               timed(lambda: msmw.box_sum(x, r, vertical, scale), 5),
+               timed(lambda: msmw.box_sum_plain(x, r, vertical, scale), 2),
+               8 * n, k * n + (n if scale else 0))
+        stats['box']['library_ms'] = (stats['box'].get('library_ms') or 0.0) \
+            + timed(library, 5)
+
+
+def check_scan16(stats):
+    """K2's 16-bit source against its plain version on the card, bitwise:
+    the uint16 cost of a 17 x 17 census window on a crop of the single
+    tile (Hamming counts up to 288, 65535 for BIG), both orientations,
+    forward and backward, the second pass of each with accum."""
+    import torch
+    from s2p_tpu_torch.device import resolve
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    dev = resolve(None)
+    im1, im2 = (torch.as_tensor(im[:WIDE_CROP[0], :WIDE_CROP[1]].copy(),
+                                device=dev)
+                for im in make_pair(SINGLE))
+    D = 16
+    cost = mf._cost_int(mf.census_cost_raw(im1, im2, -4, D, 17), 17)[None]
+    if cost.dtype != torch.uint16 or int(cost.to(torch.int32).max()) != 65535:
+        raise AssertionError('the 17 x 17 cost is not the 16-bit volume')
+    vols = {'v': cost.permute(0, 1, 3, 2), 'h': cost.permute(0, 2, 3, 1)}
+    for o, vol in vols.items():
+        B, N, _, lanes = vol.shape
+        p2 = torch.full((B, N, lanes), 32.0, dtype=torch.float32,
+                        device=dev)
+        S = None
+        for reverse in (False, True):
+            kw = dict(reverse=reverse, accum=S)
+            Sk, vk = sk.scan(vol, p2, (0,), 8.0, mf.BIG, **kw)
+            Sp, vp = sk.scan_plain(vol, p2, (0,), 8.0, mf.BIG, **kw)
+            ok, err = equal(Sk, Sp)
+            ok_v, _ = equal(vk, vp)
+            n = Sk.numel()
+            record(stats, f"scan16 {o}{'b' if reverse else 'f'}", '',
+                   ok and ok_v, err,
+                   timed(lambda: sk.scan(vol, p2, (0,), 8.0, mf.BIG, **kw),
+                         5),
+                   timed(lambda: sk.scan_plain(vol, p2, (0,), 8.0, mf.BIG,
+                                               **kw), 1),
+                   2 * vol.numel() + 4 * p2.numel() + 4 * n
+                   + (4 * n if S is not None else 0) + 4 * vk.numel(),
+                   n * 11)
+            S = Sk
+
+
+def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
+    """hirschmuller02, msmw and tvl1: the known shift of a synthetic pair
+    through ``compute_disparity_map``; then stage 4 through
+    ``pipeline.stereo_matching_all`` on NEW_MATCHER_TILES of the scene's
+    rectified tiles (8b), each matcher's time, its launches (B1 for the
+    msmw engines), no confidence file and its agreement with mgm's stage
+    4 of 8b; crops of two tiles card against device="cpu" (byte for byte
+    or by the CPU tests' criteria); B1 against its plain version on the
+    volumes msmw's stage 4 gave it."""
+    import dataclasses
+    import glob
+    import numpy as np
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.geo import geotiff
+    from s2p_tpu_torch.ops import msmw
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+
+    user = pipeline.read_config_file(os.path.join(scene_root, 'config.json'))
+    cfg = pipeline.build_cfg(user)
+    ref, sec = make_pair(KNOWN)
+    for algo in NEW_MATCHERS:
+        c = dataclasses.replace(cfg, matching_algorithm=algo)
+        t0 = time.perf_counter()
+        d, m, conf = matching.compute_disparity_map(c, ref, sec,
+                                                    KNOWN['dmin'],
+                                                    KNOWN['dmax'])
+        t = time.perf_counter() - t0
+        fin = np.isfinite(d)
+        med = float(np.median(d[fin]))
+        print(f"  {algo}: known shift {KNOWN['shift']} on a "
+              f"{KNOWN['h']} x {KNOWN['w1']} pair: median {med:.3f} px, "
+              f'{fin.mean():.4f} valid, {t:.3f} s', flush=True)
+        if conf is not None or fin.mean() < 0.5 or \
+                abs(med - KNOWN['shift']) > KNOWN_SHIFT_TOL_PX:
+            raise AssertionError(f'{algo}: misses the known shift')
+
+    pdirs = sorted(glob.glob(os.path.join(user['out_dir'], 'tiles', '*',
+                                          '*', 'pair_1')))[:NEW_MATCHER_TILES]
+    if len(pdirs) < 2:
+        raise AssertionError(f'the scene has {len(pdirs)} tiles')
+    box_inputs = {}
+    box_sum = msmw.box_sum
+
+    def spy(x, r, vertical, scale=0.0):
+        # the largest volume of each axis that msmw's stage 4 sums
+        key = bool(vertical)
+        if key not in box_inputs or x.numel() > box_inputs[key][0].numel():
+            box_inputs[key] = (x.clone(), r, vertical, scale)
+        return box_sum(x, r, vertical, scale)
+
+    names = ('rectified_ref.tif', 'rectified_sec.tif', 'disp_min_max.txt')
+    walls = {}
+    for algo in NEW_MATCHERS:
+        tiles = []
+        for k, p in enumerate(pdirs):
+            d = os.path.join(root, algo, f'tile_{k}')
+            os.makedirs(os.path.join(d, 'pair_1'))
+            for n in names:
+                shutil.copy(os.path.join(p, n), os.path.join(d, 'pair_1'))
+            tiles.append(({'dir': d}, 1))
+        c = dataclasses.replace(cfg, matching_algorithm=algo,
+                                out_dir=os.path.join(root, algo))
+        sk.reset_launch_counts()
+        msmw.reset_launch_counts()
+        msmw.box_sum = spy
+        try:
+            t0 = time.perf_counter()
+            pipeline.stereo_matching_all(c, tiles)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        finally:
+            msmw.box_sum = box_sum
+        launches[algo] = {**sk.launch_counts(), **msmw.launch_counts()}
+        walls[algo] = t
+        agree = []
+        for (tile, _), p in zip(tiles, pdirs):
+            od = os.path.join(tile['dir'], 'pair_1')
+            if os.path.exists(os.path.join(od, STAGE4_FILES[1])):
+                raise AssertionError(f'{algo} wrote a confidence file')
+            dn = geotiff.read(os.path.join(od, 'rectified_disp.tif'))
+            dm = geotiff.read(os.path.join(p, 'rectified_disp.tif'))
+            both = np.isfinite(dn) & np.isfinite(dm)
+            agree.append((float(np.isfinite(dn).mean()),
+                          float(np.median(np.abs(dn[both] - dm[both])))
+                          if both.any() else float('inf')))
+        worst = max(a[1] for a in agree)
+        print(f'  {algo} stage 4 of {len(tiles)} scene tiles: {t:.3f} s on '
+              f'{card}; launches {launches[algo]}; valid shares '
+              f"{[round(a[0], 4) for a in agree]}; median |disp - mgm's| "
+              f'per tile at most {worst:.3f} px', flush=True)
+        if worst > NEW_MATCHER_MGM_TOL_PX or min(a[0] for a in agree) < 0.3:
+            raise AssertionError(f"{algo}: stage 4 misses mgm's disparities "
+                                 'of the scene')
+        if algo != 'tvl1' and launches[algo]['box'] == 0:
+            raise AssertionError(f'{algo}: stage 4 launched no B1')
+
+    # crops of two tiles, card against CPU
+    for algo in NEW_MATCHERS:
+        c = dataclasses.replace(cfg, matching_algorithm=algo)
+        crit = tvl1_criterion if algo == 'tvl1' else msmw_criterion
+        for p in pdirs[:2]:
+            (a, b), (lo, hi) = matcher_crop({'dir': os.path.dirname(p)},
+                                            NEW_MATCHER_CROP)
+            got = matching.compute_disparity_map(c, a, b, lo, hi)[:2]
+            t0 = time.perf_counter()
+            want = matching.compute_disparity_map(c, a, b, lo, hi,
+                                                  device='cpu')[:2]
+            how = same_or_within(algo, got, want, crit)
+            print(f'  {algo}: {NEW_MATCHER_CROP[0]} x {NEW_MATCHER_CROP[1]} '
+                  f'crop of {tile_name({"dir": os.path.dirname(p)})}: the '
+                  f'card equals the CPU run {how} (CPU '
+                  f'{time.perf_counter() - t0:.3f} s)', flush=True)
+    check_box_kernel([box_inputs[True], box_inputs[False]], stats)
+    return walls
+
+
+def check_wide_flow(launches):
+    """The flow at census windows 7 and 17 (the lax route; 17 on K2's
+    16-bit source) on a WIDE_CROP crop of the single tile: the single
+    tile (through ``compute_disparity_map``, its launches counted), the
+    batch and the cascade, card against device="cpu" byte for byte; then
+    the cascade with tsgm 2 on the same crop."""
+    import dataclasses
+    import torch
+    from s2p_tpu_torch.config import Config
+    from s2p_tpu_torch.core import matching
+    from s2p_tpu_torch.ops import mgm_flow as mf
+    from s2p_tpu_torch.ops import sgm_kernels as sk
+    h, w = WIDE_CROP
+    im1, im2 = (im[:h, :w].copy() for im in make_pair(SINGLE))
+    lo, hi = SINGLE['dmin'] // 4, SINGLE['dmax'] // 4
+    D = hi - lo + 1
+
+    def bytes_of(x):
+        if isinstance(x, dict):
+            return b''.join(bytes_of(x[k]) for k in sorted(x))
+        if isinstance(x, (tuple, list)):
+            return b''.join(bytes_of(y) for y in x)
+        return x.cpu().numpy().tobytes() if torch.is_tensor(x) else \
+            x.tobytes()
+
+    for win in WIDE_WINDOWS:
+        v = mf.MgmVariant(census_win=win)
+        cfg = Config(census_ncc_win=win)
+        runs = {
+            'compute_disparity_map': lambda dev: matching
+            .compute_disparity_map(cfg, im1, im2, lo, hi, device=dev),
+            'batch': lambda dev: mf.mgm_binary_match_batch(
+                im1[None], im2[None], [lo], D, [h], [w], [w], [D], v,
+                device=dev),
+            'cascade': lambda dev: mf.mgm_multi_match(
+                im1, im2, lo, hi, dataclasses.replace(v, median_order='none'),
+                scales=3, device=dev)}
+        for name, run in runs.items():
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run(None)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            counts = sk.launch_counts()
+            if name == 'compute_disparity_map':
+                launches[f'flow{win}'] = counts
+            if bytes_of(got) != bytes_of(run('cpu')):
+                raise AssertionError(f'the flow at {win} x {win} ({name}) '
+                                     'differs from the CPU run')
+            print(f'  census {win} x {win}, {name}: {h} x {w} crop equal '
+                  f'to the CPU run byte for byte; card {t:.3f} s; '
+                  f'launches {counts}', flush=True)
+        key = 'scan16' if win * win - 1 >= 255 else 'scan'
+        if launches[f'flow{win}'][key] == 0:
+            raise AssertionError(f'the flow at {win} x {win} launched no '
+                                 f'{key}')
+    v = mf.MgmVariant(tsgm=2, median_order='none')
+    t0 = time.perf_counter()
+    got = mf.mgm_multi_match(im1, im2, lo, hi, v, scales=3)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    if bytes_of(got) != bytes_of(mf.mgm_multi_match(im1, im2, lo, hi, v,
+                                                    scales=3,
+                                                    device='cpu')):
+        raise AssertionError('the cascade with tsgm 2 differs from the CPU '
+                             'run')
+    print(f'  cascade with tsgm 2 (the MGM wavefront per level): {h} x {w} '
+          f'crop equal to the CPU run byte for byte; card {t:.3f} s',
+          flush=True)
+
+
+def check_sgm_batch():
+    """``ops.sgm.sgm_match_batch`` on two tiles with different disparity
+    bases on the card, bitwise against ``sgm_match``'s lax route tile by
+    tile (the batch's route), and against the CPU."""
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.device import resolve
+    from s2p_tpu_torch.ops import sgm
+    spec = SGM_BATCH
+    pairs = [make_pair(dict(index=0, h=spec['h'], w1=spec['w'],
+                            w2=spec['w'], shift=spec['shift'], seed=s))
+             for s in (spec['seed'], spec['seed'] + 1)]
+    b1 = torch.as_tensor(np.stack([p[0] for p in pairs]), device=resolve())
+    b2 = torch.as_tensor(np.stack([p[1] for p in pairs]), device=resolve())
+    params = sgm.SgmParams(**SGM_BATCH_PARAMS)
+    t0 = time.perf_counter()
+    out = sgm.sgm_match_batch(b1, b2, spec['dmins'], spec['D'], params)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    for k, dm in enumerate(spec['dmins']):
+        one = sgm._match_core(b1[k], b2[k], dm, spec['D'], params,
+                              allow_kernels=False)
+        for name in ('disp', 'valid', 'confidence'):
+            ok, err = equal(out[name][k], one[name])
+            if not ok:
+                raise AssertionError(f'sgm_match_batch tile {k}: {name} '
+                                     f'differs from the lax route ({err})')
+    cpu = sgm.sgm_match_batch(b1.cpu().numpy(), b2.cpu().numpy(),
+                              spec['dmins'], spec['D'], params, device='cpu')
+    for name in ('disp', 'valid', 'confidence'):
+        ok, err = equal(out[name].cpu(), cpu[name])
+        if not ok:
+            raise AssertionError(f'sgm_match_batch: {name} differs from the '
+                                 f'CPU run ({err})')
+    disp = out['disp'].cpu().numpy()
+    med = [float(np.nanmedian(d)) for d in disp]
+    print(f"  sgm_match_batch: 2 tiles of {spec['h']} x {spec['w']}, bases "
+          f"{spec['dmins']}, {spec['D']} candidates: {t:.3f} s on the card; "
+          'bitwise the per-tile lax route and the CPU run; median '
+          f"disparity {med} (shift {spec['shift']})", flush=True)
+    if any(abs(m - spec['shift']) > 0.5 for m in med):
+        raise AssertionError('sgm_match_batch misses the known shift')
+
+
+def run_sift_host(scene_root, root, card):
+    """SIFT's host route: on two crops of the scene's image 1 against the
+    port's device route on the card, by the JAX package's own
+    host-against-device criterion (tests/test_sift.py); then stage 1 with
+    ``sift_device='host'`` on two tiles of SIFT_HOST_TILE px (threads, the
+    host route tile by tile), each tile's translation against the
+    rendered pointing error, and its seconds."""
+    import dataclasses
+    import numpy as np
+    from scipy.spatial import cKDTree
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.ops import sift
+
+    user = pipeline.read_config_file(os.path.join(scene_root, 'config.json'))
+    cfg = pipeline.build_cfg(user)
+    img = pipeline._image(cfg.images[0].img)
+    try:
+        for (x, y, w, h) in SIFT_HOST_CROPS:
+            sift.set_device_mode('host')
+            t0 = time.perf_counter()
+            kp_host = sift.image_keypoints(img, x, y, w, h)
+            t_host = time.perf_counter() - t0
+            sift.set_device_mode('auto')
+            kp_dev = sift.image_keypoints(img, x, y, w, h)
+            d, idx = cKDTree(kp_host[:, :4]).query(kp_dev[:, :4], k=1)
+            close = d < 1e-3
+            inner = ((kp_dev[:, 0] > x + 10) & (kp_dev[:, 0] < x + w - 10)
+                     & (kp_dev[:, 1] > y + 10) & (kp_dev[:, 1] < y + h - 10))
+            diff = np.abs(kp_dev[close, 4:] - kp_host[idx[close], 4:])
+            sift.set_device_mode('host')
+            m_host = sift.keypoints_match(kp_host, kp_dev)
+            sift.set_device_mode('auto')
+            m_dev = sift.keypoints_match(kp_host, kp_dev)
+            print(f'  SIFT host route, crop {(x, y, w, h)}: {len(kp_host)} '
+                  f'keypoints ({t_host:.3f} s), the device route '
+                  f'{len(kp_dev)}; {close.mean():.4f} within 1e-3 '
+                  f'({close[inner].mean():.4f} inside), descriptor entries '
+                  f'within 1 {(diff <= 1).mean():.5f}; matches {len(m_host)}'
+                  f' host, {len(m_dev)} device', flush=True)
+            if (abs(len(kp_dev) - len(kp_host)) > 0.03 * len(kp_host)
+                    or close.mean() <= 0.93 or close[inner].mean() <= 0.97
+                    or (diff <= 1).mean() <= 0.99
+                    or abs(len(m_dev) - len(m_host))
+                    > max(2, 0.01 * len(m_host))):
+                raise AssertionError('SIFT host route: misses the device '
+                                     'route by the host-against-device '
+                                     'criterion')
+
+        tiles = []
+        for k, (x, y) in enumerate(SIFT_HOST_TILES):
+            d = os.path.join(root, f'tile_{k}')
+            os.makedirs(os.path.join(d, 'pair_1'))
+            tiles.append({'dir': d, 'coordinates': (x, y, SIFT_HOST_TILE,
+                                                    SIFT_HOST_TILE),
+                          'neighborhood_dirs': []})
+        hcfg = dataclasses.replace(cfg, out_dir=root, sift_device='host')
+        sift.set_device_mode('host')
+        t0 = time.perf_counter()
+        pipeline.pointing_correction_all(hcfg, [(t, 1) for t in tiles],
+                                         nb_workers=len(tiles))
+        t = time.perf_counter() - t0
+    finally:
+        sift.set_device_mode('auto')
+    for tile in tiles:
+        A = np.loadtxt(os.path.join(tile['dir'], 'pair_1', 'pointing.txt'))
+        m = np.loadtxt(os.path.join(tile['dir'], 'pair_1',
+                                    'sift_matches.txt'))
+        err = max(abs(A[0, 2]), abs(A[1, 2] + SCENE_POINTING))
+        print(f"  stage 1 with sift_device='host', tile at "
+              f"{tile['coordinates']}: {len(m)} matches, translation "
+              f'({A[0, 2]:.3f}, {A[1, 2]:.3f}) px, off by {err:.3f} px',
+              flush=True)
+        if err > SCENE_POINTING_TOL_PX:
+            raise AssertionError('the host route misses the rendered '
+                                 'pointing error')
+    print(f"  stage 1 with sift_device='host' on {len(tiles)} tiles of "
+          f'{SIFT_HOST_TILE} px: {t:.3f} s ({card})', flush=True)
+
+
 def check_single_m03(pairs):
     """The single tile at non-integer penalties (m 0.3): a 128 x 160 crop
     on the card against device="cpu" byte for byte, and the 800 x 800
@@ -3813,6 +4322,7 @@ def check_single_m03(pairs):
 
 def main():
     import torch
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
@@ -3959,6 +4469,27 @@ def main():
                      os.path.join(tmp, 'sgbm_cpu'), card)
         with phase('a tile mask from GML rings (host)'):
             time_gml_mask(tmp)
+        t_new = time.perf_counter()
+        with phase('hirschmuller02, msmw and tvl1: a known shift, stage 4 '
+                   'on the scene\'s tiles, crops against the CPU, B1 '
+                   'against its plain version'):
+            new_walls = run_new_matchers(
+                os.path.join(tmp, 'scene'), os.path.join(tmp, 'matchers'),
+                os.path.join(tmp, 'matchers_cpu'), stats, launches, card)
+        with phase("SIFT's host route against the device route; stage 1 "
+                   "with sift_device='host'"):
+            run_sift_host(os.path.join(tmp, 'scene'),
+                          os.path.join(tmp, 'sift_host'), card)
+        with phase("K2's 16-bit source against its plain version (17 x 17)"):
+            check_scan16(stats)
+        with phase('the flow at census windows 7 and 17 and the cascade with '
+                   'tsgm 2, card against the CPU'):
+            check_wide_flow(launches)
+        with phase('sgm_match_batch on the card'):
+            check_sgm_batch()
+        t_new = time.perf_counter() - t_new
+        print(f"  the phases of this slice: {t_new:.3f} s; stage 4 on the "
+              f"scene's tiles: {new_walls} s on {card}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4040,6 +4571,14 @@ def main():
         'warp_dilate': (f'{csrc}/warp.cu', 's2p_tpu/ops/interp.py:134',
                         'scene_nan', 'warp_dilate', 'warp_dilate'),
     })
+    table.update({
+        # B1 replaces the prefix-sum box filter of a jnp program
+        'box': (f'{csrc}/box.cu', 's2p_tpu/ops/msmw.py:42', 'msmw', 'box',
+                'box'),
+        # K2's 16-bit source: the flow's lax scan at windows from 16 x 16
+        'scan16': (f'{csrc}/scan.cu', 's2p_tpu/ops/sgm.py:114', 'flow17',
+                   'scan16', 'scan16'),
+    })
     missing = [name for name, (_, _, run, key, _) in table.items()
                if launches[run][key] == 0]
     if missing:
@@ -4058,6 +4597,8 @@ def main():
                         'library_ms': st.get('library_ms'),
                         **{k: st[k] for k in ('bucket_ms', 'step_floor_ms',
                                               'group_ms') if k in st}})
+    print(f'== the whole run: {time.perf_counter() - t_run:.3f} s',
+          flush=True)
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

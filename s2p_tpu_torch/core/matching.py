@@ -1,12 +1,12 @@
 """Stage-4 matching: the mgm variant of a config, the disparity range
 policy, the rejection mask and the single-pair matcher dispatch.
 
-Counterpart of ``mgm_variant_from_cfg``, ``compute_disparity_map`` (for
-``mgm``, ``mgm_multi``, ``mgm_multi_lsd``, ``sgbm`` and the three
-``hirschmuller08`` variants), ``finalize_disparity``,
-``clamp_disparity_range`` and ``MaxDisparityRangeError`` in
-``s2p_tpu/core/matching.py``.  ``hirschmuller02``, ``msmw*`` and ``tvl1``
-are not ported yet (ROADMAP M12).
+Counterpart of ``mgm_variant_from_cfg``, ``compute_disparity_map`` (every
+matcher of the JAX package: ``mgm``, ``mgm_multi``, ``mgm_multi_lsd``,
+``sgbm``, the three ``hirschmuller08`` variants, ``hirschmuller02``,
+``msmw``, ``msmw2``, ``msmw3`` and ``tvl1``; ``micmac`` raises, as there),
+``finalize_disparity``, ``clamp_disparity_range`` and
+``MaxDisparityRangeError`` in ``s2p_tpu/core/matching.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 from .. import runner
 from ..config import Config
 from ..ops.lsd import lsd_weights
+from ..ops import msmw, tvl1
 from ..ops.mgm_flow import MgmVariant, mgm_binary_match, mgm_multi_match
 from ..ops.morphology import remove_small_disparity_speckles
 from ..ops.sgm import SgmParams, match_pair
@@ -25,7 +26,25 @@ from ..ops.sgm import SgmParams, match_pair
 # OpenCV's SGBM behind the reference's prefilters (callSGBM*.sh)
 SGBM_MATCHERS = ('sgbm', 'hirschmuller08', 'hirschmuller08_laplacian',
                  'hirschmuller08_cauchy')
-MATCHERS = ('mgm', 'mgm_multi', 'mgm_multi_lsd') + SGBM_MATCHERS
+# one engine under three names
+MSMW_MATCHERS = ('msmw', 'msmw2', 'msmw3')
+MATCHERS = (('mgm', 'mgm_multi', 'mgm_multi_lsd') + SGBM_MATCHERS
+            + ('hirschmuller02',) + MSMW_MATCHERS + ('tvl1',))
+
+MICMAC_MESSAGE = (
+    "matcher 'micmac' requires an external MicMac installation; use one of "
+    "the built-in engines (mgm, mgm_multi, sgbm, msmw, tvl1, "
+    "hirschmuller02/08*)")
+
+
+def check_matcher(algo):
+    """Raise NotImplementedError for a matcher that no engine runs:
+    ``micmac`` (an external installation in the reference s2p) and any
+    unknown name, with the JAX package's messages."""
+    if algo == 'micmac':
+        raise NotImplementedError(MICMAC_MESSAGE)
+    if algo not in MATCHERS:
+        raise NotImplementedError(f'unknown matching algorithm {algo!r}')
 
 
 class MaxDisparityRangeError(Exception):
@@ -77,17 +96,26 @@ def compute_disparity_map(cfg: Config, im1, im2, disp_min=None,
     Returns:
         (disp, mask, confidence): numpy float32 disparity (NaN invalid),
         the uint8 validity mask and the float32 consensus confidence, None
-        for the SGBM matchers.  Any matcher but those of ``MATCHERS``
-        raises."""
+        for the matchers without one (the SGBM ones, ``hirschmuller02``,
+        ``msmw*`` and ``tvl1``).  ``micmac`` and unknown names raise
+        (:func:`check_matcher`)."""
     algo = algo or cfg.matching_algorithm
     im1 = np.asarray(im1, dtype=np.float32)
     im2 = np.asarray(im2, dtype=np.float32)
     disp_min, disp_max = clamp_disparity_range(cfg, im1.shape[1], disp_min,
                                                disp_max, max_disp_range)
-    if algo not in MATCHERS:
-        raise NotImplementedError(
-            f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
-            f'runs {", ".join(MATCHERS)}')
+    check_matcher(algo)
+    if algo == 'hirschmuller02' or algo in MSMW_MATCHERS:
+        # correlation stereo; hirschmuller02 behind a LoG prefilter (the
+        # reference's BoofCV subpix.sh contract)
+        if algo == 'hirschmuller02':
+            im1, im2 = _laplacian(im1), _laplacian(im2)
+        disp, valid = msmw.disparity(im1, im2, disp_min, disp_max,
+                                     device=device)
+        return finalize_disparity(disp, valid, im1, im2) + (None,)
+    if algo == 'tvl1':
+        disp, valid = tvl1.disparity(im1, im2, device=device)
+        return finalize_disparity(disp, valid, im1, im2) + (None,)
     if algo in SGBM_MATCHERS:
         # OpenCV-style SGBM: Birchfield-Tomasi over a 3x3 block, P1/P2
         # 8/32 times the block area, parabola subpixel, uniqueness ratio

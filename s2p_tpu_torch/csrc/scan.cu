@@ -5,7 +5,10 @@
 // a step's cost row comes from:
 //
 //   * cost mode (s2p_scan): the uint8 pre-pass volume, cv == 255 meaning
-//     invalid_cost (the mgm flow, K2);
+//     invalid_cost (the mgm flow, K2); s2p_scan16 reads a uint16 volume
+//     with 65535 for invalid_cost instead, for census windows whose
+//     Hamming counts reach 255 (16 x 16 and wider: the flow's lax route,
+//     where the JAX package takes no Pallas kernel);
 //   * signature mode (s2p_scan_sig): the cost of (step, lane, k) is built
 //     in the kernel from bit-packed census signatures (the classic SGM
 //     matcher, K4a):
@@ -118,23 +121,26 @@ constexpr int kPadBit = 25;
 // fits() says whether a tile's offsets fit in an int.
 // ------------------------------------------------------------------ //
 
-// cost mode: the uint8 pre-pass volume through its strides
-struct CostU8 {
-  const uint8_t* cost;
+// cost mode: an integer volume through its strides (in elements), the
+// sentinel meaning invalid; uint8 with 255 (the pre-pass volume) or uint16
+// with 65535
+template <class T, unsigned kSentinel>
+struct CostInt {
+  const T* cost;
   long long sb, sn, sk, sl;
   float invalid;
   template <int kN>
   struct Raw {
-    uint8_t v[kN];
+    T v[kN];
   };
   struct Tile {
-    const uint8_t* c;
+    const T* c;
     int sn, sk, sl;
     float invalid;
     template <int kN, bool kFull>
     __device__ __forceinline__ void load(Raw<kN>& r, int n, int x, int k0,
                                          int cnt) const {
-      const uint8_t* const p = c + (n * sn + x * sl + k0 * sk);
+      const T* const p = c + (n * sn + x * sl + k0 * sk);
 #pragma unroll
       for (int j = 0; j < kN; ++j)
         r.v[j] = kFull || j < cnt ? __ldg(p + j * sk) : 0;
@@ -142,7 +148,7 @@ struct CostU8 {
     template <int kN>
     __device__ __forceinline__ float cost(const Raw<kN>& r, int j) const {
       // 2^23 + v - 2^23 is exact
-      return r.v[j] == 255
+      return r.v[j] == kSentinel
                  ? invalid
                  : __int_as_float(0x4B000000 | r.v[j]) - 8388608.f;
     }
@@ -155,6 +161,8 @@ struct CostU8 {
     return Tile{cost + b * sb, (int)sn, (int)sk, (int)sl, invalid};
   }
 };
+using CostU8 = CostInt<uint8_t, 255u>;
+using CostU16 = CostInt<uint16_t, 65535u>;
 
 // signature mode: the census cost built from the packed signatures
 struct CostSig {
@@ -500,6 +508,22 @@ extern "C" int s2p_scan(const void* cost, long long cs_b, long long cs_n,
                         int reverse, void* stream) {
   const CostU8 src{(const uint8_t*)cost, cs_b, cs_n, cs_k, cs_l,
                    invalid_cost};
+  const int lats[3] = {lat0, lat1, lat2};
+  return launch_dirs(src, (const float*)p2, (const float*)accum, (float*)S,
+                     (int*)votes, B, N, D, lanes, lanes, n_dirs, lats, p1,
+                     sub, reverse, (cudaStream_t)stream);
+}
+
+// Cost mode, 16 bits: the uint16 volume (65535 = invalid_cost), strides
+// in elements.
+extern "C" int s2p_scan16(const void* cost, long long cs_b, long long cs_n,
+                          long long cs_k, long long cs_l, const void* p2,
+                          const void* accum, void* S, void* votes, int B,
+                          int N, int D, int lanes, int n_dirs, int lat0,
+                          int lat1, int lat2, float p1, float invalid_cost,
+                          float sub, int reverse, void* stream) {
+  const CostU16 src{(const uint16_t*)cost, cs_b, cs_n, cs_k, cs_l,
+                    invalid_cost};
   const int lats[3] = {lat0, lat1, lat2};
   return launch_dirs(src, (const float*)p2, (const float*)accum, (float*)S,
                      (int*)votes, B, N, D, lanes, lanes, n_dirs, lats, p1,

@@ -27,7 +27,7 @@ import time
 
 import torch
 
-SOURCES = ('cost_prepass', 'scan', 'scan_mgm', 'wta', 'warp')
+SOURCES = ('cost_prepass', 'scan', 'scan_mgm', 'wta', 'warp', 'box')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

@@ -4,12 +4,12 @@ Counterpart of ``s2p_tpu/ops/census.py``: the signature of a pixel has one
 bit per neighbour of its win x win window, set where the neighbour is
 below the centre.  NaN centres compare as 0, window samples outside the
 image as +inf (never below the centre), and a pixel is valid when it and
-its whole window are finite.  :func:`census_transform` keeps one 32-bit
-word per pixel (windows up to 5x5, the kernels' input);
-:func:`census_words` packs any window into 32-bit words, and the cost
-volumes of the lax route (:func:`census_cost_volume`,
-:func:`census_cost_volume_dyn`, :func:`birchfield_tomasi_cost_volume`)
-build on it.
+its whole window are finite.  :func:`census_words` packs any window into
+32-bit words (and, with ``raw``, the mgm binary's conventions of the
+flow's ``census_bits_raw``); :func:`census_transform` gives them as int32
+bit patterns, the JAX package's contract, and the cost volumes of the lax
+route (:func:`census_cost_volume`, :func:`census_cost_volume_dyn`,
+:func:`birchfield_tomasi_cost_volume`) build on them.
 """
 
 from __future__ import annotations
@@ -20,19 +20,22 @@ import torch
 from .sgm_kernels import _popcount
 
 
-def census_words(img, win: int = 5):
+def census_words(img, win: int = 5, raw: bool = False):
     """(signature, valid) of a (..., h, w) image over any window.
 
     Returns the signatures as (..., h, w, n_words) int64 holding unsigned
     32-bit words (bit ``b`` of the window in word ``b // 32``) and the
-    validity mask (bool, (..., h, w))."""
+    validity mask (bool, (..., h, w)).  With ``raw`` the comparisons are
+    the mgm binary's: raw IEEE (NaN neighbours and centres give 0 bits),
+    samples outside the image give 0 bits."""
     img = img.to(torch.float32)
     h, w = img.shape[-2:]
     r = win // 2
     n_words = (win * win - 1 + 31) // 32
     finite = torch.isfinite(img)
-    center = torch.nan_to_num(img)
-    pad = torch.nn.functional.pad(center, (r, r, r, r), value=float('inf'))
+    center = img if raw else torch.nan_to_num(img)
+    pad = torch.nn.functional.pad(center, (r, r, r, r),
+                                  value=float('nan' if raw else 'inf'))
     pad_fin = torch.nn.functional.pad(finite.to(torch.uint8), (r, r, r, r),
                                       value=0) == 1
     words = [torch.zeros(img.shape, dtype=torch.int64, device=img.device)
@@ -52,15 +55,11 @@ def census_words(img, win: int = 5):
 
 
 def census_transform(img, win: int = 5):
-    """(signature, valid) of a (..., h, w) image, one word per pixel.
-
-    Returns the signatures as int32 bit patterns of shape (..., h, w) and
-    the validity mask (bool, same shape)."""
-    if win * win - 1 > 31:
-        raise NotImplementedError('census windows above 5x5 need several '
-                                  'signature words: census_words')
+    """(signature, valid) of a (..., h, w) image over any window, the JAX
+    package's contract: the signatures as int32 bit patterns of shape
+    (..., h, w, n_words) and the validity mask (bool, (..., h, w))."""
     sig, valid = census_words(img, win)
-    return sig[..., 0].to(torch.int32), valid
+    return sig.to(torch.int32), valid
 
 
 def census_cost_volume(im1, im2, disp_min: int, disp_max: int, win: int = 5,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from .census import census_words
 from .mgm import mgm_aggregate
 from .sgm_kernels import (_PAD_BIT, _VALID_BIT, _fma32, _popcount,
                           flow_one_side, flow_partials_folded,
@@ -74,27 +75,21 @@ class MgmVariant:
 
 
 def census_bits_raw(img, win: int):
-    """(B, H, W) int32 census signatures with the binary's conventions:
-    raw IEEE comparisons (NaN neighbours and centres give 0 bits),
-    outside-image window samples give 0 bits.  One 32-bit word: win <= 5."""
-    nbits = win * win - 1
-    if nbits > 31:
-        raise NotImplementedError('census windows above 5x5 need several '
-                                  'signature words (ROADMAP M12)')
-    img = img.to(torch.float32)
-    B, h, w = img.shape
-    r = win // 2
-    pad = torch.nn.functional.pad(img, (r, r, r, r), value=float('nan'))
-    sig = torch.zeros((B, h, w), dtype=torch.int32, device=img.device)
-    bit = 0
-    for dy in range(win):
-        for dx in range(win):
-            if dy == r and dx == r:
-                continue
-            nb = pad[:, dy:dy + h, dx:dx + w]
-            sig = sig | ((nb < img).to(torch.int32) << bit)
-            bit += 1
-    return sig
+    """(..., H, W, n_words) int32 census signatures of (..., H, W) images
+    with the binary's conventions: raw IEEE comparisons (NaN neighbours
+    and centres give 0 bits), outside-image window samples give 0 bits;
+    bit ``b`` of the window in word ``b // 32`` (``census.census_words``
+    with ``raw``).  The kernels take windows up to 5x5: one word."""
+    return census_words(img, win, raw=True)[0].to(torch.int32)
+
+
+def _cost_dtype(win: int):
+    """The integer cost volume of a window and its sentinel for BIG:
+    uint8 with 255 while a Hamming count stays below 255 (windows up to
+    15x15), else uint16 with 65535 (K2's 16-bit source)."""
+    if win * win - 1 < 255:
+        return torch.uint8, 255
+    return torch.uint16, 65535
 
 
 def _pad_mask(h, w, h_true, w_true, device):
@@ -114,9 +109,9 @@ def census_cost_raw(im1, im2, disp_min: int, D: int, win: int, h1=None,
     d_true``) cost BIG, and the cost is zero over the reference's padding
     beyond ``(h1, w1)`` when either is given.  The extents are static
     ints, None for the full shape."""
-    sig1 = census_bits_raw(im1[None], win)[0].long()
-    sig2 = census_bits_raw(im2[None], win)[0].long()
-    h, w = sig1.shape
+    sig1 = census_words(im1, win, raw=True)[0]              # (h, w, words)
+    sig2 = census_words(im2, win, raw=True)[0]
+    h, w = sig1.shape[:2]
     dev = sig1.device
     if w2 is None:
         w2 = sig2.shape[1]
@@ -125,8 +120,8 @@ def census_cost_raw(im1, im2, disp_min: int, D: int, win: int, h1=None,
     inb = (xs >= 0) & (xs < w2)
     if d_true is not None:
         inb = inb & (ks < d_true)[None, :]
-    sig2_g = sig2[:, xs.clamp(0, sig2.shape[1] - 1)]         # (h, w, D)
-    ham = _popcount(sig1[:, :, None] ^ sig2_g).to(torch.float32)
+    sig2_g = sig2[:, xs.clamp(0, sig2.shape[1] - 1)]   # (h, w, D, words)
+    ham = _popcount(sig1[:, :, None] ^ sig2_g).sum(dim=-1).to(torch.float32)
     cost = torch.where(inb[None], ham, BIG)
     if h1 is not None or w1 is not None:
         pad = _pad_mask(h, w, h if h1 is None else h1,
@@ -135,26 +130,50 @@ def census_cost_raw(im1, im2, disp_min: int, D: int, win: int, h1=None,
     return cost
 
 
-def _cost_u8(cost):
+def _cost_int(cost, win: int):
     """A float32 census cost (Hamming counts, 0 or BIG) as the kernels'
-    uint8 volume: 255 stands for BIG, every other value as it is."""
-    return torch.where(cost == BIG, 255, cost.to(torch.uint8)).to(torch.uint8)
+    integer volume (:func:`_cost_dtype`): the sentinel stands for BIG,
+    every other value as it is."""
+    dtype, sentinel = _cost_dtype(win)
+    return torch.where(cost == BIG, sentinel,
+                       cost.to(torch.int32)).to(dtype)
+
+
+def _cost_float(cost):
+    """An integer cost volume (:func:`_cost_int`) as float32, BIG at the
+    sentinel."""
+    sentinel = 255 if cost.dtype == torch.uint8 else 65535
+    c = cost.to(torch.int32)
+    return torch.where(c == sentinel, BIG, c.to(torch.float32))
 
 
 def _aggregate_scans(cost, v: MgmVariant, p2_map=None, emit_votes=True):
-    """The classic independent scans (tsgm 1) over a (B, H, W, D) uint8
-    cost (255 = BIG), one :func:`scan` per direction in the JAX package's
-    direction order, each adding the sum of the directions before it, then
-    the overcount fix ``S - (n - 1) * cost``: the JAX package's order of
-    float32 additions, which a per-pixel ``p2_map`` (B, H, W) makes
-    inexact.  CUDA tensors launch K2, CPU tensors run its plain version.
+    """The aggregation of a (B, H, W, D) integer cost (:func:`_cost_int`:
+    uint8 or uint16, the sentinel for BIG) and an optional (B, H, W)
+    per-pixel P2.
+
+    tsgm 1: the classic independent scans, one :func:`scan` per direction
+    in the JAX package's direction order, each adding the sum of the
+    directions before it, then the overcount fix ``S - (n - 1) * cost``:
+    the JAX package's order of float32 additions, which a per-pixel
+    ``p2_map`` makes inexact.  CUDA tensors launch K2 (its 16-bit source
+    for uint16), CPU tensors run its plain version.  ``tsgm >= 2``: the
+    MGM wavefront (:func:`mgm.mgm_aggregate`) of each tile on its own.
 
     Returns (S (B, H, D, W) float32, votes: per direction a (B, H, W)
     int32 map, None without ``emit_votes``)."""
-    if v.tsgm != 1:
-        raise NotImplementedError('the cascade with tsgm >= 2 (the MGM '
-                                  'wavefront per level) is not ported yet '
-                                  '(ROADMAP M12)')
+    if v.tsgm >= 2:
+        S, votes = [], []
+        for k in range(cost.shape[0]):
+            S_k, votes_k = mgm_aggregate(
+                _cost_float(cost[k]), v.p1, v.p2, nb_dir=v.nb_dir,
+                tsgm=v.tsgm, p2_map=None if p2_map is None else p2_map[k],
+                overcount_fix=v.overcount_fix, fan=v.fan)
+            S.append(S_k.permute(0, 2, 1))
+            votes.append(votes_k)
+        votes = [torch.stack([vo[d] for vo in votes]) if emit_votes
+                 else None for d in range(votes[0].shape[0])]
+        return torch.stack(S), votes
     B, H, W, D = cost.shape
     dirs = _DIRS_8[:max(2, min(v.nb_dir, 8))]
     vols = {'v': cost.permute(0, 1, 3, 2).contiguous(),     # (B, H, D, W)
@@ -176,9 +195,7 @@ def _aggregate_scans(cost, v: MgmVariant, p2_map=None, emit_votes=True):
     if o == 'h':
         S = S.permute(0, 3, 2, 1).contiguous()
     if v.overcount_fix:
-        vol = vols['v'].to(torch.int32)
-        S = S - (len(dirs) - 1) * torch.where(vol == 255, BIG,
-                                              vol.to(torch.float32))
+        S = S - (len(dirs) - 1) * _cost_float(vols['v'])
     return S, votes
 
 
@@ -193,7 +210,7 @@ def _aggregate_flow(cost, v: MgmVariant, p2_map=None):
                                  tsgm=v.tsgm, p2_map=p2_map,
                                  overcount_fix=v.overcount_fix, fan=v.fan)
         return S, list(votes)
-    S, votes = _aggregate_scans(_cost_u8(cost)[None], v,
+    S, votes = _aggregate_scans(_cost_int(cost, v.census_win)[None], v,
                                 None if p2_map is None else p2_map[None])
     return S[0].permute(0, 2, 1), [vo[0] for vo in votes]
 
@@ -325,12 +342,15 @@ def _flow_post(dL, dR, d_int, votes, v: MgmVariant, w2_true, k_lo, k_cnt):
     return dL, consensus.to(torch.float32) * recip
 
 
+def _wide(v: MgmVariant):
+    """A census window above 5x5: more bits than the kernels' signature
+    word holds, so every entry takes the lax route, as the JAX package's
+    do."""
+    return v.census_win ** 2 - 1 > _VALID_BIT
+
+
 def _check_variant(v: MgmVariant, single_tile=False):
     """Raise on a variant that the port does not run (no other route)."""
-    if v.census_win ** 2 - 1 > _VALID_BIT:
-        raise NotImplementedError(f'census_win {v.census_win}: census '
-                                  'windows above 5x5 are not ported to the '
-                                  'flow yet (ROADMAP M12)')
     if not single_tile and (v.edge_subpix or v.subpix_plateau != 'clip'):
         raise NotImplementedError('edge_subpix and subpix_plateau belong to '
                                   'the single-tile flow (mgm_binary_match)')
@@ -360,9 +380,10 @@ def _mgm_one_side(im1, im2, disp_min: int, D: int, v: MgmVariant, h1=None,
     """One side of the single-tile flow on (H, W) images of equal shape:
     (disp, d_int, votes), NaN beyond ``(h1, w1)``.  The kernels' route
     on both devices (the kernels for CUDA tensors, their plain versions
-    for CPU tensors); the lax route with the wavefront for ``tsgm >= 2``."""
+    for CPU tensors); the lax route (the cost volume, :func:`_aggregate_flow`,
+    :func:`_wta_refine`) for ``tsgm >= 2`` or a window above 5x5."""
     H, W = im1.shape
-    if v.tsgm == 1:
+    if v.tsgm == 1 and not _wide(v):
         ext = None
         if any(x is not None for x in (h1, w1, w2, d_true)):
             ext = (H if h1 is None else h1, W if w1 is None else w1,
@@ -455,8 +476,8 @@ def _flow_batched(a, b, dm, D, h1, w1, w2, dt, v: MgmVariant):
     the post chain.  The per-tile scalars are (B,) int32 tensors on the
     device."""
     dev = a.device
-    s1 = census_bits_raw(a, v.census_win)
-    s2 = census_bits_raw(b, v.census_win)
+    s1 = census_bits_raw(a, v.census_win)[..., 0]
+    s2 = census_bits_raw(b, v.census_win)[..., 0]
     allowed = (torch.arange(D, device=dev)[None, :]
                < dt[:, None]).to(torch.int32)                # (B, D)
     # (reference, secondary, base, reference width, secondary width, votes)
@@ -500,8 +521,8 @@ def _flow_lane_folded(a, b, dm, D, h1, w1, w2, dt, v: MgmVariant, fold,
     n, H, W = a.shape
     m = n // fold
     dev = a.device
-    s1 = census_bits_raw(a, v.census_win)
-    s2 = census_bits_raw(b, v.census_win)
+    s1 = census_bits_raw(a, v.census_win)[..., 0]
+    s2 = census_bits_raw(b, v.census_win)[..., 0]
     allowed = (torch.arange(D, device=dev)[None, :]
                < dt[:, None]).to(torch.int32)                # (n, D)
 
@@ -545,8 +566,8 @@ def mgm_binary_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b,
         device: None for CUDA (raises without it), or "cpu".
     With ``S2P_TPU_LANE_FOLD`` above 1, groups of that many tiles run
     lane-folded (:func:`lane_fold_plan`) and the rest tile by tile.  With
-    ``tsgm >= 2`` every tile runs the lax route (the MGM wavefront) on
-    its own, as the JAX package's batch does.
+    ``tsgm >= 2`` or a census window above 5x5 every tile runs the lax
+    route on its own, as the JAX package's batch does.
     Returns:
         dict of (B, Hp, Wp) tensors on the device: 'disp' (float32, NaN =
         rejected), 'confidence' (float32) and 'confidence_u8' (the
@@ -565,7 +586,7 @@ def mgm_binary_match_batch(im1_b, im2_b, disp_min_b, D: int, h_b, w1_b,
     args = (a, b, dm, int(D), ints(h_b), ints(w1_b), ints(w2_b), d_b,
             variant)
     fold, seg_w = lane_fold_plan(a.shape[2], int(D), a.shape[0])
-    if variant.tsgm >= 2:
+    if variant.tsgm >= 2 or _wide(variant):
         # the lax route of the JAX package's batch, tile by tile
         h_b, w1_b, w2_b = (x.tolist() for x in args[4:7])
         outs = [_flow_core(a[k], b[k], int(dm[k]), int(D), variant, h_b[k],
@@ -674,8 +695,9 @@ _FRAC_CHUNK = 16        # candidates of one phase gathered at a time
 
 def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
                       w1, w2, d_true, lo_map=None, hi_map=None):
-    """(B, H, W, D) uint8 census cost over the fractional candidates
-    ``disp_min + k / sd`` of (B, H, W) pairs; 255 stands for BIG.
+    """(B, H, W, D) integer census cost (:func:`_cost_int`'s dtype and
+    sentinel for BIG) over the fractional candidates ``disp_min + k /
+    sd`` of (B, H, W) pairs.
 
     Phase ``f = k % sd`` matches the secondary shifted by ``f / sd`` px
     (linear interpolation of columns x2 and x2 + 1, so a fractional
@@ -687,9 +709,11 @@ def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
     float32 or None."""
     B, H, W = im1.shape
     dev = im1.device
-    sig1 = census_bits_raw(im1, win)
+    dtype, sentinel = _cost_dtype(win)
+    work = torch.uint8 if dtype == torch.uint8 else torch.int32
+    sig1 = census_words(im1, win, raw=True)[0]     # (B, H, W, words)
     n_per = -(-D // sd)
-    cost = torch.empty((B, H, W, n_per * sd), dtype=torch.uint8, device=dev)
+    cost = torch.empty((B, H, W, n_per * sd), dtype=work, device=dev)
     x0 = torch.arange(W, device=dev)[None, :, None] + disp_min[:, None, None]
     for f in range(sd):
         src = im2
@@ -698,7 +722,7 @@ def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
             nxt = torch.cat([im2[:, :, 1:],
                              torch.full_like(im2[:, :, :1], float('nan'))], 2)
             src = (1.0 - frac) * im2 + frac * nxt
-        sig2 = census_bits_raw(src, win)
+        sig2 = census_words(src, win, raw=True)[0]
         last_ok = (w2 - (1 if f else 0))[:, None, None]
         for j0 in range(0, n_per, _FRAC_CHUNK):
             js = torch.arange(j0, min(n_per, j0 + _FRAC_CHUNK), device=dev)
@@ -707,10 +731,13 @@ def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
             inb = ((xs >= 0) & (xs < last_ok) & (ks < D)
                    & (ks < d_true[:, None, None]))
             idx = xs.clamp(0, W - 1).reshape(B, 1, -1).expand(B, H, -1)
-            g = torch.gather(sig2, 2, idx).reshape(B, H, W, len(js))
-            ham = _popcount((sig1[..., None] ^ g).long()).to(torch.uint8)
+            ham = 0
+            for word in range(sig1.shape[-1]):
+                g = torch.gather(sig2[..., word], 2, idx)
+                ham = ham + _popcount(sig1[..., word, None]
+                                      ^ g.reshape(B, H, W, len(js)))
             cost[..., f + sd * j0:f + sd * (j0 + len(js)):sd] = \
-                torch.where(inb[:, None], ham, 255)
+                torch.where(inb[:, None], ham.to(work), sentinel)
     cost = cost[..., :D]
     if lo_map is not None:
         eps = torch.tensor(1e-4, dtype=torch.float32, device=dev)
@@ -719,9 +746,9 @@ def _census_cost_frac(im1, im2, disp_min, D: int, sd: int, win: int, h1,
         vals = vals[:, None, None, :]
         ok = ((vals >= (lo_map - eps)[..., None])
               & (vals <= (hi_map + eps)[..., None]))
-        cost = torch.where(ok, cost, 255)
+        cost = torch.where(ok, cost, sentinel)
     pad = _pad_mask(H, W, h1, w1, dev)
-    return torch.where(pad[..., None], 0, cost).to(torch.uint8)
+    return torch.where(pad[..., None], 0, cost).to(dtype)
 
 
 def _one_side_frac(im1, im2, disp_min, D: int, sd: int, v: MgmVariant, h1,

@@ -15,9 +15,11 @@ the JAX package's ``_use_pallas`` would take with the Pallas backend:
     independent scans (:func:`_scan_pass`), and the WTA with its subpixel
     fit in plain torch on the tensors' device.
 
-Then the direction-consensus confidence, the left-right test
-(``lr_mode`` 'volume' from the right-reference map, 'full' from a second
-match with the images swapped) and the NaN-aware median variants.  As in
+Then the direction-consensus confidence, the left-right test (``lr_mode``
+'volume' from the right-reference map, 'full' from a second match with
+the images swapped) and the NaN-aware median variants.
+:func:`sgm_match_batch` runs a bucket of tiles with per-tile disparity
+bases, each on the lax route.  As in
 the JAX package, ``uniqueness_ratio`` applies on the lax route only: the
 kernel route keeps no aggregated volume.  The results equal the JAX
 package's to the bit (its jitted run on the lax route).
@@ -306,10 +308,12 @@ def _aggregate(im1, im2, disp_min: int, D: int, params, p2_scale=None):
 
 
 def _match_core(im1, im2, disp_min: int, D: int, params: SgmParams,
-                p2_scale=None, p2_scale_r=None):
+                p2_scale=None, p2_scale_r=None, allow_kernels=True):
     """The matcher body of the JAX package, on the kernels or the lax
-    route (:func:`_use_kernels`)."""
-    kernels = _use_kernels(im1.shape, im2.shape, D, params)
+    route (:func:`_use_kernels`); ``allow_kernels=False`` keeps it on the
+    lax route, as the JAX package's batch entry does."""
+    kernels = allow_kernels and _use_kernels(im1.shape, im2.shape, D,
+                                             params)
     S = None
     if kernels:
         r = match_kernels(im1, im2, disp_min, disp_min + D - 1, params,
@@ -417,6 +421,36 @@ def sgm_match(im1, im2, disp_min: int, disp_max: int, params: SgmParams,
 
     return _match_core(to_dev(im1), to_dev(im2), int(disp_min), D, params,
                        to_dev(p2_scale), to_dev(p2_scale_r))
+
+
+def sgm_match_batch(im1_b, im2_b, disp_min_b, D: int, params: SgmParams,
+                    device=None):
+    """The matcher over a bucket of tiles of one padded shape, each with
+    its own disparity base: the JAX package's ``sgm_match_batch``.
+
+    Args:
+        im1_b, im2_b: (n, H, W) float32 rectified pairs (NaN = invalid),
+            arrays or tensors.
+        disp_min_b: (n,) per-tile disparity bases.
+        D: the candidate count of every tile.
+        device: None for CUDA (raises without it), or "cpu".
+    Each tile runs the lax route on its own, as the JAX package's
+    ``allow_pallas=False`` does (the kernels' route adds the directions in
+    another order); the Birchfield-Tomasi cost raises, as there.
+    Returns:
+        dict of (n, H, W) tensors on the device: 'disp' (float32, NaN
+        invalid), 'valid' (bool) and 'confidence' (float32)."""
+    if params.cost == 'bt':
+        raise NotImplementedError(
+            'Birchfield-Tomasi cost needs a static disparity range')
+    dev = resolve(device)
+    a = torch.as_tensor(im1_b, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(im2_b, dtype=torch.float32, device=dev)
+    outs = [_match_core(a[k], b[k], int(dm), int(D), params,
+                        allow_kernels=False)
+            for k, dm in enumerate(np.asarray(disp_min_b).reshape(-1))]
+    return {key: torch.stack([o[key] for o in outs])
+            for key in ('disp', 'valid', 'confidence')}
 
 
 def match_pair(im1, im2, disp_min, disp_max, params: SgmParams = SgmParams(),

@@ -6,7 +6,8 @@ Counterpart of ``s2p_tpu/ops/sgm_pallas.py``:
     (``csrc/cost_prepass.cu``; TPU kernel ``_cost_prepass_kernel``);
   * :func:`scan` -- K2, one SGM scan pass over that volume, all
     same-orientation directions at once (``csrc/scan.cu``; TPU kernel
-    ``_scan_kernel`` in cost mode);
+    ``_scan_kernel`` in cost mode), or over a uint16 volume (its 16-bit
+    source, for the flow's lax route at census windows from 16x16 up);
   * :func:`scan_sig` -- one SGM scan pass with the census cost built in
     the kernel from bit-packed signatures: K4a with one lateral per
     direction (``csrc/scan.cu``), also over tiles side by side on the
@@ -65,7 +66,8 @@ _PASS_OF_DIR = {
 
 _SUBPIX = {'vfit': 1, 'parabola': 2}
 
-_launches = {'cost_prepass': 0, 'scan': 0, 'wta': 0, 'wta_edge': 0,
+_launches = {'cost_prepass': 0, 'scan': 0, 'scan16': 0, 'wta': 0,
+             'wta_edge': 0,
              'scan_sig': 0, 'scan_sig_seg': 0, 'scan_mgm': 0,
              'scan_mgm_global': 0, 'wta_dr': 0}
 
@@ -95,6 +97,8 @@ _ARGTYPES = {
     's2p_cost_prepass': [_P, _P, _P, _P] + [_I] * 8 + [_U, _P],
     's2p_scan': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
                 + [_I] * 8 + [_F, _F, _F, _I, _P],
+    's2p_scan16': [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P]
+                  + [_I] * 8 + [_F, _F, _F, _I, _P],
     's2p_scan_sig': [_P] * 7 + [_I] * 9 + [_U] + [_I] * 5
                     + [_F, _F, _F, _I, _P],
     's2p_scan_mgm': [_P] * 10 + [_I] * 9 + [_U, _I, _IP, _IP]
@@ -223,7 +227,8 @@ def _minconv(L, p1, p2):
 
 
 def _fma32(a, b, c):
-    """float32 ``a * f32(b) + c`` rounded once, as a fused multiply-add.
+    """float32 ``a * f32(b) + c`` rounded once, as a fused multiply-add;
+    ``b`` is a number or a float32 tensor.
 
     The averaged MGM laterals compute ``cost + c * f32(1 / n)``; the JAX
     package's CPU run contracts that multiply-add into one fused operation
@@ -231,8 +236,10 @@ def _fma32(a, b, c):
     multiply-add, so: the product is exact in float64, TwoSum gives the
     exact error of the float64 sum, and rounding that sum to odd before
     the float32 rounding makes the result the correctly rounded one."""
-    b64 = torch.tensor(b, dtype=torch.float32).item()
-    p = a.double() * b64                                     # exact
+    if torch.is_tensor(b):
+        p = a.double() * b.double()                          # exact
+    else:
+        p = a.double() * torch.tensor(b, dtype=torch.float32).item()
     c64 = c.double()
     s = c64 + p
     bp = s - c64
@@ -300,10 +307,11 @@ def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
                accum=None, emit_votes=True):
     """Plain version of :func:`scan`: a Python loop over the scan rows."""
     inv = torch.tensor(invalid_cost, dtype=torch.float32, device=cost.device)
+    sentinel = 255 if cost.dtype == torch.uint8 else 65535
 
     def cost_row(n):
         ci = cost[:, n].to(torch.int32)                      # (B, D, lanes)
-        return torch.where(ci == 255, inv, ci.to(torch.float32))
+        return torch.where(ci == sentinel, inv, ci.to(torch.float32))
 
     return _scan_loop(cost_row, p2, tuple((lat,) for lat in lats), p1,
                       reverse, sub_cost_mult, accum, emit_votes,
@@ -312,10 +320,11 @@ def scan_plain(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
 
 def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
          accum=None, emit_votes=True):
-    """One SGM scan pass over a uint8 cost volume.
+    """One SGM scan pass over an integer cost volume.
 
     Args:
-        cost: (B, N, D, lanes) uint8, any strides (255 = invalid_cost).
+        cost: (B, N, D, lanes) uint8 (255 = invalid_cost) or uint16
+            (65535 = invalid_cost: K2's 16-bit source), any strides.
         p2: (B, N, lanes) float32 per-pixel P2.
         lats: lateral carry offset of each direction (1 to 3 of them).
         sub_cost_mult: the overcount fix ``S -= sub * cost`` (one pass).
@@ -323,7 +332,9 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     Returns:
         (S (B, N, D, lanes) float32, votes (B, len(lats), N, lanes) int32
         or None)."""
-    _check(cost, 'cost', torch.uint8, 4, contiguous=False)
+    wide = cost.dtype == torch.uint16
+    _check(cost, 'cost', torch.uint16 if wide else torch.uint8, 4,
+           contiguous=False)
     B, N, D, lanes = cost.shape
     _check(p2, 'p2', torch.float32, 3)
     if tuple(p2.shape) != (B, N, lanes):
@@ -343,12 +354,13 @@ def scan(cost, p2, lats, p1, invalid_cost, reverse, sub_cost_mult=0.0,
     votes = (torch.empty((B, len(lats), N, lanes), dtype=torch.int32,
                          device=dev) if emit_votes else None)
     lat3 = lats + (0,) * (3 - len(lats))
-    _launch('scan', 's2p_scan', cost.data_ptr(), *cost.stride(),
+    _launch('scan', 's2p_scan16' if wide else 's2p_scan', cost.data_ptr(),
+            *cost.stride(),
             p2.data_ptr(), None if accum is None else accum.data_ptr(),
             S.data_ptr(), None if votes is None else votes.data_ptr(),
             B, N, D, lanes, len(lats), *lat3, float(p1),
             float(invalid_cost), float(sub_cost_mult), int(bool(reverse)),
-            kernels=len(lats))
+            key='scan16' if wide else 'scan', kernels=len(lats))
     return S, votes
 
 
@@ -746,8 +758,8 @@ def flow_sigs(im1, im2, win, h1=None, w1=None, w2=None):
     stays fresh).  The extents are static ints, None for the full shape."""
     from .mgm_flow import census_bits_raw
 
-    s1 = census_bits_raw(im1, win)
-    s2 = census_bits_raw(im2, win)
+    s1 = census_bits_raw(im1, win)[..., 0]
+    s2 = census_bits_raw(im2, win)[..., 0]
     B, H, W = s1.shape
     xs = torch.arange(W, device=s1.device)
     ys = torch.arange(H, device=s1.device)
@@ -1092,13 +1104,14 @@ def aggregate_partials(im1, im2, disp_min, disp_max, params, p2map=None):
     nbits = win * win - 1
     if nbits > _VALID_BIT:
         raise NotImplementedError(f'census_win {win}: the kernels take '
-                                  'windows up to 5x5 (ROADMAP M12)')
+                                  'windows up to 5x5 (wider windows take '
+                                  'the lax route)')
     invalid_cost = float(nbits)
 
     sig1, val1 = census_transform(im1, win)
     sig2, val2 = census_transform(im2, win)
-    s1 = _pack(sig1, val1)[None]
-    s2 = _pack(sig2, val2)[None]
+    s1 = _pack(sig1[..., 0], val1)[None]
+    s2 = _pack(sig2[..., 0], val2)[None]
     if p2map is None:
         p2map = torch.full((H, W), params.p2, dtype=torch.float32,
                            device=im1.device)

@@ -1,12 +1,17 @@
-"""SIFT matching and stage 1's batch driver.
+"""SIFT detection, matching and stage 1's drivers.
 
-The port's counterpart of ``s2p_tpu/ops/sift.py``, on the JAX package's
-device route only (the route a TPU always takes): detection is
-:mod:`s2p_tpu_torch.ops.sift_device`, the match is one torch function on
-the device, and the RANSAC filter is host numpy.  The host route of the
-JAX package (the scipy pyramid of ``keypoints_from_array`` and the
-per-pair ``_matches_on_rpc_roi_independent``) is not ported (ROADMAP
-M12); ``cfg.sift_device == 'host'`` raises in the stage driver.
+The port's counterpart of ``s2p_tpu/ops/sift.py``, with its two routes,
+chosen by :func:`set_device_mode` (``cfg.sift_device``, set by
+``pipeline.main``):
+
+  * the device route ('auto' and 'device'; the route a TPU always takes):
+    detection is :mod:`s2p_tpu_torch.ops.sift_device`, the match is one
+    torch function on the device, the RANSAC filter host numpy, and stage
+    1 runs as waves over all tile pairs (:func:`matches_on_rpc_roi_batch`);
+  * the host route ('host'): the JAX package's numpy and scipy detection
+    (:mod:`s2p_tpu_torch.ops.sift_host`), the match's distances by numpy,
+    and stage 1 pair by pair (:func:`_matches_on_rpc_roi_independent`).
+    It never touches a device.
 
 IPOL "Anatomy of the SIFT Method" (Rey-Otero & Delbracio) parameters, the
 reference s2p's ``sift.py`` contract: rows of (x, y, scale, orientation,
@@ -28,28 +33,14 @@ import numpy as np
 import torch
 
 from ..device import resolve
-
-# IPOL reference parameters
-DELTA_MIN = 0.5
-SIGMA_MIN = 0.8
-SIGMA_IN = 0.5
-N_SPO = 3
-C_EDGE = 10.0
-LAMBDA_ORI = 1.5
-LAMBDA_DESCR = 6.0
-N_BINS = 36
-N_HIST = 4
-N_ORI = 8
+from . import sift_host
+# the IPOL reference parameters and the sampled gaussian
+from .sift_host import (C_EDGE, DELTA_MIN, LAMBDA_DESCR, LAMBDA_ORI,  # noqa
+                        N_BINS, N_HIST, N_ORI, N_SPO, SIGMA_IN, SIGMA_MIN,
+                        _gauss_kernel)
 
 _MATCH_ROWS = 2048    # query rows per block of the distance matrix
 _MATCH_JOBS = 64      # tile pairs per detection + match wave
-
-
-def _gauss_kernel(sigma):
-    r = max(1, int(math.ceil(4.0 * sigma)))
-    xs = np.arange(-r, r + 1, dtype=np.float64)
-    k = np.exp(-0.5 * (xs / sigma) ** 2)
-    return (k / k.sum()).astype(np.float32)
 
 
 def _hist_peaks(hist):
@@ -126,13 +117,61 @@ def _match_device(k1, k2, fc, gate, device):
     return out[:, 0].astype(np.int64), out[:, 1], out[:, 2]
 
 
+# --------------------------------------------------------------------- #
+# The route: 'auto' (the card), 'device' or 'host'
+# --------------------------------------------------------------------- #
+
+_DEVICE_MODE = 'auto'
+
+
+def set_device_mode(mode: str):
+    """Select SIFT's route ('auto' | 'device' | 'host'); 'auto' is the
+    device route."""
+    global _DEVICE_MODE
+    if mode not in ('auto', 'device', 'host'):
+        raise ValueError(f'unknown sift_device mode {mode!r}')
+    _DEVICE_MODE = mode
+
+
+def _use_device_sift():
+    return _DEVICE_MODE != 'host'
+
+
+def keypoints_from_array(arr, thresh_dog=0.0133, n_octaves=8, n_scales=3,
+                         offset=None, device=None):
+    """SIFT keypoints and descriptors of a 2D array: (n, 132) float32 rows
+    (x, y, scale, orientation, descriptor), the contract of the reference's
+    ctypes wrapper.  The device route runs on ``device`` (None: CUDA), the
+    host route (:mod:`sift_host`) in numpy."""
+    if not _use_device_sift():
+        return sift_host.keypoints_from_array(arr, thresh_dog, n_octaves,
+                                              n_scales, offset)
+    from .sift_device import keypoints_from_array as on_device
+    return on_device(arr, thresh_dog, n_octaves, n_scales, offset,
+                     device=device)
+
+
+def image_keypoints(img, x, y, w, h, max_nb=None, thresh_dog=0.0133,
+                    n_octaves=8, n_scales=3, device=None):
+    """Keypoints of a window of a (full) image array, the ROI clipped to
+    the image (the reference's contract)."""
+    img = np.asarray(img)
+    x, y, w, h = _clip_roi(img, x, y, w, h)
+    kp = keypoints_from_array(img[y:y + h, x:x + w], thresh_dog, n_octaves,
+                              n_scales, offset=(x, y), device=device)
+    if max_nb is not None:
+        kp = kp[:max_nb]
+    return kp
+
+
 def keypoints_match(k1, k2, method='relative', sift_thresh=0.6, F=None,
                     epipolar_threshold=10, model=None, ransac_max_err=0.3,
                     device=None):
     """Match two keypoint sets: epipolar-gated nearest neighbour with the
     ratio (``method='relative'``) or absolute test, then, with
     ``model='fundamental'``, the RANSAC fundamental-matrix inlier filter.
-    The distances are one matrix product on ``device`` (None: CUDA)."""
+    The distances are one matrix product on ``device`` (None: CUDA), or
+    numpy's on the host route."""
     k1 = np.asarray(k1, dtype=np.float32)
     k2 = np.asarray(k2, dtype=np.float32)
     if len(k1) == 0 or len(k2) == 0:
@@ -141,9 +180,31 @@ def keypoints_match(k1, k2, method='relative', sift_thresh=0.6, F=None,
         fc, gate = _epipolar_gate(F, epipolar_threshold)
     else:
         fc, gate = np.zeros(5, dtype=np.float32), float('inf')
-    nn, best, second = _match_device(k1, k2, fc, gate, device)
+    if _use_device_sift():
+        nn, best, second = _match_device(k1, k2, fc, gate, device)
+    else:
+        nn, best, second = _match_host(k1, k2, fc, gate, F is not None)
     return _match_finish(k1, k2, nn, best, second, method, sift_thresh,
                          ransac_max_err, ransac=model == 'fundamental')
+
+
+def _match_host(k1, k2, fc, gate, gated):
+    """The match's distances by numpy (the JAX package's host branch):
+    (nn int64, best, second)."""
+    d1 = k1[:, 4:]
+    d2 = k2[:, 4:]
+    sq = (np.einsum('ij,ij->i', d1, d1)[:, None]
+          + np.einsum('ij,ij->i', d2, d2)[None, :] - 2.0 * (d1 @ d2.T))
+    np.maximum(sq, 0.0, out=sq)
+    if gated:
+        lin = (fc[0] * k2[None, :, 0] + fc[1] * k2[None, :, 1]
+               + (fc[2] * k1[:, 0] + fc[3] * k1[:, 1] + fc[4])[:, None])
+        sq[np.abs(lin) > gate] = np.inf
+    nn = np.argmin(sq, axis=1)
+    best = sq[np.arange(len(sq)), nn]
+    sq[np.arange(len(sq)), nn] = np.inf
+    second = np.min(sq, axis=1)
+    return nn, best, second
 
 
 def _eight_point(sub):
@@ -437,11 +498,50 @@ def _run_match_chunk(jobs, metas, chunk, thresh_dog, finished, device,
 def matches_on_rpc_roi(im1, im2, rpc1, rpc2, x, y, w, h, method='relative',
                        sift_thresh=0.6, epipolar_threshold=10, device=None,
                        **alt_kwargs):
-    """SIFT matches between two full images over an ROI of the first:
-    :func:`matches_on_rpc_roi_batch` of one job (corresponding ROI via
-    the RPCs, affine-F gate, DoG-threshold halving retry, RANSAC)."""
+    """SIFT matches between two full images over an ROI of the first
+    (corresponding ROI via the RPCs, affine-F gate, DoG-threshold halving
+    retry, RANSAC): :func:`matches_on_rpc_roi_batch` of one job on the
+    device route, :func:`_matches_on_rpc_roi_independent` on the host
+    route."""
+    if not _use_device_sift():
+        return _matches_on_rpc_roi_independent(
+            im1, im2, rpc1, rpc2, x, y, w, h, method, sift_thresh,
+            epipolar_threshold, **alt_kwargs)
     return matches_on_rpc_roi_batch([dict(
         im1=im1, im2=im2, rpc1=rpc1, rpc2=rpc2, x=x, y=y, w=w, h=h,
         method=method, sift_thresh=sift_thresh,
         epipolar_threshold=epipolar_threshold, alt_kwargs=alt_kwargs)],
         device=device)[0]
+
+
+def _matches_on_rpc_roi_independent(im1, im2, rpc1, rpc2, x, y, w, h,
+                                    method='relative', sift_thresh=0.6,
+                                    epipolar_threshold=10, device=None,
+                                    **alt_kwargs):
+    """The per-pair flow (the crops' detections one after the other,
+    :func:`keypoints_match`, the DoG-threshold halving retry): the host
+    route of :func:`matches_on_rpc_roi`, an implementation independent of
+    the batch driver."""
+    from ..core import estimation, rpc_geom
+
+    x2, y2, w2, h2 = rpc_geom.corresponding_roi(rpc1, rpc2, x, y, w, h,
+                                                **alt_kwargs)
+    rpc_matches = rpc_geom.matches_from_rpc(rpc1, rpc2, x, y, w, h, 5,
+                                            **alt_kwargs)
+    F = estimation.affine_fundamental_matrix(rpc_matches)
+
+    thresh_dog = 0.0133
+    for _ in range(2):
+        p1 = image_keypoints(im1, x, y, w, h, thresh_dog=thresh_dog,
+                             device=device)
+        p2 = image_keypoints(im2, x2, y2, w2, h2, thresh_dog=thresh_dog,
+                             device=device)
+        matches = keypoints_match(p1, p2, method, sift_thresh, F,
+                                  epipolar_threshold=epipolar_threshold,
+                                  model='fundamental', device=device)
+        if matches is not None and matches.ndim == 2 \
+                and matches.shape[0] > 10:
+            return matches
+        thresh_dog /= 2.0
+    warnings.warn('sift.matches_on_rpc_roi: found no matches')
+    return None

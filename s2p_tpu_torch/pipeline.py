@@ -94,14 +94,6 @@ def _alt_kwargs(cfg: Config):
 # Stage 1: pointing correction
 # --------------------------------------------------------------------- #
 
-def _check_sift_device(cfg: Config):
-    if cfg.sift_device == 'host':
-        raise NotImplementedError(
-            "sift_device 'host' (the scipy SIFT route) is not ported yet "
-            "(ROADMAP M12); the port runs SIFT's device route ('auto' or "
-            "'device')")
-
-
 def _sift_method(cfg: Config):
     return 'relative' if cfg.relative_sift_match_thresh else 'absolute'
 
@@ -109,8 +101,8 @@ def _sift_method(cfg: Config):
 def pointing_correction(cfg: Config, tile, i, device=None):
     """Stage 1 for one tile pair: SIFT matches between the tile of the
     reference image and its counterpart in image ``i``, the median
-    translation across the epipolar lines, and the tile's files."""
-    _check_sift_device(cfg)
+    translation across the epipolar lines, and the tile's files.  SIFT
+    takes the route :func:`sift_ops.set_device_mode` selects."""
     x, y, w, h = tile['coordinates']
     img1, img2 = cfg.images[0], cfg.images[i]
     A, m = pointing.compute_correction(
@@ -156,18 +148,22 @@ def pointing_correction_all(cfg: Config, tiles_pairs, timeout=600,
                             nb_workers=None, device=None):
     """Stage 1 for every (tile, pair index) in ``tiles_pairs``.
 
-    All tile pairs' SIFT detections run as one wave on the device and all
-    matches as another
+    On SIFT's device route ('auto' or 'device', :func:`sift_ops
+    .set_device_mode`) all tile pairs' SIFT detections run as one wave on
+    the device and all matches as another
     (:func:`s2p_tpu_torch.ops.sift.matches_on_rpc_roi_batch`); the
     per-tile median-translation fit and file writes then fan out on
     :func:`runner.launch_calls` with ``nb_workers`` threads, ``timeout``
-    seconds for each from its own start.  Per-tile outputs equal
-    :func:`pointing_correction`'s.  ``cfg.sift_device`` 'host' raises
-    (not ported); 'auto' and 'device' run SIFT's device route.
-    ``device`` None runs on CUDA and raises without it; "cpu" runs
-    there."""
-    _check_sift_device(cfg)
+    seconds for each from its own start.  On the host route ('host')
+    every tile pair runs :func:`pointing_correction` on those threads.
+    Per-tile outputs equal :func:`pointing_correction`'s.  ``device`` None
+    runs on CUDA and raises without it; "cpu" runs there."""
     dev = resolve(device)
+    if not sift_ops._use_device_sift():
+        runner.launch_calls(
+            lambda t, i: pointing_correction(cfg, t, i, device=dev),
+            tiles_pairs, nb_workers, timeout=timeout, debug=cfg.debug)
+        return
     jobs = _pointing_jobs(cfg, tiles_pairs)
     matches = sift_ops.matches_on_rpc_roi_batch(jobs, device=dev)
 
@@ -314,14 +310,6 @@ def rectification_all(cfg: Config, tiles_pairs, timeout=600,
 # Stage 4: stereo matching
 # --------------------------------------------------------------------- #
 
-def _check_matcher(cfg: Config):
-    algo = cfg.matching_algorithm
-    if algo not in matching.MATCHERS:
-        raise NotImplementedError(
-            f'matcher {algo!r} is not ported yet (ROADMAP M12); the port '
-            f'runs stage 4 with {", ".join(matching.MATCHERS)}')
-
-
 def stereo_matching(cfg: Config, tile, i, device=None):
     """Stage 4 of one tile pair through :func:`matching.compute_disparity_map`:
     reads the pair's rectified images and range, writes its disparity,
@@ -409,7 +397,7 @@ def stereo_matching_all(cfg: Config, tiles_pairs, timeout=600, device=None):
     ``cfg.max_processes_stereo_matching`` workers (default 1) and a
     deadline of ``timeout`` seconds a call.  ``device`` None runs on CUDA
     and raises without it; "cpu" runs the kernels' plain versions."""
-    _check_matcher(cfg)
+    matching.check_matcher(cfg.matching_algorithm)
     dev = resolve(device)
     algo = cfg.matching_algorithm
     if algo not in ('mgm', 'mgm_multi'):
@@ -1079,14 +1067,6 @@ def _check_resume_inputs(start_from, tiles_pairs):
             f'stage.')
 
 
-def _check_supported(cfg: Config, start_from):
-    """Refuse, before any file is written, a run the port cannot finish."""
-    if start_from <= 1:
-        _check_sift_device(cfg)
-    if start_from <= 4:
-        _check_matcher(cfg)
-
-
 def main(user_cfg, start_from=0, device=None, stage_times=None):
     """Run a scene from ``user_cfg`` (the s2p JSON schema as a dict, e.g.
     from :func:`read_config_file`) through stages 1 to 7, from stage
@@ -1116,11 +1096,12 @@ def main(user_cfg, start_from=0, device=None, stage_times=None):
 
     ``device`` is resolved once (None: CUDA device ``process index %
     device count``, raising without CUDA; "cpu": the kernels' plain
-    versions) and passed to every stage that runs on a device.  SIFT's
-    host route and any matcher not in ``matching.MATCHERS`` raise
-    NotImplementedError before anything is written.  A dict passed as
-    ``stage_times`` receives each stage's elapsed seconds under its banner
-    and, for a triplet, each of 5a-5d's under its own label."""
+    versions) and passed to every stage that runs on a device.  SIFT
+    takes the route of ``cfg.sift_device`` (set for the process and left
+    so, as the JAX package's ``main`` does).  ``micmac`` and unknown
+    matchers raise NotImplementedError before anything is written.  A dict
+    passed as ``stage_times`` receives each stage's elapsed seconds under
+    its banner and, for a triplet, each of 5a-5d's under its own label."""
     from .parallel import distributed as dist
 
     dev = resolve(device)
@@ -1130,7 +1111,10 @@ def main(user_cfg, start_from=0, device=None, stage_times=None):
                            dist.process_index() % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     cfg = build_cfg(user_cfg)
-    _check_supported(cfg, start_from)
+    sift_ops.set_device_mode(cfg.sift_device)
+    if start_from <= 4:
+        # refuse, before any file is written, a run no matcher can finish
+        matching.check_matcher(cfg.matching_algorithm)
     times = {} if stage_times is None else stage_times
 
     # the scene's and the tiles' initial files are written once, by the

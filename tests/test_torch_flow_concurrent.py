@@ -55,8 +55,8 @@ def _sides(b1, b2, hs, w1s, w2s, dmins, dts, D, v):
     """The kernel inputs of both sides as the batched flow builds them:
     [(sr, ss, base, pad, emit_votes)] and the allowed mask."""
     ints = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
-    s1 = tf.census_bits_raw(torch.from_numpy(b1), v.census_win)
-    s2 = tf.census_bits_raw(torch.from_numpy(b2), v.census_win)
+    s1 = tf.census_bits_raw(torch.from_numpy(b1), v.census_win)[..., 0]
+    s2 = tf.census_bits_raw(torch.from_numpy(b2), v.census_win)[..., 0]
     dm, dt = ints(dmins), ints(dts)
     h, w1, w2 = ints(hs), ints(w1s), ints(w2s)
     allowed = (torch.arange(D)[None, :] < dt[:, None]).to(torch.int32)

@@ -57,19 +57,24 @@ def test_no_banned_import_anywhere_in_source(path):
 
 
 def test_new_modules_are_scanned():
-    """The modules of the multi-process slice and the lax matcher routes
-    are among the scanned sources, and import with JAX blocked (below)."""
+    """The modules of the multi-process slice, the lax matcher routes, the
+    msmw and TV-L1 matchers, SIFT's host route and ASIFT are among the
+    scanned sources, and import with JAX blocked (below)."""
     rels = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for rel in ('s2p_tpu_torch/parallel/__init__.py',
                 's2p_tpu_torch/parallel/distributed.py',
                 's2p_tpu_torch/parallel/mesh.py',
                 's2p_tpu_torch/parallel/halo.py',
-                's2p_tpu_torch/ops/mgm.py', 'chip_smoke.py'):
+                's2p_tpu_torch/ops/mgm.py', 's2p_tpu_torch/ops/msmw.py',
+                's2p_tpu_torch/ops/tvl1.py', 's2p_tpu_torch/ops/sift_host.py',
+                's2p_tpu_torch/ops/asift.py', 'chip_smoke.py'):
         assert rel.replace('/', os.sep) in rels, rel
     mods = _modules()
     for m in ('s2p_tpu_torch.parallel', 's2p_tpu_torch.parallel.distributed',
               's2p_tpu_torch.parallel.mesh', 's2p_tpu_torch.parallel.halo',
-              's2p_tpu_torch.ops.mgm'):
+              's2p_tpu_torch.ops.mgm', 's2p_tpu_torch.ops.msmw',
+              's2p_tpu_torch.ops.tvl1', 's2p_tpu_torch.ops.sift_host',
+              's2p_tpu_torch.ops.asift'):
         assert m in mods, m
 
 
@@ -152,6 +157,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                               0, 3)
     with pytest.raises(RuntimeError, match='CUDA'):
         mesh.TileMesh()
+    from s2p_tpu_torch.ops import asift, msmw, tvl1
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sgm.sgm_match_batch(a, a, [0], 4, sgm.SgmParams())
+    with pytest.raises(RuntimeError, match='CUDA'):
+        msmw.disparity(a[0], a[0], 0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        tvl1.disparity(a[0], a[0])
+    for algo in ('msmw', 'hirschmuller02', 'tvl1'):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            compute_disparity_map(Config(matching_algorithm=algo), a[0],
+                                  a[0], 0, 3)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        asift.keypoints(np.zeros((40, 40), np.float32), n_tilts=1)
     with pytest.raises(RuntimeError, match='CUDA'):
         device.resolve('cuda')
     assert device.resolve('cpu') == torch.device('cpu')

@@ -140,8 +140,8 @@ def test_flow_partials_folded_match_pallas():
     n, H, W = 2, b1.shape[1], b1.shape[2]
     fold, seg_w = tf.lane_fold_plan(W, D, n)
     assert seg_w == 136
-    s1 = tf.census_bits_raw(torch.from_numpy(b1[:n]), 5)
-    s2 = tf.census_bits_raw(torch.from_numpy(b2[:n]), 5)
+    s1 = tf.census_bits_raw(torch.from_numpy(b1[:n]), 5)[..., 0]
+    s2 = tf.census_bits_raw(torch.from_numpy(b2[:n]), 5)[..., 0]
     sr, ss, _ = tf._side_sigs(s1, s2, torch.tensor(dmins[:n]),
                               torch.tensor(hs[:n]), torch.tensor(w1s[:n]),
                               torch.tensor(w2s[:n]), extra=seg_w - W,

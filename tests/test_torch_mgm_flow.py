@@ -56,10 +56,11 @@ def test_census_bits_raw_matches():
     img = (rng.rand(2, 30, 41) * 100).astype(np.float32)
     img[0, 3:6, 7:9] = np.nan
     img[1, :, -2:] = np.nan
-    ours = tf.census_bits_raw(torch.from_numpy(img), 5).numpy()
-    for b in range(2):
-        ref = np.asarray(mf.census_bits_raw(img[b], 5))[..., 0]
-        _same(ours[b].view(np.uint32), ref)
+    for win in (5, 7):
+        ours = tf.census_bits_raw(torch.from_numpy(img), win).numpy()
+        for b in range(2):
+            ref = np.asarray(mf.census_bits_raw(img[b], win))
+            _same(ours[b].view(np.uint32), ref)
 
 
 @pytest.mark.parametrize('shift', [-130, -40, -3, 0, 5, 37, 90])
@@ -112,8 +113,8 @@ def test_flow_partials_match_pallas():
     b1, b2, hs, w1s, w2s = _bucket(n=1)
     D = 16
     v = tf.MgmVariant()
-    s1 = tf.census_bits_raw(torch.from_numpy(b1), 5)
-    s2 = tf.census_bits_raw(torch.from_numpy(b2), 5)
+    s1 = tf.census_bits_raw(torch.from_numpy(b1), 5)[..., 0]
+    s2 = tf.census_bits_raw(torch.from_numpy(b2), 5)[..., 0]
     sr, ss, _ = tf._side_sigs(s1, s2, torch.tensor([-3]),
                               torch.tensor(hs), torch.tensor(w1s),
                               torch.tensor(w2s), D)
@@ -164,6 +165,37 @@ def test_batch_variants_match_lax(kw):
     _same(ours['confidence_u8'].numpy(), ref['confidence_u8'])
 
 
+@pytest.mark.parametrize('entry', ['single', 'batch'])
+def test_census_17_on_the_16_bit_scan(entry):
+    """A 17 x 17 census window: Hamming costs up to 288, so the lax
+    route's scans take K2's 16-bit source (its plain version here); the
+    single tile and the batch equal the JAX package's lax route."""
+    assert tf._cost_dtype(17) == (torch.uint16, 65535)
+    assert tf._cost_dtype(15) == (torch.uint8, 255)
+    b1, b2, hs, w1s, w2s = _bucket(Hp=40, Wp=48, n=2)
+    kw = dict(census_win=17)
+    if entry == 'single':
+        im1, im2 = b1[0, :hs[0], :w1s[0]], b2[0, :hs[0], :w2s[0]]
+        ref = mf.mgm_binary_match(im1, im2, -2, 9,
+                                  mf.MgmVariant(backend='lax', **kw))
+        out = tf.mgm_binary_match(im1, im2, -2, 9, tf.MgmVariant(**kw),
+                                  device='cpu')
+        pairs = zip(out, ref)
+    else:
+        dmins, dts, Dp = [-2, -4], [10, 12], 16
+        ref = mf.mgm_binary_match_batch(
+            jnp.asarray(b1), jnp.asarray(b2), dmins, Dp, hs, w1s, w2s, dts,
+            variant=mf.MgmVariant(backend='lax', **kw))
+        out = tf.mgm_binary_match_batch(b1, b2, dmins, Dp, hs, w1s, w2s,
+                                        dts, tf.MgmVariant(**kw),
+                                        device='cpu')
+        pairs = ((out[k], ref[k]) for k in ('disp', 'confidence'))
+    for o, r in pairs:
+        _same(o.numpy(), r)
+    assert np.isfinite(np.asarray(ref[0] if entry == 'single'
+                                  else ref['disp'])).mean() > 0.3
+
+
 def test_variant_state_carries_across():
     jv = mf.MgmVariant(p1=10.0, nb_dir=4, lr_tau=2.0, backend='lax')
     ours = state.variant_from_state(dataclasses.asdict(jv))
@@ -172,22 +204,19 @@ def test_variant_state_carries_across():
         state.variant_from_state({'no_such_knob': 1})
 
 
-def test_unported_variants_raise():
-    """Census windows above 5x5 still raise in the flow; ``tsgm=2``,
-    which raised before the wavefront was ported, runs each tile on the
-    lax route and equals the JAX package's batch there."""
-    a = np.zeros((1, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match='census windows'):
-        tf.mgm_binary_match_batch(a, a, [0], 4, [8], [8], [8],
-                                  variant=tf.MgmVariant(census_win=7),
-                                  device='cpu')
+@pytest.mark.parametrize('kw', [dict(census_win=7), dict(tsgm=2)],
+                         ids=['win7', 'tsgm2'])
+def test_lax_batch_variants(kw):
+    """A census window above 5x5 and ``tsgm=2``, which raised before they
+    were ported, run each tile on the lax route and equal the JAX
+    package's batch there."""
     b1, b2, hs, w1s, w2s = _bucket(Hp=40, Wp=48, n=2)
     dmins, dts, Dp = [-2, -4], [10, 12], 16
     ref = mf.mgm_binary_match_batch(
         jnp.asarray(b1), jnp.asarray(b2), dmins, Dp, hs, w1s, w2s, dts,
-        variant=mf.MgmVariant(backend='lax', tsgm=2))
+        variant=mf.MgmVariant(backend='lax', **kw))
     out = tf.mgm_binary_match_batch(b1, b2, dmins, Dp, hs, w1s, w2s, dts,
-                                    tf.MgmVariant(tsgm=2), device='cpu')
+                                    tf.MgmVariant(**kw), device='cpu')
     assert np.isfinite(ref['disp']).mean() > 0.5
     for k in ('disp', 'confidence', 'confidence_u8'):
         _same(out[k].numpy(), ref[k])

@@ -333,18 +333,70 @@ def test_compute_disparity_map_matches_jax(algo, case):
     assert ref[1].mean() > 0.5
 
 
-def test_compute_disparity_map_refuses_the_rest():
-    """The matchers still to port raise; ``sgbm``, which raised before
-    the lax matcher was ported, equals the JAX package's."""
-    a = np.zeros((16, 16), np.float32)
-    for algo in ('hirschmuller02', 'tvl1', 'msmw'):
-        with pytest.raises(NotImplementedError, match='M12'):
-            tm.compute_disparity_map(
-                state.config_from_state({'matching_algorithm': algo}), a, a,
-                0, 3, device='cpu')
+@pytest.mark.parametrize('kw', [dict(census_win=7), dict(census_win=17),
+                                dict(tsgm=2)], ids=['win7', 'win17',
+                                                    'tsgm2'])
+def test_cascade_lax_variants(kw):
+    """The cascade at census windows above 5x5 (7 x 7: multi-word
+    signatures; 17 x 17: the 16-bit cost and K2's 16-bit source) and with
+    ``tsgm=2`` (the MGM wavefront per level, which raised before), against
+    the JAX package's jitted runs: the single pair at the windows (its
+    ``tsgm=2`` case is ``test_torch_mgm_single.py``'s), a 2-tile batch
+    with ``tsgm=2`` (the port runs one body for both)."""
+    v = dict(median_order='none', **kw)
+    im1, im2 = _nan_pair(40, 56, 3.0, seed=8)
+    if 'tsgm' not in kw:
+        ref = mf.mgm_multi_match(im1, im2, -2, 9, mf.MgmVariant(**v),
+                                 scales=3)
+        ours = tf.mgm_multi_match(im1, im2, -2, 9, tf.MgmVariant(**v),
+                                  scales=3, device='cpu')
+        for o, r in zip(ours, ref):
+            _same(o.numpy(), r)
+        assert np.isfinite(np.asarray(ref[0])).mean() > 0.3
+        return
+    b1 = np.stack([im1, np.roll(im1, 2, axis=0)])
+    b2 = np.stack([im2, np.roll(im2, 2, axis=0)])
+    args = (b1, b2, [-2, -4], 16, [40, 40], [56, 56], [56, 50], [12, 16])
+    ref = mf.mgm_multi_match_batch(
+        *(jnp.asarray(a) for a in args[:3]), args[3],
+        *(jnp.asarray(a) for a in args[4:]), variant=mf.MgmVariant(**v),
+        scales=3)
+    ours = tf.mgm_multi_match_batch(*args, variant=tf.MgmVariant(**v),
+                                    scales=3, device='cpu')
+    for k in ('disp', 'confidence'):
+        _same(ours[k].numpy(), ref[k])
+
+
+def test_compute_disparity_map_runs_the_rest():
+    """``hirschmuller02``, ``tvl1`` and ``msmw``, which raised before they
+    were ported, equal the JAX package's on one pair by the criteria of
+    ``test_torch_msmw.py`` and ``test_torch_tvl1.py``; ``micmac`` and an
+    unknown name raise with the JAX package's messages; ``sgbm`` equals
+    the JAX package's bitwise."""
+    from test_torch_msmw import check_msmw
+    from test_torch_tvl1 import check_tvl1
+
     rng = np.random.RandomState(6)
     im2 = (rng.rand(24, 40) * 200).astype(np.float32)
     im1 = np.roll(im2, 2, axis=1)
+    for algo, check in (('hirschmuller02', check_msmw), ('msmw', check_msmw),
+                        ('tvl1', check_tvl1)):
+        ref = jm.compute_disparity_map(JConfig(matching_algorithm=algo),
+                                       im1, im2, -4, 4)
+        ours = tm.compute_disparity_map(
+            state.config_from_state({'matching_algorithm': algo}), im1, im2,
+            -4, 4, device='cpu')
+        assert ours[2] is None and ref[2] is None
+        check((ours[0], ours[1] == 1), (ref[0], ref[1] == 1), algo)
+    for algo, match in (('micmac', 'MicMac'),
+                        ('sgm', 'unknown matching algorithm')):
+        with pytest.raises(NotImplementedError, match=match):
+            jm.compute_disparity_map(JConfig(matching_algorithm=algo), im1,
+                                     im2, -4, 4)
+        with pytest.raises(NotImplementedError, match=match):
+            tm.compute_disparity_map(
+                state.config_from_state({'matching_algorithm': algo}), im1,
+                im2, -4, 4, device='cpu')
     ref = jm.compute_disparity_map(JConfig(matching_algorithm='sgbm'), im1,
                                    im2, -4, 4)
     ours = tm.compute_disparity_map(

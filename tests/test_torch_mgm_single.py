@@ -236,24 +236,42 @@ def test_compute_disparity_map_matches_jax():
     assert ours[1].dtype == np.uint8 and ours[1].any()
 
 
-def test_unported_single_tile_routes_raise():
-    """What stays unported raises: flow windows above 5x5, the batch's
-    edge knobs, the cascade with ``tsgm >= 2`` and the matchers of M12.  ``tsgm=2`` and ``sgbm``, which
-    raised before the wavefront and the lax matcher were ported, equal
-    the JAX package's lax route."""
+def test_single_tile_routes_of_every_variant():
+    """What raised before this slice equals the JAX package's: the flow at
+    a 7x7 census window (its lax route), ``hirschmuller02`` (by
+    ``test_torch_msmw.py``'s criterion) and the cascade with ``tsgm=2``
+    (the wavefront per level).  The batch's edge knobs still raise.
+    ``tsgm=2`` and ``sgbm``, which raised before the wavefront and the lax
+    matcher were ported, equal the JAX package's lax route."""
+    from test_torch_msmw import check_msmw
+
     a = np.zeros((8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match='census windows'):
-        tf.mgm_binary_match(a, a, 0, 3, tf.MgmVariant(census_win=7),
-                            device='cpu')
-    with pytest.raises(NotImplementedError, match='M12'):
-        tm.compute_disparity_map(Config(matching_algorithm='hirschmuller02'),
-                                 a, a, 0, 3, device='cpu')
     with pytest.raises(NotImplementedError, match='single-tile'):
         tf.mgm_binary_match_batch(a[None], a[None], [0], 4, [8], [8], [8],
                                   variant=tf.MgmVariant(edge_subpix=True),
                                   device='cpu')
-    with pytest.raises(NotImplementedError, match='M12'):
-        tf.mgm_multi_match(a, a, 0, 3, tf.MgmVariant(tsgm=2), device='cpu')
+    im1, im2 = _nan_pair(37, 45, 2.0, seed=4)
+    ref = mf.mgm_binary_match(im1, im2, -3, 8,
+                              mf.MgmVariant(backend='lax', census_win=7))
+    disp, conf = tf.mgm_binary_match(im1, im2, -3, 8,
+                                     tf.MgmVariant(census_win=7),
+                                     device='cpu')
+    _same(disp.numpy(), ref[0])
+    _same(conf.numpy(), ref[1])
+    ref = jm.compute_disparity_map(
+        JaxConfig(matching_algorithm='hirschmuller02'), im1, im2, -3, 8)
+    ours = tm.compute_disparity_map(
+        Config(matching_algorithm='hirschmuller02'), im1, im2, -3, 8,
+        device='cpu')
+    check_msmw((ours[0], ours[1] == 1), (ref[0], ref[1] == 1),
+               'hirschmuller02')
+    kw = dict(tsgm=2, median_order='none')
+    ref = mf.mgm_multi_match(im1, im2, -3, 8,
+                             mf.MgmVariant(backend='lax', **kw), scales=2)
+    ours = tf.mgm_multi_match(im1, im2, -3, 8, tf.MgmVariant(**kw),
+                              scales=2, device='cpu')
+    _same(ours[0].numpy(), ref[0])
+    _same(ours[1].numpy(), ref[1])
     im1, im2 = _nan_pair(37, 45, 2.0, seed=4)
     ref = mf.mgm_binary_match(im1, im2, -3, 8,
                               mf.MgmVariant(backend='lax', tsgm=2))

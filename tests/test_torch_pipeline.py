@@ -146,16 +146,39 @@ def test_clean_intermediate_removes_dead_inputs(tmp_path, n_images):
                                       if n_images == 2 else ()))
 
 
-def test_unported_matcher_raises(tmp_path):
-    """The matchers still to port raise; ``sgbm``, which raised before it
-    was ported, writes the JAX package's stage-4 files on the same tiles
-    (no confidence file: the matcher has none)."""
-    for algo in ('hirschmuller02', 'msmw', 'tvl1'):
-        with pytest.raises(NotImplementedError, match='M12'):
+def test_every_matcher_through_stage_4(tmp_path):
+    """``hirschmuller02``, ``msmw`` and ``tvl1``, which raised before they
+    were ported, write the JAX package's stage-4 files on the same tile
+    (no confidence file; the maps by the criteria of ``test_torch_msmw
+    .py`` and ``test_torch_tvl1.py``); ``micmac`` and an unknown name
+    raise before any tile runs, as in the JAX package; ``sgbm``, which
+    raised before it was ported, writes the JAX package's files on the
+    same tiles (no confidence file: the matcher has none)."""
+    from test_torch_msmw import check_msmw
+    from test_torch_tvl1 import check_tvl1
+
+    specs = [(30, 52, 2.0, -3, 6)]
+    for algo, check in (('hirschmuller02', check_msmw), ('msmw', check_msmw),
+                        ('tvl1', check_tvl1)):
+        jroot, troot = (str(tmp_path / algo / n) for n in ('jax', 'torch'))
+        jtiles, ttiles = _tiles(jroot, specs), _tiles(troot, specs)
+        jcfg = JConfig(out_dir=str(tmp_path), matching_algorithm=algo)
+        jpipe.stereo_matching_all(jcfg, jtiles)
+        tpipe.stereo_matching_all(state.config_from_state(jcfg.to_dict()),
+                                  ttiles, device='cpu')
+        jd, td = (os.path.join(t[0][0]['dir'], 'pair_1')
+                  for t in (jtiles, ttiles))
+        assert sorted(os.listdir(td)) == sorted(os.listdir(jd))
+        assert _OUTPUTS[2] not in os.listdir(td)
+        check(*(((g.read(os.path.join(d, _OUTPUTS[0])),
+                  g.read_png(os.path.join(d, _OUTPUTS[1])) > 0))
+                for g, d in ((tgeotiff, td), (jgeotiff, jd))), algo)
+    for algo, match in (('micmac', 'MicMac'),
+                        ('sgm', 'unknown matching algorithm')):
+        with pytest.raises(NotImplementedError, match=match):
             tpipe.stereo_matching_all(
                 state.config_from_state({'matching_algorithm': algo}), [],
                 device='cpu')
-    specs = [(30, 52, 2.0, -3, 6)]
     jroot, troot = str(tmp_path / 'jax'), str(tmp_path / 'torch')
     jtiles, ttiles = _tiles(jroot, specs), _tiles(troot, specs)
     jcfg = JConfig(out_dir=str(tmp_path), matching_algorithm='sgbm')

@@ -70,6 +70,7 @@ from s2p_tpu_torch import pipeline as tpipe
 from s2p_tpu_torch import state
 from s2p_tpu_torch import tiling as ttiling
 from s2p_tpu_torch.geo import geotiff as tgeotiff
+from s2p_tpu_torch.ops import sift as tsift
 
 from test_end2end import compare_dsm
 from test_torch_sift import one_thread  # noqa: F401 (autouse fixture)
@@ -367,15 +368,51 @@ def test_resume_on_a_fresh_dir_raises(scene, tmp_path):
 
 
 @pytest.mark.parametrize('change,match', [
-    (dict(sift_device='host'), 'M12'),
-    (dict(matching_algorithm='sgm'), 'M12')])
-def test_refused_up_front(scene, tmp_path, change, match):
-    """What the port cannot run raises before anything is written."""
+    (dict(sift_device='host'), None),
+    (dict(matching_algorithm='sgm'), 'unknown matching algorithm'),
+    (dict(matching_algorithm='micmac'), 'MicMac')])
+def test_refused_up_front(scene, tmp_path, monkeypatch, change, match):
+    """What no engine runs (an unknown matcher, ``micmac``) raises before
+    anything is written.  ``sift_device='host'``, which raised before its
+    route was ported, passes the checks, and ``main`` sets SIFT's route
+    as the JAX package's ``main`` does on the same config (stage 1 itself
+    is stubbed here: ``test_torch_stage1.py`` holds its files)."""
     d = _user_cfg(scene['base'], 'torch', str(tmp_path / 'out'))
     d.update(change)
-    with pytest.raises(NotImplementedError, match=match):
-        tpipe.main(d, device='cpu')
-    assert not os.path.exists(tmp_path / 'out')
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tpipe.main(d, device='cpu')
+        assert not os.path.exists(tmp_path / 'out')
+        return
+
+    class Stop(Exception):
+        pass
+
+    modes = {}
+
+    def stop(name, module):
+        def stub(*a, **k):
+            modes[name] = module._DEVICE_MODE
+            raise Stop
+        return stub
+
+    monkeypatch.setattr(tpipe, 'pointing_correction_all',
+                        stop('torch', tsift))
+    monkeypatch.setattr(jpipe, 'pointing_correction_all', stop('jax', jsift))
+    # no compile cache or device warm-up for a run that stops at stage 1
+    monkeypatch.setattr(jdevice, 'configure', lambda *a, **k: None)
+    monkeypatch.setattr(jdevice, 'warm_transfer_async', lambda: None)
+    jd = _user_cfg(scene['base'], 'jax', str(tmp_path / 'jax_out'))
+    jd.update(change)
+    try:
+        with pytest.raises(Stop):
+            tpipe.main(d, device='cpu')
+        with pytest.raises(Stop):
+            jpipe.main(jd)
+    finally:
+        tsift.set_device_mode('auto')
+        jsift.set_device_mode('auto')
+    assert modes == {'torch': 'host', 'jax': 'host'}
 
 
 @pytest.mark.parametrize('algo', ['mgm_multi', 'mgm_multi_lsd'])

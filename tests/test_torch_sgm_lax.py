@@ -133,14 +133,44 @@ def test_birchfield_tomasi_cost_volume_matches(win):
 
 
 def test_census_transform_keeps_one_word():
+    """One word up to 5x5; at 7x7, which raised before, the JAX package's
+    two words (its contract: int32 bit patterns, a word axis)."""
     im1, _ = _pair(12, 16)
     sig, valid = tc.census_transform(torch.from_numpy(im1), 5)
     words, v2 = tc.census_words(torch.from_numpy(im1), 5)
     assert sig.dtype == torch.int32 and words.shape[-1] == 1
-    _same(sig.numpy(), words[..., 0].to(torch.int32).numpy())
+    _same(sig.numpy(), words.to(torch.int32).numpy())
     _same(valid.numpy(), v2.numpy())
-    with pytest.raises(NotImplementedError, match='census_words'):
-        tc.census_transform(torch.from_numpy(im1), 7)
+    sig, valid = tc.census_transform(torch.from_numpy(im1), 7)
+    ref, ref_valid = jc.census_transform(jnp.asarray(im1), 7)
+    assert sig.shape[-1] == 2
+    _same(sig.numpy().view(np.uint32), ref)
+    _same(valid.numpy(), ref_valid)
+
+
+def test_sgm_match_batch_matches_jax():
+    """Two tiles of a bucket with different disparity bases, each on the
+    lax route (the JAX package's ``allow_pallas=False``), at non-integer
+    penalties with the edge-aware P2 and the filling median: bitwise
+    (``tests/test_batch_matching.py``'s parameters); the BT cost raises,
+    as there."""
+    kw = dict(mgm=False, p1=12.0, p2=48.0, p2_edge_scale=0.5, lr_tau=1.0,
+              median_first=True, median_fill=True)
+    rng = np.random.RandomState(0)
+    im1 = rng.rand(64, 64).astype(np.float32) * 100
+    im2 = np.roll(im1, 3, axis=1) + 0.5 * rng.rand(64, 64).astype(np.float32)
+    b1, b2 = np.stack([im1, im1]), np.stack([im2, im2])
+    ref = js.sgm_match_batch(jnp.asarray(b1), jnp.asarray(b2),
+                             jnp.array([-16, -24]), 32,
+                             js.SgmParams(backend='lax', **kw))
+    out = ts.sgm_match_batch(b1, b2, [-16, -24], 32, ts.SgmParams(**kw),
+                             device='cpu')
+    for k in ('disp', 'valid', 'confidence'):
+        _same(out[k].numpy(), ref[k])
+    assert np.isfinite(np.asarray(ref['disp'])).mean() > 0.5
+    with pytest.raises(NotImplementedError, match='static'):
+        ts.sgm_match_batch(b1, b2, [0, 0], 8, ts.SgmParams(cost='bt'),
+                           device='cpu')
 
 
 # --------------------------------------------------------------------- #

@@ -44,6 +44,7 @@ from s2p_tpu_torch import state
 from s2p_tpu_torch.core import pointing as tpoint
 from s2p_tpu_torch.core import rpc_geom as tgeom
 from s2p_tpu_torch.core import estimation as test_
+from s2p_tpu_torch.ops import sift as tsift
 
 from test_torch_triangulation import cameras
 from test_torch_sift import one_thread  # noqa: F401 (autouse fixture)
@@ -202,11 +203,35 @@ def test_single_tile_equals_the_batch(scene, tmp_path):
                                            'pointing.txt'))
 
 
-def test_host_route_and_cuda_default_raise(scene, tmp_path, monkeypatch):
+def test_host_route_equals_jax_and_cuda_default_raises(scene, tmp_path,
+                                                       monkeypatch):
+    """SIFT's host route ('host', which raised before it was ported) on
+    both packages, tile by tile: the three files of every tile byte for
+    byte; then the CUDA default raises without CUDA."""
     base, paths, tiles = scene['base']
-    _, tcfg = _configs(base, paths, sift_device='host')
-    with pytest.raises(NotImplementedError, match='M12'):
-        tpipe.pointing_correction_all(tcfg, [(tiles[0], 1)], device='cpu')
+    runs = {}
+    for name in ('jax', 'torch'):
+        ps, ts = _copy(base, str(tmp_path / name), paths, tiles)
+        jcfg, tcfg = _configs(str(tmp_path / name), ps, sift_device='host')
+        jsift.set_device_mode('host')
+        tsift.set_device_mode('host')
+        try:
+            if name == 'jax':
+                jpipe.pointing_correction_all(jcfg, [(t, 1) for t in ts])
+            else:
+                tpipe.pointing_correction_all(tcfg, [(t, 1) for t in ts],
+                                              device='cpu')
+        finally:
+            jsift.set_device_mode('auto')
+            tsift.set_device_mode('auto')
+        runs[name] = ts
+    for a, b in zip(runs['torch'], runs['jax']):
+        for name in FILES:
+            p = os.path.join('pair_1', name)
+            assert _read(os.path.join(a['dir'], p)) == \
+                _read(os.path.join(b['dir'], p)), name
+    A = _load(runs['torch'][0], 'pointing.txt')
+    assert abs(A[1, 2] + POINTING) < 0.1
     _, tcfg = _configs(base, paths)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
