@@ -12,11 +12,16 @@ the JAX package.  Phases, each timed on a line of its own:
      lines, and a check that every instantiation of the scan kernel up to
      4096 candidates (K2 and K4a), of the pre-pass (K1), of the
      averaged-MGM scan (K4b, both instantiations), of the WTA with the
-     right-reference map (K5, its three instantiations) and of the warp
-     (W1, orders 1, 3 and 5) has a 0-byte stack frame and no spill;
+     right-reference map (K5, its three instantiations), of the warp
+     (W1, orders 1, 3 and 5) and of msmw's window costs (B1) has a 0-byte
+     stack frame and no spill;
  2b. W1's division by 120 (a multiply and two fused multiply-adds behind
      a guard on |x|) against the IEEE division on all 2^32 float32 bit
      patterns: 0 mismatches among non-NaN results;
+ 2c. B1's division by a window's count mean (the product by its
+     reciprocal, corrected once, behind a guard on |x|) against the IEEE
+     division, for each of the 110 count means and all 2^32 float32
+     numerators: 0 mismatches;
   3. kernels of the mgm flow (stage 4) against their plain PyTorch
      versions on the card, on the inputs the main path gives them at
      bucket A's shapes (the cost pre-pass, the four scan passes of each
@@ -172,13 +177,17 @@ the JAX package.  Phases, each timed on a line of its own:
      msmw and tvl1 through ``compute_disparity_map`` on a 256 x 320 pair
      with a known shift, then through ``pipeline.stereo_matching_all`` on
      the scene's 6 rectified tiles (8b's stage-3 files): each matcher's
-     stage-4 time and launches (B1 for the msmw engines), no confidence
-     file, the median of |its disparity - mgm's| per tile; 256 x 320
-     crops of two tiles card against device="cpu" (byte for byte, or
-     the CPU tests' criterion: tests/test_torch_msmw.py and
-     tests/test_torch_tvl1.py); B1 (``csrc/box.cu``) bitwise against its
-     plain version on the largest vertical and horizontal volumes msmw's
-     stage 4 gave it, timed beside the plain version and avg_pool2d;
+     stage-4 time and launches (B1, one launch a window-cost battery, 32
+     a tile for the msmw engines), no confidence file, the median of |its
+     disparity - mgm's| per tile; msmw's stage 4 of one tile again with
+     ``_window_costs_plain`` in place of B1 on the card, its files byte
+     for byte; 256 x 320 crops of two tiles card against device="cpu"
+     (byte for byte, or the CPU tests' criterion:
+     tests/test_torch_msmw.py and tests/test_torch_tvl1.py); B1
+     (``csrc/box.cu``) bitwise against its plain version on the largest
+     battery of candidates and of one plane that msmw's stage 4 gave it,
+     the first with the variance, and on adversarial shapes, masks and
+     values (WINDOW_CASES), each timed beside the plain version;
  8j. SIFT's host route (``sift_device='host'``) against the device route
      on two 150 x 150 crops of the scene's image 1 by the JAX package's
      host-against-device criterion (tests/test_sift.py), then stage 1
@@ -243,14 +252,15 @@ the JAX package.  Phases, each timed on a line of its own:
      through main (8b, its bucket), at stage 4's buckets A and B (5), at
      528 candidates (8) and in the triplet through main (8d, its bucket);
      K2 and K3 on the mgm_multi cascade's levels in the scene through main
-     (8e); B1 in msmw's stage 4 (8i); K2's 16-bit source in the flow at
+     (8e); B1 (``window_costs``, one launch a battery) in msmw's stage 4
+     (8i); K2's 16-bit source in the flow at
      17 x 17 (8k); W1 in the scene (8b), its mask dilation in the scene's stage 3 with
      a NaN band (8b); the classic matcher's (6 and 4); the pre-pass
      at a signed base (10 and 9); the WTA's edge modes (10); the folded
      scan (11 at fold 2, and 9); its error against the plain version,
      its time, the plain version's time and the least time the card could
      take (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, H100
-     SXM data sheet; W1's operations over 33.5e12/s, the rate of separate
+     SXM data sheet; W1's and B1's operations over 33.5e12/s, the rate of separate
      adds and multiplies); the scan's entries also carry ``bucket_ms``, both
      sides of the bucket as the flow launches them, K4b's
      ``step_floor_ms`` and W1's ``group_ms`` (the scene's group of 6);
@@ -387,6 +397,9 @@ KNOWN = dict(index=400, h=256, w1=320, w2=320, dmin=-8, dmax=8, shift=3.0,
 KNOWN_SHIFT_TOL_PX = 0.25
 NEW_MATCHER_MGM_TOL_PX = 0.5
 MSMW_VALID_SHARE, MSMW_DISP_TOL = 0.995, 1e-3
+# B1's launches in msmw's stage 4 of a scene tile: 4 levels x 2 directions
+# x 4 window-cost batteries
+MSMW_BATTERIES_PER_TILE = 32
 TVL1_TOL = dict(valid=0.995, median=1e-3, p99=0.02, max=0.5)
 # the flow at census windows above 5x5 (17 x 17 on K2's 16-bit source) on
 # a crop of the single tile, card against CPU
@@ -2026,6 +2039,33 @@ def check_div120():
     if bad_fast != DIV120_UNGUARDED:
         raise AssertionError('the unguarded correction differs from the '
                              'CPU on the card')
+
+
+def check_box_division():
+    """B1's division of a window's means by its count mean (``csrc/box.cu``
+    ``div_rcp`` behind ``div_rcp_ok``) against the IEEE division, for each
+    of the 110 count means and all 2^32 float32 numerators on the card: no
+    mismatch where the guard admits the numerator."""
+    import ctypes
+    import torch
+    from s2p_tpu_torch.ops import _build, msmw
+
+    counts = torch.zeros(2, dtype=torch.int64, device='cuda')
+    t0 = time.perf_counter()
+    _build.call('box', 's2p_box_div_check',
+                [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                 ctypes.c_void_p], msmw._recip_area(4, 4),
+                msmw._recip_area(1, 4), counts.data_ptr())
+    torch.cuda.synchronize()
+    bad, bad_fast = counts.tolist()
+    print(f'  B1\'s division against __fdiv_rn over the 110 count means x '
+          f'all 2^32 float32 numerators: {bad} mismatches where the guard '
+          f'admits the numerator; the correction alone, without its guard: '
+          f'{bad_fast} among non-NaN results; '
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
+    if bad:
+        raise AssertionError(f"B1's division differs from the IEEE division "
+                             f'on {bad} (numerator, divisor) pairs')
 
 
 def check_warp_dilate(stats):
@@ -3902,33 +3942,89 @@ def tvl1_criterion(ours, ref):
             f'max {top} px')
 
 
-def check_box_kernel(inputs, stats):
-    """B1 against its plain version on the card, bitwise, on the volumes
-    the msmw stage 4 gave it (its largest vertical and horizontal calls),
-    timed beside the plain version and avg_pool2d with the same window
-    (the library's box sum)."""
+# B1's own cases beside the calls msmw's stage 4 makes: (label, D, h, w,
+# mask, values); masks 'none', 'all' or 'rand' (70% True); values 'noise'
+# (intensities of about 100 +- 40) or 'huge' (about +-3e37 and FLT_MAX,
+# where the plain version's costs are inf or NaN); 'permuted' stores the
+# candidates as (h, D, w), as msmw's gathers do
+WINDOW_CASES = (
+    ('1 x 1 x 1', 1, 1, 1, 'rand', 'noise'),
+    ('one plane 5 x 9', 1, 5, 9, 'all', 'noise'),
+    ('8 x 10', 16, 8, 10, 'rand', 'noise'),
+    ('9 x 5, no pair', 40, 9, 5, 'none', 'noise'),
+    ('10 x 8, all pairs', 16, 10, 8, 'all', 'noise'),
+    ('one row', 40, 1, 300, 'rand', 'noise'),
+    ('one column', 16, 300, 1, 'rand', 'noise'),
+    ('odd 33 x 257', 16, 33, 257, 'rand', 'noise'),
+    ('even 34 x 256', 40, 34, 256, 'rand', 'noise'),
+    ('huge values', 16, 40, 140, 'rand', 'huge'),
+    ('permuted', 16, 41, 139, 'rand', 'permuted'),
+)
+
+
+def check_window_costs(inputs, stats):
+    """B1 (``msmw._window_costs``, one launch a battery) against
+    ``_window_costs_plain`` on the card, bitwise and NaN-aware: on the
+    largest candidate battery and the largest one-plane battery that
+    msmw's stage 4 gave it (``inputs``: (label, (a, b_sh, fin_pair))), the
+    first again with the variance, and WINDOW_CASES; each case's time
+    beside the plain version's.  The JSON line's numbers are the largest
+    battery's; its bound is ``msmw.window_costs_work`` over 33.5e12
+    separate float32 operations a second (the library has no call that
+    computes the battery)."""
     import torch
     from s2p_tpu_torch.ops import msmw
-    for (x, r, vertical, scale) in inputs:
-        got = msmw.box_sum(x, r, vertical, scale)
-        want = msmw.box_sum_plain(x, r, vertical, scale)
-        ok, err = equal(got, want)
-        k = 2 * r + 1
-        win, pad = ((k, 1), (r, 0)) if vertical else ((1, k), (0, r))
-        div = round(1 / scale) if scale else 1
-
-        def library():
-            return torch.nn.functional.avg_pool2d(
-                x[:, None], win, stride=1, padding=pad,
-                count_include_pad=True, divisor_override=div)
-        n = x.numel()
-        record(stats, f"box {'v' if vertical else 'h'} r{r} "
-               f'{tuple(x.shape)}', '', ok, err,
-               timed(lambda: msmw.box_sum(x, r, vertical, scale), 5),
-               timed(lambda: msmw.box_sum_plain(x, r, vertical, scale), 2),
-               8 * n, k * n + (n if scale else 0))
-        stats['box']['library_ms'] = (stats['box'].get('library_ms') or 0.0) \
-            + timed(library, 5)
+    g = torch.Generator(device='cuda').manual_seed(18)
+    cases = [(label, args, False) for label, args in inputs]
+    cases.append((f'{inputs[0][0]} with the variance', inputs[0][1], True))
+    for label, D, h, w, mask, values in WINDOW_CASES:
+        a = torch.randn((h, w), device='cuda', generator=g) * 40 + 100
+        b = torch.randn((D, h, w), device='cuda', generator=g) * 40 + 100
+        if values == 'huge':
+            a, b = a * 3e35, b * 3e35
+            a.view(-1)[::7] = 3.4e38
+        fin = {'none': torch.zeros((D, h, w), dtype=torch.bool,
+                                   device='cuda'),
+               'all': torch.ones((D, h, w), dtype=torch.bool, device='cuda'),
+               'rand': torch.rand((D, h, w), device='cuda', generator=g)
+               < 0.7}[mask]
+        if values == 'permuted':
+            b = b.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+            fin = fin.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+        cases.append((f'{label}, mask {mask}', (a, b, fin), True))
+    for k, (label, (a, b, fin), need_var) in enumerate(cases):
+        D, h, w = b.shape
+        msmw.reset_launch_counts()
+        got = msmw._window_costs(a, b, fin, need_var)
+        torch.cuda.synchronize()
+        if msmw.launch_counts() != {'window_costs': 1}:
+            raise AssertionError(f'B1 {label}: {msmw.launch_counts()} '
+                                 'launches, not one')
+        want = msmw._window_costs_plain(a, b, fin, need_var)
+        ok, err = equal(got[0], want[0])
+        if need_var:
+            ok_v, err_v = equal(got[1], want[1])
+            ok, err = ok and ok_v, max(err, err_v)
+        nbytes, ops = msmw.window_costs_work(D, h, w, need_var)
+        ms = timed(lambda: msmw._window_costs(a, b, fin, need_var), 5)
+        plain_ms = timed(lambda: msmw._window_costs_plain(a, b, fin,
+                                                          need_var), 2)
+        nan = int(torch.isnan(want[0]).sum())
+        t_bound, by = bound(nbytes, ops, F32_SEPARATE_OPS_PER_S)
+        print(f'  B1 {label}: {D} x {h} x {w}, bitwise={ok} '
+              f'max_abs_err={err}, {nan} NaN costs; kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.3f} ms, bound {t_bound:.4f} ms ({by}: '
+              f'{ops} operations, {nbytes} bytes)', flush=True)
+        if not ok:
+            raise AssertionError(f'B1 {label} differs from its plain '
+                                 f'version: max abs error {err}')
+        if k == 0:
+            stats['window_costs'] = dict(
+                err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes, ops=ops,
+                ops_per_s=F32_SEPARATE_OPS_PER_S, library_ms=None)
+        else:
+            st = stats['window_costs']
+            st['err'] = max(st['err'], err)
 
 
 def check_scan16(stats):
@@ -3979,9 +4075,10 @@ def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
     ``pipeline.stereo_matching_all`` on NEW_MATCHER_TILES of the scene's
     rectified tiles (8b), each matcher's time, its launches (B1 for the
     msmw engines), no confidence file and its agreement with mgm's stage
-    4 of 8b; crops of two tiles card against device="cpu" (byte for byte
-    or by the CPU tests' criteria); B1 against its plain version on the
-    volumes msmw's stage 4 gave it."""
+    4 of 8b; msmw's stage 4 of one tile through the plain window costs;
+    crops of two tiles card against device="cpu" (byte for byte or by the
+    CPU tests' criteria); B1 against its plain version on the batteries
+    msmw's stage 4 gave it and on WINDOW_CASES."""
     import dataclasses
     import glob
     import numpy as np
@@ -4015,15 +4112,16 @@ def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
                                           '*', 'pair_1')))[:NEW_MATCHER_TILES]
     if len(pdirs) < 2:
         raise AssertionError(f'the scene has {len(pdirs)} tiles')
-    box_inputs = {}
-    box_sum = msmw.box_sum
+    battery = {}
+    window_costs = msmw._window_costs
 
-    def spy(x, r, vertical, scale=0.0):
-        # the largest volume of each axis that msmw's stage 4 sums
-        key = bool(vertical)
-        if key not in box_inputs or x.numel() > box_inputs[key][0].numel():
-            box_inputs[key] = (x.clone(), r, vertical, scale)
-        return box_sum(x, r, vertical, scale)
+    def spy(a, b_sh, fin_pair, need_var=False):
+        # the largest battery of several candidates and of one that msmw's
+        # stage 4 gives B1
+        key = b_sh.shape[0] > 1
+        if key not in battery or b_sh.numel() > battery[key][1].numel():
+            battery[key] = (a.clone(), b_sh.clone(), fin_pair.clone())
+        return window_costs(a, b_sh, fin_pair, need_var)
 
     names = ('rectified_ref.tif', 'rectified_sec.tif', 'disp_min_max.txt')
     walls = {}
@@ -4039,14 +4137,14 @@ def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
                                 out_dir=os.path.join(root, algo))
         sk.reset_launch_counts()
         msmw.reset_launch_counts()
-        msmw.box_sum = spy
+        msmw._window_costs = spy
         try:
             t0 = time.perf_counter()
             pipeline.stereo_matching_all(c, tiles)
             torch.cuda.synchronize()
             t = time.perf_counter() - t0
         finally:
-            msmw.box_sum = box_sum
+            msmw._window_costs = window_costs
         launches[algo] = {**sk.launch_counts(), **msmw.launch_counts()}
         walls[algo] = t
         agree = []
@@ -4068,8 +4166,15 @@ def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
         if worst > NEW_MATCHER_MGM_TOL_PX or min(a[0] for a in agree) < 0.3:
             raise AssertionError(f"{algo}: stage 4 misses mgm's disparities "
                                  'of the scene')
-        if algo != 'tvl1' and launches[algo]['box'] == 0:
-            raise AssertionError(f'{algo}: stage 4 launched no B1')
+        # 4 levels x 2 directions x 4 batteries (the match, the
+        # self-similarity and the two of fDistTrans) a tile
+        if algo != 'tvl1' and launches[algo]['window_costs'] != \
+                MSMW_BATTERIES_PER_TILE * len(tiles):
+            raise AssertionError(
+                f"{algo}: stage 4 launched B1 {launches[algo]['window_costs']}"
+                f' times, not {MSMW_BATTERIES_PER_TILE} a tile')
+    check_msmw_plain_route(cfg, pdirs[0], os.path.join(root, 'msmw'),
+                           os.path.join(root, 'msmw_plain'), names)
 
     # crops of two tiles, card against CPU
     for algo in NEW_MATCHERS:
@@ -4087,8 +4192,48 @@ def run_new_matchers(scene_root, root, cpu_root, stats, launches, card):
                   f'crop of {tile_name({"dir": os.path.dirname(p)})}: the '
                   f'card equals the CPU run {how} (CPU '
                   f'{time.perf_counter() - t0:.3f} s)', flush=True)
-    check_box_kernel([box_inputs[True], box_inputs[False]], stats)
+    check_window_costs([('the largest battery', battery[True]),
+                        ('the largest one-plane battery', battery[False])],
+                       stats)
     return walls
+
+
+def check_msmw_plain_route(cfg, pdir, kernel_root, root, names):
+    """msmw's stage 4 of one scene tile with ``_window_costs_plain`` in
+    place of B1, on the card: its files equal the kernel route's (the
+    first tile of ``kernel_root``) byte for byte."""
+    import dataclasses
+    import torch
+    from s2p_tpu_torch import pipeline
+    from s2p_tpu_torch.ops import msmw
+    d = os.path.join(root, 'tile_0')
+    os.makedirs(os.path.join(d, 'pair_1'))
+    for n in names:
+        shutil.copy(os.path.join(pdir, n), os.path.join(d, 'pair_1'))
+    c = dataclasses.replace(cfg, matching_algorithm='msmw', out_dir=root)
+    window_costs = msmw._window_costs
+    msmw._window_costs = msmw._window_costs_plain
+    try:
+        t0 = time.perf_counter()
+        pipeline.stereo_matching_all(c, [({'dir': d}, 1)])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    finally:
+        msmw._window_costs = window_costs
+    for n in STAGE4_FILES:
+        got, want = (os.path.join(r, 'pair_1', n) for r in
+                     (d, os.path.join(kernel_root, 'tile_0')))
+        if os.path.exists(got) != os.path.exists(want):
+            raise AssertionError(f'msmw plain route: {n} in one route only')
+        if not os.path.exists(got):
+            continue
+        with open(got, 'rb') as f1, open(want, 'rb') as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f'msmw: {n} of the plain route differs '
+                                     'from the kernel route')
+    print(f'  msmw stage 4 of one scene tile with _window_costs_plain on the '
+          f'card: {t:.3f} s; its files equal the kernel route\'s byte for '
+          'byte', flush=True)
 
 
 def check_wide_flow(launches):
@@ -4355,8 +4500,12 @@ def main():
         check_no_spill(_build.build_log('scan_mgm'), 'scan_mgm_kernel')
         check_no_spill(_build.build_log('wta'), 'wta_dr_kernel')
         check_no_spill(_build.build_log('warp'), 'warp_kernel')
+        check_no_spill(_build.build_log('box'), 'window_costs_kernel')
     with phase("W1's division by 120: all 2^32 float32 inputs"):
         check_div120()
+    with phase("B1's division by a count mean: all 2^32 float32 inputs for "
+               'each of the 110'):
+        check_box_division()
 
     specs_a = tile_specs(BUCKET_A, 0)
     specs_b = tile_specs(BUCKET_B, len(specs_a))
@@ -4572,9 +4721,9 @@ def main():
                         'scene_nan', 'warp_dilate', 'warp_dilate'),
     })
     table.update({
-        # B1 replaces the prefix-sum box filter of a jnp program
-        'box': (f'{csrc}/box.cu', 's2p_tpu/ops/msmw.py:42', 'msmw', 'box',
-                'box'),
+        # B1 replaces msmw's window costs, a jnp program
+        'window_costs': (f'{csrc}/box.cu', 's2p_tpu/ops/msmw.py:71', 'msmw',
+                         'window_costs', 'window_costs'),
         # K2's 16-bit source: the flow's lax scan at windows from 16 x 16
         'scan16': (f'{csrc}/scan.cu', 's2p_tpu/ops/sgm.py:114', 'flow17',
                    'scan16', 'scan16'),

@@ -16,14 +16,16 @@ The window means.  The JAX package's ``_box`` takes differences of two
 ``jnp.cumsum`` prefix sums.  On a full tile those reach about 2.6e10 and
 every order of summation (XLA's on the CPU, numpy's, torch's parallel
 scan on the card) gives other costs.  The port sums each window directly
-instead, in one order on both devices (:func:`box_sum`: B1,
-``csrc/box.cu``, on CUDA tensors; :func:`box_sum_plain` on CPU tensors).
-Where every prefix sum is an integer below 2^24 (an integer image of a
-small range) the two orders give the same sums, and the port equals the
-JAX package's jitted level bit for bit; elsewhere it equals it within the
-rounding of those prefix sums (tests/test_torch_msmw.py states the
-criterion).  XLA's CPU run contracts three multiply-adds into fused ones
-(the cost ``m2/mc - q*q``, the variance ``sum(a^2)/81 - ma*ma`` and the
+instead, in one order on both devices: :func:`_window_costs`, the whole
+battery of window means, costs and their minimum, is one launch of B1
+(``csrc/box.cu``) on CUDA tensors and :func:`_window_costs_plain`
+(:func:`box_sum_plain` and :func:`_shear`) on CPU tensors.  Where every
+prefix sum is an integer below 2^24 (an integer image of a small range)
+the two orders give the same sums, and the port equals the JAX package's
+jitted level bit for bit; elsewhere it equals it within the rounding of
+those prefix sums (tests/test_torch_msmw.py states the criterion).
+XLA's CPU run contracts three multiply-adds into fused ones (the cost
+``m2/mc - q*q``, the variance ``sum(a^2)/81 - ma*ma`` and the
 self-similarity's shifted image ``0.875*src + 0.125*nxt``): the port
 rounds them once too (``sgm_kernels._fma32``), on both devices.
 """
@@ -39,10 +41,12 @@ from . import _build
 from ..device import resolve
 from .sgm_kernels import _fma32
 
-_launches = {'box': 0}
+_launches = {'window_costs': 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_BOX_ARGS = [_P, _P, _I, _I, _I, _I, _I, _F, _P]
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_WINDOW_COSTS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
+                      _F, _F, _P]
 
 
 def launch_counts():
@@ -56,12 +60,14 @@ def reset_launch_counts():
 
 
 # --------------------------------------------------------------------- #
-# B1: box sums
+# The window means
 # --------------------------------------------------------------------- #
 
 def box_sum_plain(x, r: int, vertical: bool, scale: float = 0.0):
-    """Plain version of :func:`box_sum`: the shifted planes of the
-    zero-padded volume added from +0 in window order, then the product."""
+    """Sums of 2r + 1 consecutive values of a (B, H, W) float32 volume
+    along H (``vertical``) or W, zero outside: the shifted planes of the
+    zero-padded volume added from +0 in window order, then the product
+    by the float32 ``scale`` where it is not 0."""
     dim = 1 if vertical else 2
     n = x.shape[dim]
     pad = torch.nn.functional.pad(x, (0, 0, r, r) if vertical else (r, r))
@@ -69,29 +75,6 @@ def box_sum_plain(x, r: int, vertical: bool, scale: float = 0.0):
     for t in range(2 * r + 1):
         acc = acc + pad.narrow(dim, t, n)
     return acc * scale if scale else acc
-
-
-def box_sum(x, r: int, vertical: bool, scale: float = 0.0):
-    """Sums of 2r + 1 consecutive values of a (B, H, W) float32 volume
-    along H (``vertical``) or W, zero outside, times the float32
-    ``scale`` where it is not 0.  A CPU tensor runs
-    :func:`box_sum_plain`, a CUDA tensor one launch of B1
-    (``csrc/box.cu``)."""
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise TypeError(f'box_sum: expected a 3-D float32 volume, got '
-                        f'{x.dtype} {tuple(x.shape)}')
-    if x.device.type == 'cpu':
-        return box_sum_plain(x, r, vertical, scale)
-    if x.device.type != 'cuda':
-        raise ValueError(f'unsupported device {x.device}')
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if out.numel():
-        _build.call('box', 's2p_box', _BOX_ARGS, x.data_ptr(),
-                    out.data_ptr(), *x.shape, int(r), int(bool(vertical)),
-                    scale)
-        _launches['box'] += 1
-    return out
 
 
 def _box(a, ry: int, rx: int):
@@ -110,8 +93,8 @@ def _box_sums(a, ry: int, rx: int, scale: float = 0.0):
     0."""
     shape = a.shape
     v = a.reshape((-1,) + tuple(shape[-2:]))
-    v = box_sum(v, ry, True)
-    v = box_sum(v, rx, False, scale)
+    v = box_sum_plain(v, ry, True)
+    v = box_sum_plain(v, rx, False, scale)
     return v.reshape(shape)
 
 
@@ -134,9 +117,83 @@ _WINDOWS_5 = (('box', 4, 4), ('box', 1, 4), ('box', 4, 1),
 def _window_costs(a, b_sh, fin_pair, need_var=False):
     """Mean-removed SSD of each window, minimum over the window set.
 
-    a: (h, w); b_sh: (D, h, w) candidates; fin_pair: (D, h, w) bool,
-    where both samples count.  Returns (best cost (D, h, w), the 9x9
-    variance of a or None)."""
+    a: (h, w) float32; b_sh: (D, h, w) float32 candidates; fin_pair: (D,
+    h, w) bool (or uint8 0/1), where both samples count.  Returns (best
+    cost (D, h, w), the 9x9 variance of a or None).  A CPU tensor runs
+    :func:`_window_costs_plain`, a CUDA tensor one launch of B1
+    (``csrc/box.cu``), which gives the same bits."""
+    if (a.dtype != torch.float32 or b_sh.dtype != torch.float32
+            or fin_pair.dtype not in (torch.bool, torch.uint8)
+            or a.dim() != 2 or b_sh.dim() != 3 or fin_pair.dim() != 3):
+        raise TypeError(f'_window_costs: expected a (h, w) and b_sh (D, h, '
+                        f'w) float32 and fin_pair (D, h, w) bool, got '
+                        f'{a.dtype} {tuple(a.shape)}, {b_sh.dtype} '
+                        f'{tuple(b_sh.shape)}, {fin_pair.dtype} '
+                        f'{tuple(fin_pair.shape)}')
+    if b_sh.shape[1:] != a.shape or fin_pair.shape != b_sh.shape:
+        raise ValueError(f'_window_costs: shapes {tuple(a.shape)}, '
+                         f'{tuple(b_sh.shape)}, {tuple(fin_pair.shape)}')
+    dev = a.device
+    if b_sh.device != dev or fin_pair.device != dev:
+        raise ValueError('_window_costs: tensors on several devices')
+    if dev.type == 'cpu':
+        return _window_costs_plain(a, b_sh, fin_pair.to(torch.bool),
+                                   need_var)
+    if dev.type != 'cuda':
+        raise ValueError(f'unsupported device {dev}')
+    D, h, w = b_sh.shape
+    a, b_sh, fin_pair = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in (a, b_sh, fin_pair))
+    best = torch.empty((D, h, w), dtype=torch.float32, device=dev)
+    var9 = torch.empty((h, w), dtype=torch.float32, device=dev) \
+        if need_var else None
+    if h and w and (D or need_var):
+        _build.call('box', 's2p_window_costs', _WINDOW_COSTS_ARGS,
+                    a.data_ptr(), b_sh.data_ptr(), fin_pair.data_ptr(),
+                    best.data_ptr(), None if var9 is None else var9.data_ptr(),
+                    D, h, w, a.stride(0), b_sh.stride(0), b_sh.stride(1),
+                    fin_pair.stride(0), fin_pair.stride(1),
+                    _recip_area(4, 4), _recip_area(1, 4))
+        _launches['window_costs'] += 1
+    return best, var9
+
+
+def window_costs_work(D: int, h: int, w: int, need_var: bool = False):
+    """(bytes, float32 operations) that one :func:`_window_costs` call
+    must move and do, counting only what the output needs: each input
+    read once and each output written once; no identity (a sum's first
+    add to +0, the add of a padded zero).  Per element of the (D, h, w)
+    volume: d1, d2 and cnt (a subtraction, a product, two selections and
+    a conversion); per quantity the vertical sums (9 rows, shared by the
+    (4, 4) and (4, 1) windows; 3 rows for (1, 4) and each diagonal) and
+    the five windows' horizontal sums with their products by 1 / area;
+    per window a maximum, the index of its count mean's reciprocal, two
+    quotients of 3 operations each (the product by the reciprocal, the
+    residual's and the correction's fused multiply-adds: B1's division,
+    ``csrc/box.cu``) and the fused multiply-add, and from the second
+    window on a minimum.  With ``need_var`` the variance: a a, two 9 x 9
+    sums, the mean's product, its square and the fused multiply-add."""
+    def adds(n, r):             # the adds of the 2r + 1 sums along n
+        if n <= 0:
+            return 0
+        i = np.arange(n)
+        return int((np.minimum(i + r, n - 1) - np.maximum(i - r, 0)).sum())
+
+    n = D * h * w
+    plane = (w * (adds(h, 4) + 3 * adds(h, 1))
+             + h * (4 * adds(w, 4) + adds(w, 1)) + 5 * h * w)
+    ops = n * (5 + 5 * 9 + 4) + D * 3 * plane
+    nbytes = 4 * h * w + 9 * n
+    if need_var:
+        ops += h * w * 4 + 2 * (w * adds(h, 4) + h * adds(w, 4))
+        nbytes += 4 * h * w
+    return nbytes, ops
+
+
+def _window_costs_plain(a, b_sh, fin_pair, need_var=False):
+    """Plain version of :func:`_window_costs` (bool ``fin_pair``): each
+    window mean as the vertical then the horizontal sums of
+    :func:`box_sum_plain`, the diagonal windows through :func:`_shear`."""
     d1 = a[None] - b_sh
     d2 = torch.where(fin_pair, d1 * d1, 0.0)
     d1 = torch.where(fin_pair, d1, 0.0)

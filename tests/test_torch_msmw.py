@@ -119,8 +119,134 @@ def test_box_sum_plain_order():
           want)
     _same(tmsmw.box_sum_plain(t[None, :, None], 1, True, 0.5)[0, :, 0]
           .numpy(), want)
+    a = torch.zeros((4, 5))
+    b = torch.zeros((2, 4, 5))
+    f = torch.ones((2, 4, 5), dtype=torch.bool)
     with pytest.raises(TypeError):
-        tmsmw.box_sum(t[None, None].double(), 1, True)
+        tmsmw._window_costs(a.double(), b, f)
+
+
+def window_means_direct(v, ry, rx, sgn, scale):
+    """The window means of a (D, h, w) float32 volume as B1 addresses
+    them, by index in the original frame: the vertical sums of 2ry + 1
+    rows along the sheared columns (row y + dy at column (c - dy sgn) mod
+    w; rows outside are 0), then the horizontal sums of output (y, x) over
+    columns (x + dx) mod w, where a term whose sheared column X + dx, X =
+    (x + s_y) mod w and s_y = (y - h // 2) sgn, leaves [0, w) is 0.  sgn
+    0 is the box window (no shear: the padding is the image's edge)."""
+    D, h, w = v.shape
+    f32 = np.float32
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    vert = np.zeros_like(v)
+    for dy in range(-ry, ry + 1):
+        rows = ys + dy
+        inside = (rows >= 0) & (rows < h)
+        cols = (xs - dy * sgn) % w
+        term = v[:, np.clip(rows, 0, h - 1), cols]
+        vert = (vert + np.where(inside[None], term, f32(0))).astype(f32)
+    X = (xs + (ys - h // 2) * sgn) % w
+    out = np.zeros_like(v)
+    for dx in range(-rx, rx + 1):
+        inside = (X + dx >= 0) & (X + dx < w)
+        term = vert[:, ys, (xs + dx) % w]
+        out = (out + np.where(inside[None], term, f32(0))).astype(f32)
+    return (out * f32(scale)).astype(f32)
+
+
+WINDOW_SHAPES = ((1, 1), (1, 5), (5, 1), (8, 9), (9, 8), (10, 13), (7, 3),
+                 (20, 21))
+
+
+@pytest.mark.parametrize('sgn', [1, -1, 0])
+@pytest.mark.parametrize('shape', WINDOW_SHAPES)
+def test_window_addressing(shape, sgn):
+    """B1's addressing of the diagonal windows (the shear's circular
+    columns, the padding in the sheared frame) and of the box windows,
+    against the plain composition of ``_shear`` and ``_box``: bitwise,
+    on sums whose rounding depends on the order."""
+    h, w = shape
+    rng = np.random.RandomState(h * 31 + w + sgn)
+    v = (rng.randn(2, h, w) * 1e3).astype(np.float32)
+    v.flat[::5] = np.float32(1e7)
+    t = torch.from_numpy(v)
+    for ry, rx in ((1, 4), (4, 4), (4, 1)):
+        scale = tmsmw._recip_area(ry, rx)
+        if sgn:
+            want = tmsmw._shear(tmsmw._box(tmsmw._shear(t, sgn), ry, rx),
+                                -sgn)
+        else:
+            want = tmsmw._box(t, ry, rx)
+        _same(window_means_direct(v, ry, rx, sgn, scale), want.numpy())
+
+
+@pytest.mark.parametrize('shape,D', [((12, 17), 3), ((9, 9), 1),
+                                     ((5, 7), 2), ((21, 30), 4)])
+def test_window_costs_bitwise(shape, D):
+    """``_window_costs`` on CPU tensors equals ``_window_costs_plain`` and
+    the JAX package's jitted ``_window_costs`` (its (h, w, D) layout moved
+    to (D, h, w)) bit for bit on integer images, the variance too; a uint8
+    mask gives the bool mask's result."""
+    h, w = shape
+    rng = np.random.RandomState(h * w + D)
+    a = rng.randint(0, 16, (h, w)).astype(np.float32)
+    b = rng.randint(0, 16, (D, h, w)).astype(np.float32)
+    fin = rng.rand(D, h, w) > 0.25
+    fin[0, :2] = False
+    ta, tb, tf = (torch.from_numpy(x) for x in (a, b, fin))
+    tmsmw.reset_launch_counts()
+    best, var9 = tmsmw._window_costs(ta, tb, tf, need_var=True)
+    assert tmsmw.launch_counts() == {'window_costs': 0}
+    pbest, pvar9 = tmsmw._window_costs_plain(ta, tb, tf, need_var=True)
+    _same(best.numpy(), pbest.numpy())
+    _same(var9.numpy(), pvar9.numpy())
+    jbest, jvar9 = jax.jit(jmsmw._window_costs)(
+        jnp.asarray(a), jnp.asarray(np.moveaxis(b, 0, -1)),
+        jnp.asarray(np.moveaxis(fin, 0, -1)))
+    _same(best.numpy(), np.moveaxis(np.asarray(jbest), -1, 0))
+    _same(var9.numpy(), jvar9)
+    best8, none = tmsmw._window_costs(ta, tb, tf.to(torch.uint8))
+    assert none is None
+    _same(best8.numpy(), best.numpy())
+
+
+def test_window_costs_contract():
+    """A CPU call launches nothing; a wrong dtype or rank raises
+    TypeError, mismatched shapes or another device ValueError."""
+    a = torch.zeros((6, 7))
+    b = torch.zeros((2, 6, 7))
+    f = torch.ones((2, 6, 7), dtype=torch.bool)
+    tmsmw.reset_launch_counts()
+    tmsmw._window_costs(a, b, f)
+    assert tmsmw.launch_counts() == {'window_costs': 0}
+    for args in ((a, b.double(), f), (a, b, f.float()), (a[None], b, f),
+                 (a, b[0], f), (a, b, f[0])):
+        with pytest.raises(TypeError):
+            tmsmw._window_costs(*args)
+    with pytest.raises(ValueError):
+        tmsmw._window_costs(a[:5], b, f)
+    with pytest.raises(ValueError):
+        tmsmw._window_costs(*(t.to('meta') for t in (a, b, f)))
+
+
+def test_window_costs_work_counts_the_windows():
+    """``window_costs_work`` against an enumeration of every window's
+    terms at a small shape: a sum of n terms inside the image is n - 1
+    adds."""
+    D, h, w = 3, 6, 11
+    nbytes, ops = tmsmw.window_costs_work(D, h, w)
+    ones = np.ones((1, h, w), np.float32)
+    terms = 0
+    for ry, rx, sgn in ((4, 4, 0), (1, 4, 0), (4, 1, 0), (1, 4, 1),
+                        (1, 4, -1)):
+        # the horizontal terms: the count of vertical sums summed
+        cnt = window_means_direct(ones, 0, rx, sgn, 1.0)
+        terms += int((cnt - 1).sum())
+    for ry in (4, 1, 1, 1):
+        cnt = window_means_direct(ones, ry, 0, 0, 1.0)
+        terms += int((cnt - 1).sum())
+    assert ops == D * h * w * (5 + 5 * 9 + 4) + D * 3 * (terms
+                                                          + 5 * h * w)
+    assert nbytes == 4 * h * w + 9 * D * h * w
 
 
 def test_scale_step_bitwise_on_integer_images():

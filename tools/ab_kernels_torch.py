@@ -12,14 +12,18 @@ Usage, from the repo root on a machine with one CUDA card and nvcc:
     python3 tools/ab_kernels_torch.py --k5 out/k5_old.cu
     git show <commit>:s2p_tpu_torch/csrc/warp.cu > out/w1_old.cu
     python3 tools/ab_kernels_torch.py --w1 out/w1_old.cu
+    git show <commit>:s2p_tpu_torch/csrc/box.cu > out/b1_old.cu
+    python3 tools/ab_kernels_torch.py --b1 out/b1_old.cu
 
-``--k1``, ``--k4b``, ``--k5`` and ``--w1`` each take zero or more sources,
-and only the kernels named run; the package's own ``csrc/cost_prepass.cu``,
-``csrc/scan_mgm.cu``, ``csrc/wta.cu`` and ``csrc/warp.cu`` are appended as
-the last version.  Every source is built with the port's nvcc flags into
+``--k1``, ``--k4b``, ``--k5``, ``--w1`` and ``--b1`` each take zero or
+more sources, and only the kernels named run; the package's own
+``csrc/cost_prepass.cu``, ``csrc/scan_mgm.cu``, ``csrc/wta.cu``,
+``csrc/warp.cu`` and ``csrc/box.cu`` are appended as the last version.
+Every source is built with the port's nvcc flags into
 out/ab_kernels_build/ and its C entry (``s2p_cost_prepass``,
 ``s2p_scan_mgm``, ``s2p_wta_dr``, ``s2p_warp``; the signatures stay fixed
-for this) runs on the same random inputs:
+for this; B1's, ``s2p_box`` or ``s2p_window_costs``, below) runs on the
+same random inputs:
 
   * K1 at the flow's shapes, per side: bucket A (8 x 512 positions x 448
     lanes, 80 candidates, base 0), bucket B (2 x 896 x 832, 96), one tile
@@ -49,7 +53,19 @@ for this) runs on the same random inputs:
     same bits.  Then two ablation copies are timed at order 5 without
     outputs compared: the weights replaced by constants, and every tap
     replaced by a constant.  Last, ``cuobjdump -sass`` counts the
-    instructions of each version's ``warp_kernel<5>``.
+    instructions of each version's ``warp_kernel<5>``;
+  * B1 at msmw's batteries of window costs on a scene tile (820 x 900):
+    the finest level's match over 16 candidates (gathered as msmw's
+    ``_direction`` gathers them, the candidates' planes interleaved
+    with the rows) and a one-plane battery of fDistTrans.  A version
+    that exports ``s2p_box`` (the one-axis box sums of the first port)
+    runs as the first port's ``_window_costs`` drove it: 30 launches of
+    its kernel inside ``msmw._window_costs_plain``'s shears and
+    elementwise steps; this package's ``s2p_window_costs`` is one
+    launch.  Beside each version's time: its kernels a call and their
+    device time under ``torch.profiler``, and the bound of
+    ``msmw.window_costs_work``; then ``cuobjdump -sass`` counts the
+    instructions of this package's ``window_costs_kernel``.
 
 Each case runs its versions forward then backward (v0 .. vn, vn .. v0;
 median of 5 CUDA-event runs each, behind a device-side spin), and every
@@ -74,6 +90,8 @@ sys.path.insert(0, ROOT)
 
 from s2p_tpu_torch.ops import _build, sgm_kernels as sk  # noqa: E402
 
+# msmw's finest level on a scene tile (rows, columns)
+B1_SHAPE = (820, 900)
 # (name, B, N, lanes, D, disp_min)
 K1_CASES = (('bucket A', 8, 512, 448, 80, 0), ('bucket B', 2, 896, 832, 96, 0),
             ('D 528', 1, 896, 64, 528, 0),
@@ -305,7 +323,24 @@ W1_ABLATIONS = (
         'float ld(const float* p) { return 1.0f; }'),)))
 
 
-def w1_copies(src, out, edits, stem):
+# B1's ablation copies, timed at the finest battery without their
+# outputs compared: each takes one part of the work away
+B1_ABLATIONS = (
+    ('divisions as products', ((
+        '    q = div_rcp(m1, mc, r);\n    c = div_rcp(m2, mc, r);',
+        '    q = m1 * r;\n    c = m2 * r;'),)),
+    ('no diagonals', ((
+        '  if (!var) {\n    __syncthreads();',
+        '  if (false) {\n    __syncthreads();'),)),
+    ('staging and the vertical sums only', ((
+        '  // 3. the box windows',
+        '  if (w > 0) return;\n  // 3. the box windows'),)),
+    ('staging only', ((
+        '  // 2. the vertical sums',
+        '  if (w > 0) return;\n  // 2. the vertical sums'),)))
+
+
+def edited_copies(src, out, edits, stem):
     """{label: path} of the copies of ``src`` that ``edits`` make (as
     W1_VARIANTS), written to ``out``."""
     with open(src) as f:
@@ -316,7 +351,7 @@ def w1_copies(src, out, edits, stem):
         new = text
         for old, rep in subs:
             if new.count(old) != 1:
-                raise RuntimeError(f'W1 copy {label!r}: {old!r} is not in '
+                raise RuntimeError(f'copy {label!r}: {old!r} is not in '
                                    f'{src} once')
             new = new.replace(old, rep)
         paths[label] = os.path.join(out, f'{stem}_{k}.cu')
@@ -426,12 +461,141 @@ def run_w1(libs, ablations, g):
               f'NOP ({top})', flush=True)
 
 
+def b1_inputs(D, g):
+    """(a, b_sh, fin_pair) of one battery on a tile of B1_SHAPE: smooth
+    noise and its copy shifted by 2.5 px with a NaN corner, gathered at
+    D candidates from -8 (or, with D 1, the copy alone) as msmw's
+    ``_direction`` gathers them."""
+    import torch.nn.functional as F
+    h, w = B1_SHAPE
+    noise = torch.rand((1, 1, h, w + 8), device='cuda', generator=g) * 200
+    img = F.avg_pool2d(noise, 5, stride=1, padding=2)[0, 0]
+    src, dst = img[:, 4:w + 4].contiguous(), img[:, 1:w + 1].contiguous()
+    dst[:40, :60] = float('nan')
+    fin_s, fin_d = torch.isfinite(src), torch.isfinite(dst)
+    src, dst = torch.nan_to_num(src), torch.nan_to_num(dst)
+    if D == 1:
+        return src, dst[None], fin_s[None] & fin_d[None]
+    ks = torch.arange(D, device='cuda')
+    xs = torch.arange(w, device='cuda')[None, :] - 8 + ks[:, None]
+    inb = (xs >= 0) & (xs < w)
+    xs_c = xs.clamp(0, w - 1)
+    b_sh = dst[:, xs_c].permute(1, 0, 2)
+    fin = fin_s[None] & fin_d[:, xs_c].permute(1, 0, 2) & inb[:, None]
+    return src, b_sh, fin
+
+
+def b1_route(lib):
+    """``msmw._window_costs``'s counterpart on one version of B1."""
+    from s2p_tpu_torch.ops import msmw
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, 's2p_window_costs'):
+        fn = lib.s2p_window_costs
+        fn.argtypes, fn.restype = msmw._WINDOW_COSTS_ARGS, ctypes.c_int
+
+        def run(a, b_sh, fin):
+            D, h, w = b_sh.shape
+            b_sh, fin = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in (b_sh, fin))
+            best = torch.empty((D, h, w), device='cuda')
+            rc = fn(a.data_ptr(), b_sh.data_ptr(), fin.data_ptr(),
+                    best.data_ptr(), None, D, h, w, a.stride(0),
+                    b_sh.stride(0), b_sh.stride(1), fin.stride(0),
+                    fin.stride(1), msmw._recip_area(4, 4),
+                    msmw._recip_area(1, 4), stream)
+            if rc:
+                raise RuntimeError(f's2p_window_costs: CUDA error {rc}')
+            return best
+        return run
+    fn = lib.s2p_box
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def box_sum(x, r, vertical, scale=0.0):
+        # the first port's box_sum on a CUDA tensor
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        rc = fn(x.data_ptr(), out.data_ptr(), *x.shape, int(r),
+                int(bool(vertical)), scale, stream)
+        if rc:
+            raise RuntimeError(f's2p_box: CUDA error {rc}')
+        return out
+
+    def run(a, b_sh, fin):
+        plain = msmw.box_sum_plain
+        msmw.box_sum_plain = box_sum
+        try:
+            return msmw._window_costs_plain(a, b_sh, fin)[0]
+        finally:
+            msmw.box_sum_plain = plain
+    return run
+
+
+def device_kernels(run):
+    """(kernels launched, their device time in ms) of one call of ``run``
+    under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    n, ms = 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            ms += (e.time_range.end - e.time_range.start) / 1e3
+    return n, ms
+
+
+def run_b1(libs, ablations, g):
+    from s2p_tpu_torch.ops import msmw
+    labels = list(libs)
+    routes = {k: b1_route(lib) for k, lib in libs.items()}
+    cut = {label: b1_route(lib) for label, lib in ablations.items()}
+    for name, D in (('finest battery', 16), ('one plane', 1)):
+        a, b_sh, fin = b1_inputs(D, g)
+        outs, times = {}, {k: [] for k in labels}
+        for k in labels + labels[::-1]:
+            outs.setdefault(k, routes[k](a, b_sh, fin))
+            torch.cuda.synchronize()
+            times[k].append(median_ms(lambda: routes[k](a, b_sh, fin)))
+        nbytes, ops = msmw.window_costs_work(*b_sh.shape)
+        print(f'  B1 {name} {tuple(b_sh.shape)}: bound '
+              f'{max(nbytes / 3.35e12, ops / 33.5e12) * 1e3:.4f} ms '
+              f'({ops} operations at 33.5e12/s, {nbytes} bytes at '
+              f'3.35e12/s)', flush=True)
+        for k in labels:
+            n, dev_ms = device_kernels(lambda: routes[k](a, b_sh, fin))
+            same = bitwise(outs[k], outs[labels[-1]])
+            ms = ', '.join(f'{t:.4f}' for t in times[k])
+            print(f'  B1 {name} {k}: {ms} ms a call; {n} kernels a call, '
+                  f'{dev_ms:.4f} ms of device time under the profiler; '
+                  f'bitwise equal to {labels[-1]}: {same}', flush=True)
+            if not same:
+                raise AssertionError(f'B1 {name}: {k} differs from '
+                                     f'{labels[-1]}')
+        for label, run in cut.items():
+            t = median_ms(lambda: run(a, b_sh, fin))
+            print(f'  B1 {name}, ablation "{label}": {t:.4f} ms',
+                  flush=True)
+    for k, lib in libs.items():
+        if hasattr(lib, 's2p_window_costs'):
+            n, ops = sass_counts(lib._name, 'window_costs_kernel')
+            top = ', '.join(f'{op} {c}' for op, c in
+                            sorted(ops.items(), key=lambda kv: -kv[1])[:16])
+            print(f'  B1 {k}: window_costs_kernel SASS, {n} instructions '
+                  f'other than NOP ({top})', flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--k1', nargs='*')
     ap.add_argument('--k4b', nargs='*')
     ap.add_argument('--k5', nargs='*')
     ap.add_argument('--w1', nargs='*')
+    ap.add_argument('--b1', nargs='*')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('ab_kernels_torch: CUDA is not available', file=sys.stderr)
@@ -444,7 +608,8 @@ def main():
     runs = (('k1', args.k1, 'cost_prepass.cu', run_k1),
             ('k4b', args.k4b, 'scan_mgm.cu', run_k4b),
             ('k5', args.k5, 'wta.cu', run_k5),
-            ('w1', args.w1, 'warp.cu', run_w1))
+            ('w1', args.w1, 'warp.cu', run_w1),
+            ('b1', args.b1, 'box.cu', run_b1))
     srcs = {}
     for key, old, own, _ in runs:
         if old is not None:
@@ -453,12 +618,18 @@ def main():
     ablations = {}
     if args.w1 is not None:
         own = os.path.join(csrc, 'warp.cu')
-        variants = w1_copies(own, out, W1_VARIANTS, 'w1_variant')
+        variants = edited_copies(own, out, W1_VARIANTS, 'w1_variant')
         srcs.update({f'w1_{label.replace(" ", "_")}': p
                      for label, p in variants.items()})
-        ablations = w1_copies(own, out, W1_ABLATIONS, 'w1_ablation')
+        ablations = edited_copies(own, out, W1_ABLATIONS, 'w1_ablation')
         srcs.update({f'w1ablation_{k}': p
                      for k, p in enumerate(ablations.values())})
+    b1_cut = {}
+    if args.b1 is not None:
+        b1_cut = edited_copies(os.path.join(csrc, 'box.cu'), out,
+                               B1_ABLATIONS, 'b1_ablation')
+        srcs.update({f'b1ablation_{k}': p
+                     for k, p in enumerate(b1_cut.values())})
     libs = build(srcs, out)
     for k, p in srcs.items():
         print(f'  {k}: {os.path.relpath(p, ROOT)}', flush=True)
@@ -470,6 +641,9 @@ def main():
         if key == 'w1':
             fn(mine, {label: libs[f'w1ablation_{k}'] for k, label in
                       enumerate(ablations)}, g)
+        elif key == 'b1':
+            fn(mine, {label: libs[f'b1ablation_{k}'] for k, label in
+                      enumerate(b1_cut)}, g)
         else:
             fn(mine, g)
     return 0
