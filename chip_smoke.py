@@ -7,7 +7,8 @@ packages torch, numpy and scipy; it imports nothing of JAX and nothing of
 the JAX package.  Phases, each timed on a line of its own:
 
   1. device: the card's name and power limit (nvidia-smi), torch's version;
-  2. build: the CUDA kernels, one nvcc per source in parallel, into
+  2. build: the native TIFF reader (g++, its seconds), then the CUDA
+     kernels, one nvcc per source in parallel, into
      s2p_tpu_torch/_build/; ptxas's register, shared-memory and stack
      lines, and a check that every instantiation of the scan kernel up to
      4096 candidates (K2 and K4a), of the pre-pass (K1), of the
@@ -203,6 +204,27 @@ the JAX package.  Phases, each timed on a line of its own:
      card against device="cpu" byte for byte; ``ops.sgm.sgm_match_batch``
      on two 256 x 320 tiles with different bases, bitwise against the
      per-tile lax route and the CPU; the seconds of 8i-8k together;
+ 8l. (run right after 8k) the native TIFF reader: windows of the default
+     tile over an ROI of 4 x 3 tiles and its neighbourhood margin across
+     every border and corner, clipped and boundless, of an 8192 x 8192
+     uint16 GeoTIFF in 256 x 256 deflate tiles and of a 3000 x 4000
+     float32 one in deflate strips, each bitwise against the whole-file
+     decode (the Python path); a float32 file with predictor 3 (written by
+     the script), refused by the native reader and read right through
+     windows; ``tiling.is_tile_all_nodata`` over the first 10 windows with
+     the native path and with the whole-file decode, and their ratio;
+ 8m. ``ops/rasterize.plyflatten_device`` on the pair scene's six clouds
+     (float64, as read) at dsm.tif's resolution on the card (cold, then
+     warm) and with device="cpu": the same cells filled, the rest within
+     a relative 1e-12 (the card's adds are atomic);
+ 8n. ``utils/`` on the trees 8b and 8d left: the mosaic of the triplet's
+     pair_1/height_map.tif, each tile's block its map and the GeoTIFF the
+     mosaic; the scene's clouds through ``gather_cloud`` and ``write_las``
+     (the points of all clouds, the LAS header's count and size); its SVG
+     and KML tile maps, one entry a tile;
+ 8o. stage 1 with ``debug`` on for two scene tiles on the card: each
+     pair's sift_matches_pointing.png decodes to the two crops side by
+     side, with coloured matches; the seconds of 8l-8o together;
  8c. a tile mask from GML rings of real size (an ROI ring of 4000
      vertices and a cloud ring of 1000 inside it, on an 800 x 800 tile):
      ``core.masking.image_tile_mask``'s host time and its area against the
@@ -276,6 +298,7 @@ import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -416,6 +439,22 @@ SGM_BATCH_PARAMS = dict(mgm=False, p1=12.0, p2=48.0, p2_edge_scale=0.5,
 SIFT_HOST_CROPS = ((400, 400, 150, 150), (1600, 1100, 150, 150))
 SIFT_HOST_TILE = 300
 SIFT_HOST_TILES = ((300, 300), (1500, 1000))
+# 8l: the native TIFF reader on a panchromatic-like raster (uint16, 256 x
+# 256 deflate tiles) and a float32 strip file; windows of the default
+# tile (800 px) over an ROI of 4 x 3 tiles, their neighbourhoods' margin
+# of 400 px boundless across the raster's borders; the first TIMED_WINDOWS
+# of them also through the whole-file decode (about a second each)
+NATIVE_TILED = dict(h=8192, w=8192, seed=11)
+NATIVE_STRIPS = dict(h=3000, w=4000, seed=12)
+NATIVE_PRED3 = dict(h=1000, w=1200, seed=13)
+NATIVE_TILE = 800
+TIMED_WINDOWS = 10
+# 8m: plyflatten_device on the scene's clouds (float64, as read), card
+# against device="cpu": the adds' order differs (atomics), so cells are
+# held to a relative 1e-12 with equal sets of empty cells
+PLYFLATTEN_RTOL = 1e-12
+# 8o: stage 1 with debug on for the first scene tiles
+DEBUG_TILES = 2
 
 
 @contextmanager
@@ -4430,6 +4469,325 @@ def run_sift_host(scene_root, root, card):
           f'{SIFT_HOST_TILE} px: {t:.3f} s ({card})', flush=True)
 
 
+def write_float_predictor3(path, arr, rows_per_strip=64):
+    """A float32 TIFF with the floating-point predictor (tag 317 = 3) and
+    deflate strips: each row's bytes split into planes, most significant
+    first, then differenced across the row (the port's Python decoder
+    undoes exactly that; the card machine has no PIL to write one)."""
+    import zlib
+    import numpy as np
+    h, w = arr.shape
+    chunks = []
+    for y0 in range(0, h, rows_per_strip):
+        rows = np.ascontiguousarray(arr[y0:y0 + rows_per_strip], '>f4')
+        n = rows.shape[0]
+        planes = rows.view(np.uint8).reshape(n, w, 4).transpose(0, 2, 1) \
+            .reshape(n, 4 * w)
+        diff = planes.copy()
+        diff[:, 1:] = planes[:, 1:] - planes[:, :-1]
+        chunks.append(zlib.compress(diff.tobytes(), 6))
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [32]), (259, 3, [8]),
+               (262, 3, [1]), (273, 4, None), (277, 3, [1]),
+               (278, 4, [rows_per_strip]), (279, 4, [len(c) for c in chunks]),
+               (284, 3, [1]), (317, 3, [3]), (339, 3, [3])]
+    ifd_end = 8 + 2 + 12 * len(entries) + 4
+    heap_at = {273: ifd_end, 279: ifd_end + 4 * len(chunks)}
+    data_at = ifd_end + 8 * len(chunks)
+    offsets = list(np.cumsum([data_at] + [len(c) for c in chunks[:-1]]))
+    out = bytearray(b'II*\0' + struct.pack('<I', 8)
+                    + struct.pack('<H', len(entries)))
+    for tag, typ, vals in entries:
+        vals = offsets if tag == 273 else vals
+        fmt = '<H' if typ == 3 else '<I'
+        if len(vals) == 1:
+            val = struct.pack(fmt, int(vals[0])).ljust(4, b'\0')
+        else:
+            val = struct.pack('<I', heap_at[tag])
+        out += struct.pack('<HHI', tag, typ, len(vals)) + val
+    out += struct.pack('<I', 0)
+    out += struct.pack(f'<{len(chunks)}I', *map(int, offsets))
+    out += struct.pack(f'<{len(chunks)}I', *[len(c) for c in chunks])
+    for c in chunks:
+        out += c
+    with open(path, 'wb') as f:
+        f.write(bytes(out))
+
+
+def native_windows(h, w):
+    """(x, y, w, h) windows of the default tile over an ROI of 4 x 3 tiles
+    at the raster's top left corner, then of the neighbourhood margin
+    (NATIVE_TILE / 2) across each border and corner of the raster."""
+    t, m = NATIVE_TILE, NATIVE_TILE // 2
+    wins = [(x, y, t, t) for y in range(200, 200 + 3 * t, t)
+            for x in range(200, 200 + 4 * t, t)]
+    wins += [(-m, -m, t, t), (w - m, h - m, t, t), (-m, h // 2, t, t),
+             (w // 2, -m, t, t), (w - m, h // 3, t, t), (w // 3, h - m, t, t),
+             (-m, -m, w + 2 * m, 2 * m), (w + 10, 10, t, t)]
+    return wins
+
+
+def check_native_reader(tmp):
+    """8l: windowed reads through the native reader against the whole-file
+    decode (the Python path), bitwise, on a large tiled uint16 file and a
+    float32 strip file; a float32 file with predictor 3 read right through
+    windows (the native reader refuses it); ``tiling.is_tile_all_nodata``
+    over the same windows with the native path and with the whole-file
+    decode."""
+    import numpy as np
+    from s2p_tpu_torch import tiling
+    from s2p_tpu_torch.geo import geotiff, geotiff_native
+
+    def whole_cut(arr, window, boundless):
+        x, y, w, h = window
+        x0, y0 = max(x, 0), max(y, 0)
+        x1, y1 = min(x + w, arr.shape[1]), min(y + h, arr.shape[0])
+        if not boundless:
+            return arr[y0:y1, x0:x1]
+        out = np.zeros((h, w), arr.dtype)
+        if x0 < x1 and y0 < y1:
+            out[y0 - y:y1 - y, x0 - x:x1 - x] = arr[y0:y1, x0:x1]
+        return out
+
+    results = {}
+    for name, spec, dtype, tiled in (('tiled uint16', NATIVE_TILED,
+                                      np.uint16, True),
+                                     ('strip float32', NATIVE_STRIPS,
+                                      np.float32, False)):
+        rng = np.random.RandomState(spec['seed'])
+        h, w = spec['h'], spec['w']
+        yy = np.arange(h, dtype=np.float32)[:, None]
+        xx = np.arange(w, dtype=np.float32)[None, :]
+        arr = (2000 + 800 * np.sin(xx / 97.0) * np.cos(yy / 131.0)
+               + rng.randint(0, 64, (h, w))).astype(dtype)
+        arr[:, :300] = 0                       # a nodata band on the left
+        path = os.path.join(tmp, f'native_{dtype.__name__}.tif')
+        t0 = time.perf_counter()
+        geotiff.write(path, arr, compress='deflate', tiled=tiled)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = geotiff._Tiff(path).read_array()[:, :, 0]
+        t_whole = time.perf_counter() - t0
+        if not np.array_equal(whole, arr):
+            raise AssertionError(f'{name}: the Python decode differs from '
+                                 'the written array')
+        wins = native_windows(h, w)
+        t_native = 0.0
+        for win in wins:
+            for boundless in (False, True):
+                t0 = time.perf_counter()
+                got = geotiff.read(path, window=win, boundless=boundless)
+                t_native += time.perf_counter() - t0
+                want = whole_cut(whole, win, boundless)
+                if (got.dtype != want.dtype or got.shape != want.shape
+                        or got.tobytes() != want.tobytes()):
+                    raise AssertionError(f'{name}: window {win} boundless '
+                                         f'{boundless}: native != Python')
+        print(f'  native reader, {name} {h} x {w} deflate '
+              f"({os.path.getsize(path) / 2 ** 20:.1f} MiB, written in "
+              f'{t_write:.3f} s): {2 * len(wins)} windows bitwise against '
+              f'the whole-file decode ({t_whole:.3f} s a decode); native '
+              f'{t_native:.3f} s for all of them', flush=True)
+        results[name] = path
+    # is_tile_all_nodata over the same windows, both routes
+    path = results['tiled uint16']
+    wins = native_windows(NATIVE_TILED['h'], NATIVE_TILED['w'])[
+        :TIMED_WINDOWS]
+    t0 = time.perf_counter()
+    native = [tiling.is_tile_all_nodata(path, *win) for win in wins]
+    t_native = time.perf_counter() - t0
+    saved = geotiff._read_native
+    geotiff._read_native = lambda *args: None
+    try:
+        t0 = time.perf_counter()
+        whole = [tiling.is_tile_all_nodata(path, *win) for win in wins]
+        t_whole = time.perf_counter() - t0
+    finally:
+        geotiff._read_native = saved
+    if native != whole:
+        raise AssertionError('is_tile_all_nodata differs between the routes')
+    print(f'  tiling.is_tile_all_nodata over {len(wins)} windows of '
+          f'{NATIVE_TILE} px of the {NATIVE_TILED["h"]} x '
+          f'{NATIVE_TILED["w"]} file: native {t_native:.4f} s, whole-file '
+          f'decode {t_whole:.3f} s, ratio {t_whole / t_native:.1f}', flush=True)
+    # the floating-point predictor: refused natively, read right in Python
+    spec = NATIVE_PRED3
+    rng = np.random.RandomState(spec['seed'])
+    arr = (rng.rand(spec['h'], spec['w']) * 300 - 100).astype(np.float32)
+    path = os.path.join(tmp, 'pred3.tif')
+    write_float_predictor3(path, arr)
+    if geotiff_native.read_window(path, 0, 0, 30, 20) is not None:
+        raise AssertionError('the native reader took predictor 3')
+    for win in ((20, 10, 30, 20), (-50, 900, 400, 200), (0, 0, 1200, 1000)):
+        for boundless in (False, True):
+            got = geotiff.read(path, window=win, boundless=boundless)
+            if not np.array_equal(got, whole_cut(arr, win, boundless)):
+                raise AssertionError(f'predictor 3: window {win} read wrong')
+    print(f"  a float32 file with predictor 3 ({spec['h']} x {spec['w']}): "
+          'refused by the native reader, its windows read right by the '
+          'Python path', flush=True)
+    return t_native, t_whole
+
+
+def run_plyflatten(scene_out, card):
+    """8m: ``plyflatten_device`` on the scene's clouds on the card and with
+    device="cpu": its time and the largest difference, the sets of empty
+    cells equal."""
+    import glob
+    import numpy as np
+    import torch
+    from s2p_tpu_torch.geo import geotiff, ply
+    from s2p_tpu_torch.ops import rasterize
+
+    clouds = sorted(glob.glob(os.path.join(scene_out, 'tiles', '*', '*',
+                                           'cloud.ply')))
+    pts = np.vstack([ply.read_ply(c)[0] for c in clouds])
+    res = geotiff.read_profile(os.path.join(scene_out, 'dsm.tif')) \
+        .transform[0]
+    xoff, yoff, xsize, ysize = rasterize.grid_from_roi(
+        np.nanmin(pts[:, 0]), np.nanmin(pts[:, 1]), np.nanmax(pts[:, 0]),
+        np.nanmax(pts[:, 1]), res)
+    grid = (xoff, yoff, res, xsize, ysize)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rasterize.plyflatten_device(pts, *grid)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = rasterize.plyflatten_device(pts, *grid, device='cpu').numpy()
+    t_cpu = time.perf_counter() - t0
+    got = got.cpu().numpy()
+    full = np.isfinite(want)
+    if got.shape != want.shape or not np.array_equal(np.isfinite(got), full):
+        raise AssertionError('plyflatten_device: the card and the CPU fill '
+                             'different cells')
+    diff = np.abs(got[full] - want[full])
+    rel = float((diff / np.maximum(np.abs(want[full]), 1e-300)).max())
+    print(f'  plyflatten_device: {len(clouds)} clouds, {len(pts)} points '
+          f'(float64), grid {ysize} x {xsize} at {res} m, '
+          f'{int(full[..., 0].sum())} cells filled; the card '
+          f'{", ".join(f"{t:.4f}" for t in walls)} s (cold, warm, warm), '
+          f'device="cpu" {t_cpu:.3f} s; largest difference '
+          f'{float(diff.max()):.3e} (relative {rel:.3e}) on {card}',
+          flush=True)
+    if rel > PLYFLATTEN_RTOL:
+        raise AssertionError(f'plyflatten_device: card against CPU off by '
+                             f'{rel:.3e} (relative)')
+
+
+def run_utils(scene_out, triplet_out, tmp):
+    """8n: the utils on the trees of the scene and the triplet: the mosaic
+    of the triplet's pair_1/height_map.tif (each tile's block its map),
+    the scene's clouds through gather_cloud and write_las (the points of
+    every cloud), the scene's two tile maps."""
+    import glob
+    import numpy as np
+    from s2p_tpu_torch.geo import geotiff, ply
+    from s2p_tpu_torch.utils import exporters, mosaic, tilemap
+
+    t0 = time.perf_counter()
+    tiles_txt = os.path.join(triplet_out, 'tiles.txt')
+    out = mosaic.main(tiles_txt, os.path.join(tmp, 'mosaic.tif'),
+                      'pair_1/height_map.tif')
+    t_mosaic = time.perf_counter() - t0
+    with open(tiles_txt) as f:
+        cfgs = [os.path.join(triplet_out, line.strip()) for line in f
+                if line.strip()]
+    rois = []
+    for c in cfgs:
+        with open(c) as f:
+            rois.append(json.load(f)['roi'])
+    x0, y0 = min(r['x'] for r in rois), min(r['y'] for r in rois)
+    for c, r in zip(cfgs, rois):
+        hmap = geotiff.read_with_nans(os.path.join(os.path.dirname(c),
+                                                   'pair_1',
+                                                   'height_map.tif'))
+        block = out[r['y'] - y0:r['y'] - y0 + hmap.shape[0],
+                    r['x'] - x0:r['x'] - x0 + hmap.shape[1]]
+        if not np.array_equal(block, hmap, equal_nan=True):
+            raise AssertionError(f'mosaic: the block of {c} is not its map')
+    if not np.array_equal(geotiff.read(os.path.join(tmp, 'mosaic.tif')), out,
+                          equal_nan=True):
+        raise AssertionError('mosaic: the GeoTIFF is not the mosaic')
+    t0 = time.perf_counter()
+    pts = exporters.gather_cloud(scene_out)
+    n = sum(len(ply.read_ply(c)[0]) for c in glob.glob(
+        os.path.join(scene_out, 'tiles', '*', '*', 'cloud.ply')))
+    las = os.path.join(tmp, 'cloud.las')
+    exporters.write_las(las, pts)
+    t_las = time.perf_counter() - t0
+    with open(las, 'rb') as f:
+        head = f.read(227)
+    if (len(pts) != n or int.from_bytes(head[107:111], 'little') != n
+            or os.path.getsize(las) != 227 + 26 * n):
+        raise AssertionError(f'LAS: {len(pts)} points gathered, {n} in the '
+                             'clouds')
+    t0 = time.perf_counter()
+    tiles = os.path.join(scene_out, 'tiles.txt')
+    with open(tiles) as f:
+        n_tiles = sum(1 for line in f if line.strip())
+    tilemap.svg_tilemap(tiles, os.path.join(tmp, 'map.svg'))
+    tilemap.kml_tilemap(tiles, os.path.join(tmp, 'map.kml'))
+    t_maps = time.perf_counter() - t0
+    with open(os.path.join(tmp, 'map.svg')) as f:
+        rects = f.read().count('<rect')
+    with open(os.path.join(tmp, 'map.kml')) as f:
+        marks = f.read().count('<Placemark')
+    if rects != n_tiles or marks != n_tiles:
+        raise AssertionError(f'tile maps: {rects} and {marks} tiles of '
+                             f'{n_tiles}')
+    print(f'  utils: the mosaic of the triplet\'s {len(cfgs)} height maps '
+          f'({out.shape[0]} x {out.shape[1]}) {t_mosaic:.3f} s, each block '
+          f'its map; gather_cloud and write_las of the scene\'s {n} points '
+          f'{t_las:.3f} s; the SVG and KML tile maps ({n_tiles} tiles) '
+          f'{t_maps:.3f} s', flush=True)
+
+
+def run_debug_plot(scene_root, root):
+    """8o: stage 1 with debug on for the first DEBUG_TILES scene tiles on
+    the card: each pair's sift_matches_pointing.png, decoded, has the size
+    of the two crops side by side and coloured matches."""
+    import dataclasses
+    import numpy as np
+    from s2p_tpu_torch import pipeline, tiling
+    from s2p_tpu_torch.core import rpc_geom
+    from s2p_tpu_torch.geo import geotiff
+
+    cfg = pipeline.build_cfg(pipeline.read_config_file(
+        os.path.join(scene_root, 'config.json')))
+    tiles = tiling.tiles_full_info(cfg, *tiling.adjust_tile_size(cfg),
+                                   os.path.join(cfg.out_dir, 'tiles.txt'))
+    tiles = [moved(t, cfg.out_dir, root) for t in tiles[:DEBUG_TILES]]
+    for t in tiles:
+        os.makedirs(os.path.join(t['dir'], 'pair_1'))
+    dcfg = dataclasses.replace(cfg, out_dir=root, debug=True)
+    t0 = time.perf_counter()
+    pipeline.pointing_correction_all(dcfg, [(t, 1) for t in tiles])
+    wall = time.perf_counter() - t0
+    im1 = pipeline._image(cfg.images[0].img)
+    im2 = pipeline._image(cfg.images[1].img)
+    for t in tiles:
+        png = os.path.join(t['dir'], 'pair_1', 'sift_matches_pointing.png')
+        got = geotiff.read_png(png)
+        x, y, w, h = t['coordinates']
+        x2, y2, w2, h2 = map(int, rpc_geom.corresponding_roi(
+            cfg.images[0].rpcm, cfg.images[1].rpcm, x, y, w, h))
+        h1, w1 = im1[y:y + h, x:x + w].shape
+        h2, w2 = im2[max(y2, 0):y2 + h2, max(x2, 0):x2 + w2].shape
+        coloured = int((got.max(axis=2) != got.min(axis=2)).sum())
+        n = len(np.loadtxt(os.path.join(t['dir'], 'pair_1',
+                                        'sift_matches.txt')))
+        if got.shape != (max(h1, h2), w1 + w2, 3) or coloured == 0:
+            raise AssertionError(f'{png}: {got.shape}, {coloured} coloured '
+                                 'pixels')
+        print(f'  debug plot: {tile_name(t)}: {got.shape[0]} x '
+              f'{got.shape[1]} RGB, {n} matches, {coloured} coloured pixels',
+              flush=True)
+    print(f'  stage 1 with debug on, {len(tiles)} tiles: {wall:.3f} s',
+          flush=True)
+
+
 def check_single_m03(pairs):
     """The single tile at non-integer penalties (m 0.3): a 128 x 160 crop
     on the card against device="cpu" byte for byte, and the 800 x 800
@@ -4487,6 +4845,11 @@ def main():
               f'count {torch.cuda.device_count()}', flush=True)
 
     with phase('build'):
+        from s2p_tpu_torch.geo import geotiff_native
+        t0 = time.perf_counter()
+        native = geotiff_native.build()
+        print(f'  g++: {time.perf_counter() - t0:.3f} s for the native TIFF '
+              f'reader ({os.path.relpath(native)})')
         libs, secs = _build.build()
         print(f'  nvcc: {secs:.3f} s for {sorted(libs)}')
         for name in _build.SOURCES:
@@ -4637,8 +5000,22 @@ def main():
         with phase('sgm_match_batch on the card'):
             check_sgm_batch()
         t_new = time.perf_counter() - t_new
-        print(f"  the phases of this slice: {t_new:.3f} s; stage 4 on the "
+        print(f"  the phases 8i-8k: {t_new:.3f} s; stage 4 on the "
               f"scene's tiles: {new_walls} s on {card}", flush=True)
+        t_last = time.perf_counter()
+        with phase('the native TIFF reader: windows against the whole-file '
+                   'decode'):
+            check_native_reader(tmp)
+        scene_out = os.path.join(tmp, 'scene', 'out')
+        with phase('plyflatten_device on the scene\'s clouds, card and CPU'):
+            run_plyflatten(scene_out, card)
+        with phase('utils on the scene and triplet trees'):
+            run_utils(scene_out, os.path.join(tmp, 'triplet', 'out'), tmp)
+        with phase('stage 1 with debug on: the match plots'):
+            run_debug_plot(os.path.join(tmp, 'scene'),
+                           os.path.join(tmp, 'debug'))
+        print(f'  the phases 8l-8o: {time.perf_counter() - t_last:.3f} s on '
+              f'{card}', flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -7,18 +7,20 @@ validity mask as an 8-bit grey PNG; stages 6 and 7 write the tile and
 scene DSMs as georeferenced float32 GeoTIFFs.  The port's machines have
 no PIL, rasterio or GDAL, so this module carries the subset it needs:
 
-  * TIFF read (the JAX package's pure-Python reader, without its native
-    windowed decoder): classic TIFF and BigTIFF, first IFD, strips or
-    tiles, chunky or planar samples, any integer or float sample type,
-    compression none, deflate, PackBits or LZW, the horizontal and the
-    floating-point predictor, windowed reads, the profile (geo transform,
-    EPSG CRS, nodata, RPC tag), any tag's raw value (:func:`read_tag`);
+  * TIFF read (the JAX package's pure-Python reader): classic TIFF and
+    BigTIFF, first IFD, strips or tiles, chunky or planar samples, any
+    integer or float sample type, compression none, deflate, PackBits or
+    LZW, the horizontal and the floating-point predictor, the profile (geo
+    transform, EPSG CRS, nodata, RPC tag), any tag's raw value
+    (:func:`read_tag`); windowed reads go through the native decoder of
+    :mod:`geotiff_native`, which touches only the chunks that meet the
+    window, for the layouts it takes;
   * TIFF write: ``s2p_tpu.geo.geotiff.write``'s layout (strips, or
     256 x 256 tiles; deflate through zlib or none; the geo transform,
     the GeoKeys of a UTM or geographic CRS, the GDAL nodata and metadata
     tags and the RPC tag), byte for byte what that function writes.  It
     writes no predictor;
-  * PNG write of 8-bit grey images, and PNG read of the non-interlaced
+  * PNG write of 8-bit grey and RGB images, and PNG read of the non-interlaced
     layouts a mask comes in (grey of 1 to 16 bits, palette indices, and
     grey-alpha, RGB and RGBA of 8 or 16 bits), as PIL returns them: the
     reader undoes all five PNG row filters, so it reads files written by
@@ -32,6 +34,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import geotiff_native
 
 _T_WIDTH, _T_HEIGHT = 256, 257
 _T_BPS, _T_COMPRESSION, _T_PHOTO = 258, 259, 262
@@ -190,13 +194,17 @@ class _Tiff:
 
 
 def _unpredict(a, pred):
-    """Undo the TIFF predictor: 2 horizontal differences, 3 the
-    floating-point predictor (each row's bytes split into planes, most
-    significant first, then differenced).  The JAX package's reader
+    """Undo the TIFF predictor: 2 horizontal differences, summed as
+    unsigned integers of the sample's width (libtiff's rule, floating-point
+    samples included), 3 the floating-point predictor (each row's bytes
+    split into planes, most significant first, then differenced).  The JAX
+    package's reader sums predictor 2's float samples as floats and
     reverses the planes' byte order once more for predictor 3, which
     decodes such files wrongly; this one does not."""
     if pred == 2:
-        return np.cumsum(a, axis=1, dtype=a.dtype)
+        u = a.view(a.dtype.str.replace('f', 'u')) if a.dtype.kind == 'f' \
+            else a
+        return np.cumsum(u, axis=1, dtype=u.dtype).view(a.dtype)
     if pred == 3:
         h, w, c = a.shape
         raw = a.view(np.uint8).reshape(h, w * c * a.itemsize)
@@ -320,7 +328,13 @@ def read(path, window=None, boundless=False, fill_value=0):
 
     ``window`` is an optional (x, y, w, h) pixel window, clipped to the
     raster unless ``boundless``, in which case the area outside it is
-    ``fill_value``.  The whole raster is decoded, then cut."""
+    ``fill_value``.  A windowed read goes through the native decoder
+    (:func:`_read_native`) where it can; otherwise the whole raster is
+    decoded, then cut."""
+    if window is not None:
+        arr = _read_native(path, window, boundless, fill_value)
+        if arr is not None:
+            return arr
     arr = _Tiff(path).read_array()
     if arr.shape[2] == 1:
         arr = arr[:, :, 0]
@@ -336,6 +350,20 @@ def read(path, window=None, boundless=False, fill_value=0):
     if x0 < x1 and y0 < y1:
         out[y0 - y:y1 - y, x0 - x:x1 - x] = arr[y0:y1, x0:x1]
     return out
+
+
+def _read_native(path, window, boundless, fill_value):
+    """A windowed read through the native decoder, with the JAX package's
+    routing: a read that is not boundless is clipped to the raster first
+    (None if nothing is left); a boundless one goes native only with
+    ``fill_value`` 0, since the native decoder zero-fills; None for
+    whatever the native decoder refuses."""
+    x, y, w, h = [int(v) for v in window]
+    if not boundless:
+        return geotiff_native.read_window(path, x, y, w, h, clip=True)
+    if fill_value not in (0, 0.0):
+        return None
+    return geotiff_native.read_window(path, x, y, w, h)
 
 
 def read_with_nans(path):
@@ -519,20 +547,22 @@ def _png_chunk(kind, payload):
 
 
 def write_png(path, array):
-    """Write a 2-D uint8 (or bool, as 0/255) array as an 8-bit grey PNG."""
+    """Write a 2-D uint8 (or bool, as 0/255) array as an 8-bit grey PNG,
+    or an (h, w, 3) uint8 array as an 8-bit RGB one."""
     arr = np.asarray(array)
     if arr.dtype == bool:
         arr = arr.astype(np.uint8) * 255
-    if arr.ndim != 2 or arr.dtype != np.uint8:
-        raise ValueError(f'write_png takes a 2-D uint8 array, got '
-                         f'{arr.dtype} {arr.shape}')
-    h, w = arr.shape
-    rows = np.zeros((h, w + 1), np.uint8)       # filter byte 0 per row
-    rows[:, 1:] = arr
+    rgb = arr.ndim == 3 and arr.shape[2] == 3
+    if not (arr.ndim == 2 or rgb) or arr.dtype != np.uint8:
+        raise ValueError(f'write_png takes a 2-D or (h, w, 3) uint8 array, '
+                         f'got {arr.dtype} {arr.shape}')
+    h, w = arr.shape[:2]
+    rows = np.zeros((h, 1 + arr[0].size), np.uint8)  # filter byte 0 a row
+    rows[:, 1:] = arr.reshape(h, -1)
     with open(path, 'wb') as f:
         f.write(_PNG_SIG
-                + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 0,
-                                                  0, 0, 0))
+                + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8,
+                                                  2 if rgb else 0, 0, 0, 0))
                 + _png_chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
                 + _png_chunk(b'IEND', b''))
 

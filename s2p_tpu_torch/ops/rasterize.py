@@ -17,7 +17,9 @@ grid by weighted accumulation:
 The accumulation is a float64 scatter-add (``np.add.at``) and the output
 float32, so a tile's rasterization and the whole scene's round the same
 points to the same values: the seamlessness of the mosaic rests on it.
-The JAX package's ``plyflatten_jax`` device path is not ported yet.
+:func:`plyflatten_device`, the counterpart of the JAX package's
+``plyflatten_jax``, is the single-cell splat as a scatter-add on the
+device, in the cloud's own dtype.
 """
 
 from __future__ import annotations
@@ -152,3 +154,60 @@ def plyflatten_from_plyfiles_list(clouds_list, resolution, roi=None,
                                  0.0, -resolution, float(yoff)),
                       nodata=float('nan'))
     return raster, profile
+
+
+# --------------------------------------------------------------------- #
+# Device scatter path (the JAX package's plyflatten_jax)
+# --------------------------------------------------------------------- #
+
+def plyflatten_device(xyzw, xoff, yoff, resolution, xsize, ysize,
+                      sigma=None, device=None):
+    """Single-cell (radius 0) gaussian splat as a scatter-add on the device.
+
+    Args:
+        xyzw: (n, 3+) array or tensor of x, y, payload...; invalid rows NaN.
+        sigma: the gaussian's spread; None means ``resolution``.
+        device: None runs on CUDA and raises without it; "cpu" runs there.
+
+    Returns:
+        (ysize, xsize, nch) tensor in ``xyzw``'s dtype, NaN where no point
+        fell.  Points outside the grid and rows with a non-finite value go
+        to an overflow bucket that is dropped; each cell is its points'
+        payloads weighted by exp(-d^2 / (2 sigma^2)) of their distance to
+        its centre, over a weight floored at 1e-30.  On the card the adds
+        are atomic, so their order, and the last bits of a cell with
+        several points, may change from run to run.
+    """
+    import torch
+    from ..device import resolve
+
+    dev = resolve(device)
+    xyzw = torch.as_tensor(xyzw).to(dev)
+    xoff, yoff, res = float(xoff), float(yoff), float(resolution)
+    sigma = res if sigma is None else float(sigma)
+    x, y, payload = xyzw[:, 0], xyzw[:, 1], xyzw[:, 2:]
+    good = (torch.isfinite(x) & torch.isfinite(y)
+            & torch.isfinite(payload).all(dim=1))
+
+    # cells as integers; the clamp keeps the conversion defined and
+    # changes no in-grid cell
+    j0 = torch.floor((x - xoff) / res).clamp(-1, xsize).to(torch.int64)
+    i0 = torch.floor((yoff - y) / res).clamp(-1, ysize).to(torch.int64)
+    inb = good & (j0 >= 0) & (j0 < xsize) & (i0 >= 0) & (i0 < ysize)
+    flat = torch.where(inb, i0 * xsize + j0, ysize * xsize)
+
+    cx = xoff + (j0.to(x.dtype) + 0.5) * res
+    cy = yoff - (i0.to(x.dtype) + 0.5) * res
+    d2 = (x - cx) ** 2 + (y - cy) ** 2
+    w = torch.where(inb, torch.exp(-d2 / (2 * sigma * sigma)),
+                    torch.zeros((), dtype=x.dtype, device=dev))
+
+    size = ysize * xsize + 1
+    wacc = torch.zeros(size, dtype=x.dtype, device=dev).index_add_(0, flat, w)
+    pay = torch.nan_to_num(payload) * w[:, None]
+    acc = torch.zeros((size, payload.shape[1]), dtype=x.dtype,
+                      device=dev).index_add_(0, flat, pay)
+    out = acc[:-1] / torch.clamp(wacc[:-1], min=1e-30)[:, None]
+    out = torch.where(wacc[:-1, None] > 0, out,
+                      torch.full((), float('nan'), dtype=x.dtype, device=dev))
+    return out.reshape(ysize, xsize, payload.shape[1])

@@ -115,10 +115,9 @@ def pointing_correction(cfg: Config, tile, i, device=None):
 def _write_pointing_outputs(cfg: Config, tile, i, A, m):
     """A tile pair's stage-1 files: ``pointing.txt`` (the correction),
     ``sift_matches.txt`` and ``center_keypts_sec.txt`` (the mean
-    secondary keypoint), each only where there is something to write.
-    The JAX package also draws ``sift_matches_pointing.png`` under
-    ``cfg.debug`` with PIL, which the port does not import: that file is
-    not written (ROADMAP M12)."""
+    secondary keypoint), each only where there is something to write;
+    under ``cfg.debug`` also ``sift_matches_pointing.png``, the matches
+    drawn over the two crops (:func:`visualisation.plot_matches`)."""
     out_dir = os.path.join(tile['dir'], f'pair_{i}')
     if A is not None:
         np.savetxt(os.path.join(out_dir, 'pointing.txt'), A, fmt='%6.3f')
@@ -126,6 +125,14 @@ def _write_pointing_outputs(cfg: Config, tile, i, A, m):
         np.savetxt(os.path.join(out_dir, 'sift_matches.txt'), m, fmt='%9.3f')
         np.savetxt(os.path.join(out_dir, 'center_keypts_sec.txt'),
                    np.mean(m[:, 2:], 0), fmt='%9.3f')
+        if cfg.debug:
+            from .core import visualisation
+            img1, img2 = cfg.images[0], cfg.images[i]
+            x, y, w, h = tile['coordinates']
+            visualisation.plot_matches(
+                _image(img1.img), _image(img2.img), img1.rpcm, img2.rpcm, m,
+                os.path.join(out_dir, 'sift_matches_pointing.png'),
+                x, y, w, h)
 
 
 def _pointing_jobs(cfg: Config, tiles_pairs):

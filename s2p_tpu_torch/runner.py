@@ -232,6 +232,14 @@ def launch_calls(fun, list_of_args, nb_workers=None, *extra_args,
     return results
 
 
+class SerialRunner:
+    """Runner facade with :class:`PoolRunner`'s ``map``, run in order on
+    the caller's thread."""
+
+    def map(self, fun, items):
+        return [fun(i) for i in items]
+
+
 class PoolRunner:
     """Runner facade over launch_calls: per-call EXECUTION deadlines and
     cooperative cancellation, same semantics as the stage fan-out."""

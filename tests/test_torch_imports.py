@@ -78,6 +78,40 @@ def test_new_modules_are_scanned():
         assert m in mods, m
 
 
+# modules of the JAX package whose counterpart has another name
+RENAMED = {
+    # the Pallas kernels' wrappers: the port's hand-written CUDA kernels
+    # (csrc/) and their plain versions sit behind sgm_kernels.py
+    'ops/sgm_pallas.py': ('ops/sgm_kernels.py', 'the Pallas kernels became '
+                          'CUDA kernels with plain PyTorch versions'),
+    # SIFT's device route: eager torch on the card, not a TPU program
+    'ops/sift_tpu.py': ('ops/sift_device.py', 'the device route is not '
+                        "the TPU's"),
+}
+
+
+def test_every_module_has_a_counterpart():
+    """Each .py module of s2p_tpu/ has a file of the same name and place
+    in s2p_tpu_torch/, or the renamed one listed in RENAMED."""
+    jax_pkg = os.path.join(ROOT, 's2p_tpu')
+    missing = []
+    for d, _, files in os.walk(jax_pkg):
+        for f in files:
+            if not f.endswith('.py'):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jax_pkg).replace(
+                os.sep, '/')
+            port = RENAMED.get(rel, (rel,))[0]
+            if not os.path.exists(os.path.join(PKG, *port.split('/'))):
+                missing.append(rel)
+    assert not missing, missing
+    for rel, (port, _) in RENAMED.items():
+        assert os.path.exists(os.path.join(ROOT, 's2p_tpu', rel)), rel
+        assert not os.path.exists(os.path.join(PKG, rel)), rel
+    # the native reader's source has its own copy beside the port
+    assert os.path.exists(os.path.join(PKG, 'native', 'tiffio.cpp'))
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         'import sys\n'

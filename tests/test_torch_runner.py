@@ -176,6 +176,24 @@ def test_pool_runner_maps_tuple_items():
     assert trunner.PoolRunner(2, timeout=5).map(len, [(1, 2), (3,)]) == [2, 1]
 
 
+def test_serial_runner_maps_in_order(runner):
+    """SerialRunner.map calls fun(item) for each item in turn on the
+    caller's thread, tuples included, and lets an exception through."""
+    calls = []
+
+    def fun(item):
+        calls.append((item, threading.get_ident()))
+        return len(item) if isinstance(item, tuple) else item * 2
+
+    items = [3, (1, 2), 5, (4,)]
+    assert runner.SerialRunner().map(fun, items) == [6, 2, 10, 1]
+    assert [c[0] for c in calls] == items
+    assert {c[1] for c in calls} == {threading.get_ident()}
+    assert runner.SerialRunner().map(fun, []) == []
+    with pytest.raises(ZeroDivisionError):
+        runner.SerialRunner().map(lambda x: 1 / x, [1, 0, 2])
+
+
 # --------------------------------------------------------------------- #
 # The stage drivers' deadline
 # --------------------------------------------------------------------- #
